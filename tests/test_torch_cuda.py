@@ -1,0 +1,67 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These tests need a CUDA device, nvcc and the sm_90a target (an H100); they
+carry the ``cuda`` marker and skip elsewhere. On a machine with the card:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+import torch
+
+from acav100m_torch.ops.bottleneck_kernel import fused_stage, fused_stage_ref
+from acav100m_torch.ops.kmeans_kernel import fused_assign_update, fused_assign_update_ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("m,k,d,b", [(3, 8, 48, 100), (2, 4, 40, 64), (10, 32, 2304, 1000)])
+def test_k1_matches_plain(card, m, k, d, b):
+    gen = torch.Generator().manual_seed(b)
+    batch = torch.randn((m, b, d), generator=gen).to(card)
+    centers = torch.randn((m, k, d), generator=gen).to(card)
+    counts = torch.randint(0, 400, (m, k), generator=gen).float().to(card)
+    threshold = 147.0
+    before = fused_assign_update.launches
+    best, c, dl, mean = fused_assign_update(centers, counts, batch, threshold)
+    assert fused_assign_update.launches == before + 1
+    best_p, c_p, dl_p, mean_p = fused_assign_update_ref(centers, counts, batch, threshold)
+    # random data in these sizes has no near-ties at 1e-4
+    assert torch.equal(best, best_p)
+    assert torch.equal(c, c_p)
+    torch.testing.assert_close(dl, dl_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(mean, mean_p, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,hw,stride,cin", [(2, 8, 1, 80), (2, 6, 2, 80), (3, 13, 1, 256)])
+def test_k2_matches_plain(card, n, hw, stride, cin):
+    gen = torch.Generator().manual_seed(hw)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(card)
+
+    blocks = []
+    for i in range(3):
+        c_in = cin if i == 0 else 256
+        blk = {"aw": rnd(c_in, 64, scale=c_in ** -0.5), "ab": rnd(64, scale=0.1),
+               "bw": rnd(3, 3, 64, 64, scale=(9 * 64) ** -0.5), "bb": rnd(64, scale=0.1),
+               "cw": rnd(64, 256, scale=0.125), "cb": rnd(256, scale=0.1)}
+        if i == 0 and (cin != 256 or stride != 1):
+            blk.update(pw=rnd(c_in, 256, scale=c_in ** -0.5), pb=rnd(256, scale=0.1))
+        blocks.append(blk)
+    x = rnd(n, hw, hw, cin)
+    before = fused_stage.launches
+    out = fused_stage(x, blocks, stride)
+    assert fused_stage.launches == before + 3
+    ref = fused_stage_ref(x, blocks, stride)
+    assert out.shape == ref.shape
+    assert (out - ref).abs().max() <= 1e-3 * ref.abs().max()
