@@ -266,7 +266,7 @@ __global__ void __launch_bounds__(NT, 2) bottleneck_block_kernel(
   }
 }
 
-extern "C" size_t bottleneck_block_smem(int Cin, int Ci, int Cout, int s, int TH, int TW) {
+static size_t bottleneck_block_smem(int Cin, int Ci, int Cout, int s, int TH, int TW) {
   const int na = ((TH - 1) * s + 3) * ((TW - 1) * s + 3);
   const int nap = (na + 3) / 4 * 4, nq = TH * TW;
   return sizeof(float) * ((size_t)Ci * nap + (size_t)Ci * nq +

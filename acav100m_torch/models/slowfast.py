@@ -22,7 +22,7 @@ s3_fuse, s4_fuse and s5, pathways concatenated — dims
 With ``pallas_stages`` (the JAX package's key) the kt=1, stride-1 slow
 stage — ``s2`` on the slow pathway only, where ``slowfast.py:951-952``
 routes its Pallas stage — runs as kernel K2 (``ops.bottleneck_kernel``)
-with BN folded into the conv weights at apply time; on CPU tensors K2's
+with BN folded into the conv weights once in eval mode; on CPU tensors K2's
 plain version runs instead. Every other stage is the canonical graph.
 """
 
@@ -172,16 +172,39 @@ class ResStage(nn.Module):
                     cin if i == 0 else cout, cout, inner, kt,
                     self.stride if i == 0 else 1))
         self.num_blocks = STAGE_BLOCKS[si]
+        self._folded_cache = None
 
     def _blocks(self, p: int) -> List[ResBlock]:
         return [getattr(self, f"pathway{p}_res{i}") for i in range(self.num_blocks)]
+
+    def _folded(self) -> List[Dict[str, torch.Tensor]]:
+        """The slow blocks' BN-folded weights. In eval mode they are folded
+        once and kept until the weights are loaded, moved or cast, or the
+        module changes mode."""
+        if self.training:
+            return [blk.folded() for blk in self._blocks(0)]
+        if self._folded_cache is None:
+            with torch.inference_mode(False), torch.no_grad():
+                self._folded_cache = [blk.folded() for blk in self._blocks(0)]
+        return self._folded_cache
+
+    def train(self, mode: bool = True):
+        self._folded_cache = None
+        return super().train(mode)
+
+    def _apply(self, fn, *args, **kwargs):
+        self._folded_cache = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._folded_cache = None
+        super()._load_from_state_dict(*args, **kwargs)
 
     def _fused(self, x):
         """Kernel K2 on folded frames: (B,C,T,H,W) -> NHWC -> back."""
         b, c, t, h, w = x.shape
         frames = x.permute(0, 2, 3, 4, 1).reshape(b * t, h, w, c)
-        y = fused_stage(frames, [blk.folded() for blk in self._blocks(0)],
-                        stride=self.stride)
+        y = fused_stage(frames, self._folded(), stride=self.stride)
         return y.reshape(b, t, *y.shape[1:]).permute(0, 4, 1, 2, 3)
 
     def forward(self, slow, fast):

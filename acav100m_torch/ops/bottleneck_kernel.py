@@ -27,7 +27,6 @@ import torch.nn.functional as F
 from . import cuda_build
 
 Tensor = torch.Tensor
-_SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block can use
 _KEYS = ("aw", "ab", "bw", "bb", "cw", "cb")
 
 
@@ -69,10 +68,7 @@ def _bind():
     fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
-    smem = lib.bottleneck_block_smem
-    smem.argtypes = [ctypes.c_int] * 6
-    smem.restype = ctypes.c_size_t
-    return fn, smem
+    return fn
 
 
 def _check_block(blk: Dict[str, Tensor], cin: int, dev) -> None:
@@ -110,7 +106,7 @@ def fused_stage(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype != torch.float32:
         raise ValueError(f"kernel K2 takes float32, got {x.dtype}")
-    fn, smem_fn = _bind()
+    fn = _bind()
     h = x.contiguous()
     s = stride
     with torch.cuda.device(x.device):
@@ -122,9 +118,6 @@ def fused_stage(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
             _check_block(blk, cin, x.device)
             inner, cout = blk["aw"].shape[1], blk["cw"].shape[1]
             tile = max(2, 8 // s)  # output tile side; its pixel count is a multiple of 4
-            if smem_fn(cin, inner, cout, s, tile, tile) > _SMEM_LIMIT:
-                raise ValueError(f"block of Cin {cin}, inner {inner} exceeds "
-                                 "the kernel's shared memory")
             out = torch.empty((n, hh // s, ww // s, cout), device=x.device,
                               dtype=torch.float32)
             err = fn(_ptr(h), n, hh, ww, cin,

@@ -1,14 +1,13 @@
-"""Device-time profile of the port's main path on one GPU.
+"""Device-time profile of one extract batch on one GPU.
 
     python -m acav100m_torch.profiling
 
-Runs under ``torch.profiler`` (CUDA activity): kernel K1 at the main path's
-shape (M=10, K=32, D=2304, B=1024), kernel K2 on the ``s2`` slow stage of
-4 clips (32 frames of 64x64, 80 -> 256), and one warm extract batch of 4
-synthetic clips through both full-width models (32 frames of 256x256,
-float32, seeded weights, PyTorch's default TF32 for cuDNN convolutions).
-For each it prints the device time by kernel name, the summed device time
-and the wall time, so the device's busy share is their ratio.
+Runs one warm extract batch of 4 synthetic clips through both full-width
+models (32 frames of 256x256, float32, seeded weights, PyTorch's default
+TF32 for cuDNN convolutions) under ``torch.profiler`` (CUDA activity). It
+prints the device time by kernel name, the summed device time and the wall
+time, so the device's busy share is their ratio. The kernels' own times at
+the main paths' shapes come from ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -20,10 +19,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .models import init_weights
-from .models.slowfast import LayerSlowFast, ResBlock
+from .models.slowfast import LayerSlowFast
 from .models.vggish import LayerVggish
-from .ops.bottleneck_kernel import fused_stage
-from .ops.kmeans_kernel import fused_assign_update
 
 
 def _device_us(evt) -> float:
@@ -33,7 +30,7 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def run(label: str, fn, iters: int = 5, top: int = 12) -> None:
+def run(label: str, fn, iters: int = 3, top: int = 16) -> None:
     fn()  # warm: builds kernels, picks cuDNN algorithms
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -62,23 +59,7 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     print(torch.cuda.get_device_name(0))
-
-    m, k, d, b = 10, 32, 2304, 1024
-    batch = torch.randn((m, b, d), generator=gen).to(dev)
-    centers = torch.randn((m, k, d), generator=gen).to(dev)
-    counts = torch.randint(0, 200, (m, k), generator=gen).float().to(dev)
-    run("K1 kmeans_assign_update", lambda: fused_assign_update(centers, counts, batch, 90.5))
-
-    blocks = []
-    for i in range(3):
-        blk = ResBlock(80 if i == 0 else 256, 256, 64, 1, 1)
-        init_weights(blk, gen)
-        blocks.append(blk.to(dev).eval())
     with torch.inference_mode():
-        folded = [blk.folded() for blk in blocks]
-        x = torch.randn((32, 64, 64, 80), generator=gen).to(dev)
-        run("K2 bottleneck_stage", lambda: fused_stage(x, folded, 1))
-
         sf, vg = LayerSlowFast(), LayerVggish()
         init_weights(sf, gen)
         init_weights(vg, gen)
@@ -89,7 +70,7 @@ def main() -> int:
         audio = (0.1 * torch.randn((4, 160000), generator=gen)).to(dev)
         valid = torch.full((4,), 160000, device=dev)
         run("extract batch (4 clips, SlowFast + VGGish)",
-            lambda: (sf(frames), vg(audio, valid)), iters=3, top=16)
+            lambda: (sf(frames), vg(audio, valid)))
     return 0
 
 

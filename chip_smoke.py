@@ -6,9 +6,9 @@ Phases, each printing its own lines:
 
 1. build the hand-written kernels from ``acav100m_torch/csrc`` (one nvcc
    per source, started together) and print the card's name and power limit;
-2. hold each kernel against its plain PyTorch version at the main path's
+2. hold each kernel against its plain PyTorch version at the main paths'
    shapes (TF32 off), and time kernel, plain version and library yardstick
-   with CUDA events;
+   with CUDA events around back-to-back calls;
 3. main path A through the port's CLI: ``fixtures`` (2 shards x 8 clips,
    32 frames of 256x256) -> ``extract`` (SlowFast 8x8 R50 + VGGish at full
    width, float32, seeded random weights) -> ``cluster`` -> ``select``;
@@ -70,19 +70,19 @@ def check(ok: bool, what: str) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median of ``iters`` CUDA-event-timed calls."""
+    """Median of ``iters`` back-to-back calls, each between two CUDA events.
+    Nothing synchronizes inside the loop, so the host's launch work overlaps
+    the queued device work and a call's time is the device's."""
     for _ in range(warmup):
         fn()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
     torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
+    events[0].record()
+    for ev in events[1:]:
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        ev.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
 
 
 def bound(nbytes: float, flops: float):
@@ -102,16 +102,21 @@ def counts():
 # -- phase 2: kernels against their plain versions --------------------------------
 
 def check_k1(gen: torch.Generator) -> dict:
-    m, k, d = 10, 32, 2304
-    count = 20000  # past warmup; threshold (count/k)**0.7 ~ 90 marks ~45% underused
-    threshold = (count / k) ** 0.7
+    """K1 at the shapes both main paths give it: path B's K=32, B=1024 (timed)
+    and its ragged B=1000, and path A's K=4, B=4 (one tile, one partial)."""
+    m, d = 10, 2304
     result = {}
-    for b in (1024, 1000):
+    # (k, b, samples seen): the threshold (seen / k)**0.7 past warmup, with
+    # counts drawn below twice it, marks about half the centers underused
+    for k, b, seen in ((32, 1024, 20000), (32, 1000, 20000), (4, 4, 48)):
+        threshold = (seen / k) ** 0.7
         batch = torch.randn((m, b, d), generator=gen).cuda()
         pick = torch.randperm(b, generator=gen)[:k].cuda()
         centers = (batch[:, pick] + 0.1 * torch.randn((m, k, d), generator=gen).cuda())
         centers = centers.contiguous()
-        cnt = torch.randint(0, 200, (m, k), generator=gen).float().cuda()
+        cnt = torch.randint(0, int(2 * threshold), (m, k), generator=gen).float().cuda()
+        underused = int((cnt < threshold).sum())
+        check(0 < underused < m * k, f"K1 at K={k} B={b}: some centers underused")
         best, c_add, deltas, mean = fused_assign_update(centers, cnt, batch, threshold)
         torch.cuda.synchronize()
         best_p, _, _, mean_p = fused_assign_update_ref(centers, cnt, batch, threshold)
@@ -126,13 +131,13 @@ def check_k1(gen: torch.Generator) -> dict:
         abs_d = float((deltas - own_deltas).abs().max())
         err_d = abs_d / float(own_deltas.abs().max())
         err_m = float(((mean - mean_p).abs() / mean_p.abs()).max())
-        log(f"K1 B={b}: best differs on {flips} of {int(decisive.sum())} decisive rows "
-            f"({int((best != best_p).sum())} of {m * b} in all); counts rel err {err_c:.2e}, "
-            f"deltas rel err {err_d:.2e}, mean min-dist rel err {err_m:.2e}; "
-            f"{int((cnt < threshold).sum())} of {m * k} centers underused")
-        check(flips == 0, f"K1 argmin at B={b}")
-        check(err_c <= 1e-4 and err_d <= 1e-4 and err_m <= 1e-4, f"K1 sums at B={b}")
-        if b == 1024:
+        log(f"K1 K={k} B={b}: best differs on {flips} of {int(decisive.sum())} decisive "
+            f"rows ({int((best != best_p).sum())} of {m * b} in all); counts rel err "
+            f"{err_c:.2e}, deltas rel err {err_d:.2e}, mean min-dist rel err {err_m:.2e}; "
+            f"{underused} of {m * k} centers underused")
+        check(flips == 0, f"K1 argmin at K={k} B={b}")
+        check(err_c <= 1e-4 and err_d <= 1e-4 and err_m <= 1e-4, f"K1 sums at K={k} B={b}")
+        if (k, b) == (32, 1024):
             ms = time_ms(lambda: fused_assign_update(centers, cnt, batch, threshold))
             plain = time_ms(lambda: fused_assign_update_ref(centers, cnt, batch, threshold))
             nbytes = 4 * (m * b * d + 2 * m * k * d + 2 * m * k + m * b + m)
@@ -140,7 +145,7 @@ def check_k1(gen: torch.Generator) -> dict:
             bound_ms, bound_by = bound(nbytes, flops)
             result = dict(max_abs_err=abs_d, ms=ms, plain_ms=plain, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=None)
-    log(f"K1 at M={m} K={k} D={d} B=1024: {result['ms']:.4f} ms, plain "
+    log(f"K1 at M={m} K=32 D={d} B=1024: {result['ms']:.4f} ms, plain "
         f"{result['plain_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms "
         f"({result['bound_by']}); no single library call computes it")
     return result

@@ -98,6 +98,33 @@ def test_flax_round_trip_is_exact(variables):
         np.testing.assert_array_equal(a, b)
 
 
+def test_folded_weights_follow_loaded_weights(variables):
+    """The K2 route folds BN once in eval mode; loading weights, moving the
+    model or a mode change drops the folded copy, so the route keeps
+    agreeing with the canonical one."""
+    frames = torch.from_numpy(
+        np.random.RandomState(4).randint(0, 255, (1, 8, 16, 16, 3)).astype(np.uint8))
+    fused, canon = tsf.LayerSlowFast(pallas_stages=True), tsf.LayerSlowFast(pallas_stages=False)
+    with torch.inference_mode():
+        fused(frames)  # folds the constructor's weights
+    assert fused.s2._folded_cache is not None
+    sd = tsf.state_dict_from_flax(variables)
+    fused.load_state_dict(sd)
+    canon.load_state_dict(sd)
+    assert fused.s2._folded_cache is None
+    with torch.inference_mode():
+        got, want = fused(frames), canon(frames)
+    assert fused.s2._folded_cache is not None
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * float(w.abs().max()))
+    fused.to(torch.float32)
+    assert fused.s2._folded_cache is None
+    with torch.inference_mode():
+        fused(frames)
+    fused.train()
+    assert fused.s2._folded_cache is None
+
+
 def test_canonical_and_kernel_routes_share_parameters():
     a, b = tsf.LayerSlowFast(pallas_stages=True), tsf.LayerSlowFast(pallas_stages=False)
     assert list(a.state_dict()) == list(b.state_dict())
