@@ -13,35 +13,46 @@
 // scoped); a 64x64 frame is 1.3 MB at Cin 80 and 4.2 MB at 256 channels in
 // fp32, far above the 227 KB of shared memory a Hopper block can use. So
 // each CTA owns one spatial output tile (TH x TW pixels, all Cout channels)
-// of one frame, and runs the block's three products as small GEMMs whose
-// operands are staged in shared memory chunk by chunk (KC input channels
-// at a time, weights included):
+// of one frame, and runs the block's three products with their operands
+// staged in shared memory chunk by chunk (KC input channels at a time,
+// weights included):
 //   1. a on the tile's input region plus a 1-pixel halo (recomputing the
 //      halo that neighbouring tiles also compute); a is zero outside the
 //      frame, which is the 3x3 conv's 'same' zero padding;
 //   2. b on the tile, as 9 shifted products over a;
 //   3. y = b . cw (+ x . pw for the projection) with the shortcut, written
 //      out.
-// a and b stay in shared memory, channel-major, so a thread's 4 pixels are
-// one 16-byte load. Each thread owns a 4-pixel x (8, 4 or 16)-channel
-// register tile and accumulates in fp32 FMA. Tiles cut by the frame edge
-// are masked, so any H, W (divisible by the stride) works.
+// Products a and b run as fp32 FMA on CUDA cores (4 pixels x 8 or 4
+// channels a thread, a channel-major). Product c and the projection run on
+// the tensor cores in 3xTF32 (below): a GEMM with M = the tile's pixels,
+// N = Cout, K = Ci or Cin, b held pixel-major in shared memory.
 //
-// Bound on an H100 SXM at the main path's shape (SlowFast s2_slow at 256^2
-// input: 64x64 frames, Cin 80 -> 256, inner 64, 3 blocks, 8 slow frames a
-// clip): 1.79 GFLOP a frame, 14.3 GFLOP a clip, about 213 us a clip at the
-// 67 TFLOP/s of fp32 FMA, against about 13 us of device-memory traffic
-// (44 MB). It is bound by operations. Fusing the whole stage into one
-// launch (3-pixel halo) and moving the products to wgmma tensor cores with
-// TMA-fed tiles is later work; TF32 would also change the numerics.
+// 3xTF32. Each fp32 operand v is split in registers into
+// big = tf32(v) and small = tf32(v - big) (cvt.rna), and each product
+// A.B is issued as three mma.sync.m16n8k8 TF32 products, small.big,
+// big.small and then big.big, into one fp32 accumulator: the small terms
+// first, so their rounding stays below the large term. The dropped
+// small.small term is about 2^-22 of the product, which keeps the result
+// near fp32 (one TF32 product alone keeps about 2^-11).
+// Fragment layout of m16n8k8 (g = lane >> 2, t = lane & 3):
+//   A (16 x 8, row-major): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+//   B (8 x 8, k x n):      b0 (k=t, n=g), b1 (k=t+4, n=g)
+//   C (16 x 8):            c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
+// A rows are pixels with a row stride of 4 (mod 8) words and B rows are
+// input channels with a row stride of 8 (mod 32) words, so each fragment's
+// 32 loads fall on 32 different banks.
 //
 // Plain C interface for ctypes; the launcher allocates nothing and returns
 // cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#define NT 256  // threads per CTA
-#define KC 32   // input channels staged per step
+#define NT 256             // threads per CTA
+#define NWARP (NT / 32)
+#define KC 32              // input channels staged per step
+
+extern __shared__ float smem[];
 
 __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -67,6 +78,81 @@ __device__ __forceinline__ void stage_weights(float* wc, const float* w, int k0,
   }
 }
 
+// rows [k0, k0+KC) and columns [c0, c0+ncols) of a row-major (K, N) weight
+// matrix into smem[wo + kk * (ncols + 8) + c], zero past K
+__device__ __forceinline__ void stage_w(int wo, const float* w, int N, int k0, int K,
+                                        int c0, int ncols) {
+  const int n4 = ncols / 4, ldw = ncols + 8;
+  for (int i = threadIdx.x; i < KC * n4; i += NT) {
+    const int kk = i / n4, c = (i % n4) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k0 + kk < K)
+      v = __ldg(reinterpret_cast<const float4*>(w + (size_t)(k0 + kk) * N + c0 + c));
+    *reinterpret_cast<float4*>(smem + wo + kk * ldw + c) = v;
+  }
+}
+
+__device__ __forceinline__ void split(float v, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(v));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(v - __uint_as_float(big)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One k8 step of a warp's (16 MT) x (8 NT8) output tile in 3xTF32.
+// ao[i][h]: smem offset of A row g + 8h of m-tile i, at this step's first
+// column; wo: smem offset of B row 0 (input channel k) at the tile's first
+// output column, rows ldw apart.
+template <int MT, int NT8>
+__device__ __forceinline__ void mma_k8(float (&acc)[MT][NT8][4], const int (&ao)[MT][2],
+                                       int wo, int ldw, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t ab[MT][4], as[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    split(smem[ao[i][0] + t], ab[i][0], as[i][0]);
+    split(smem[ao[i][1] + t], ab[i][1], as[i][1]);
+    split(smem[ao[i][0] + t + 4], ab[i][2], as[i][2]);
+    split(smem[ao[i][1] + t + 4], ab[i][3], as[i][3]);
+  }
+#pragma unroll
+  for (int j = 0; j < NT8; ++j) {
+    uint32_t bb[2], bs[2];
+    split(smem[wo + t * ldw + 8 * j + g], bb[0], bs[0]);
+    split(smem[wo + (t + 4) * ldw + 8 * j + g], bb[1], bs[1]);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      mma_tf32(acc[i][j], as[i], bb);
+      mma_tf32(acc[i][j], ab[i], bs);
+      mma_tf32(acc[i][j], ab[i], bb);
+    }
+  }
+}
+
+// KC columns of the (16 MT)-row A block whose row offsets are ao, against
+// a staged KC-row weight chunk at wo (row stride ldw)
+template <int MT, int NT8>
+__device__ __forceinline__ void mma_chunk(float (&acc)[MT][NT8][4], const int (&ao)[MT][2],
+                                          int ka, int wo, int ldw, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KC; kk += 8) {
+    int a[MT][2];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      a[i][0] = ao[i][0] + ka + kk;
+      a[i][1] = ao[i][1] + ka + kk;
+    }
+    mma_k8<MT, NT8>(acc, a, wo + kk * ldw, ldw, lane);
+  }
+}
+
 __global__ void __launch_bounds__(NT, 2) bottleneck_block_kernel(
     const float* __restrict__ x, int H, int W, int Cin,
     const float* __restrict__ aw, const float* __restrict__ ab,
@@ -80,13 +166,15 @@ __global__ void __launch_bounds__(NT, 2) bottleneck_block_kernel(
   const int AH = (TH - 1) * s + 3, AW = (TW - 1) * s + 3;  // region + halo
   const int ry0 = oy0 * s - 1, rx0 = ox0 * s - 1;          // region origin
   const int NA = AH * AW, NAP = (NA + 3) / 4 * 4, NQ = TH * TW;
-  const int tid = threadIdx.x;
+  const int SB = Ci + 4, SX = KC + 4;  // pixel-major row strides, 4 mod 8
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
 
-  extern __shared__ float smem[];
-  float* aT = smem;                          // Ci x NAP
-  float* bT = aT + Ci * NAP;                 // Ci x NQ
-  float* xc = bT + Ci * NQ;                  // KC x max(NAP, NQ)
-  float* wc = xc + KC * max(NAP, NQ);        // KC x max(Ci, Cout)
+  float* aT = smem;                                  // Ci x NAP
+  float* bS = aT + Ci * NAP;                         // NQ x SB
+  float* xc = bS + NQ * SB;                          // max(KC x NAP, NQ x SX)
+  float* wc = xc + max(KC * max(NAP, NQ), NQ * SX);  // KC x (max(Ci, Cout) + 8)
+  const int bo = (int)(bS - smem), xo = (int)(xc - smem), wo = (int)(wc - smem);
   const float* xn = x + (size_t)frame * H * W * Cin;
 
   // 1. a = relu(x . aw + ab) on the region; 4 pixels x 8 channels a thread
@@ -177,101 +265,91 @@ __global__ void __launch_bounds__(NT, 2) bottleneck_block_kernel(
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int n = g * 4 + c;
-            bT[n * NQ + q0 + r] = fmaxf(acc[r][c] + __ldg(bb + n), 0.f);
+            bS[(q0 + r) * SB + n] = fmaxf(acc[r][c] + __ldg(bb + n), 0.f);
           }
       }
     }
   }
 
-  // 3. y = relu(b . cw (+ x . pw) + biases (+ x)); 4 pixels x 16 channels
+  // 3. y = relu(b . cw (+ x[::s, ::s] . pw) + cb (+ pb | x)) on the tensor
+  // cores. A warp owns 32 pixels x 64 channels; the items (pixel group,
+  // channel group) are taken 8 at a time, channel-group-major, and each
+  // round stages only the weight columns its items use.
   {
-    const int ng = Cout / 16, items = (NQ / 4) * ng;
-    for (int item0 = 0; item0 < items; item0 += NT) {
-      const int item = item0 + tid;
+    const int mg = NQ / 32, items = mg * (Cout / 64);
+    for (int r0 = 0; r0 < items; r0 += NWARP) {
+      const int c_lo = (r0 / mg) * 64;
+      const int c_hi = (((r0 + NWARP < items ? r0 + NWARP : items) - 1) / mg + 1) * 64;
+      const int ncols = c_hi - c_lo, ldw = ncols + 8;
+      const int item = r0 + warp;
       const bool live = item < items;
-      const int g = item % ng, q0 = (item / ng) * 4;
-      float acc[4][16] = {};
+      const int m0 = (item % mg) * 32, n0 = (item / mg) * 64 - c_lo;
+      float acc[2][8][4] = {};
+      int ao[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) ao[i][h] = bo + (m0 + 16 * i + 8 * h + g) * SB;
       for (int k0 = 0; k0 < Ci; k0 += KC) {
         __syncthreads();
-        stage_weights(wc, cw, k0, Ci, Cout);
+        stage_w(wo, cw, Cout, k0, Ci, c_lo, ncols);
         __syncthreads();
-        if (live) {
-#pragma unroll 2
-          for (int kk = 0; kk < KC && k0 + kk < Ci; ++kk) {
-            const float4 b4 = lds4(bT + (k0 + kk) * NQ + q0);
-            const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const float4 w = lds4(wc + kk * Cout + g * 4 + j * (Cout / 4));
-#pragma unroll
-              for (int r = 0; r < 4; ++r) fma4(acc[r] + 4 * j, bv[r], w);
-            }
-          }
-        }
+        if (live) mma_chunk<2, 8>(acc, ao, k0, wo + n0, ldw, lane);
       }
       if (pw != nullptr) {  // projection: x at the tile's pixels (stride s)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) ao[i][h] = xo + (m0 + 16 * i + 8 * h + g) * SX;
         for (int k0 = 0; k0 < Cin; k0 += KC) {
           __syncthreads();
-          for (int i = tid; i < NQ * KC; i += NT) {
-            const int q = i / KC, kk = i % KC;
+          for (int i = tid; i < NQ * (KC / 4); i += NT) {
+            const int q = i / (KC / 4), c = (i % (KC / 4)) * 4;
             const int yy = s * (oy0 + q / TW), xx = s * (ox0 + q % TW);
-            xc[kk * NQ + q] = (k0 + kk < Cin && yy < H && xx < W)
-                                  ? __ldg(xn + ((size_t)yy * W + xx) * Cin + k0 + kk)
-                                  : 0.f;
+            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (k0 + c < Cin && yy < H && xx < W)
+              v = __ldg(reinterpret_cast<const float4*>(
+                  xn + ((size_t)yy * W + xx) * Cin + k0 + c));
+            *reinterpret_cast<float4*>(xc + q * SX + c) = v;
           }
-          stage_weights(wc, pw, k0, Cin, Cout);
+          stage_w(wo, pw, Cout, k0, Cin, c_lo, ncols);
           __syncthreads();
-          if (live) {
-#pragma unroll 2
-            for (int kk = 0; kk < KC; ++kk) {
-              const float4 x4 = lds4(xc + kk * NQ + q0);
-              const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
-#pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                const float4 w = lds4(wc + kk * Cout + g * 4 + j * (Cout / 4));
-#pragma unroll
-                for (int r = 0; r < 4; ++r) fma4(acc[r] + 4 * j, xv[r], w);
-              }
-            }
-          }
+          if (live) mma_chunk<2, 8>(acc, ao, 0, wo + n0, ldw, lane);
         }
       }
       if (live) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int q = q0 + r, oy = oy0 + q / TW, ox = ox0 + q % TW;
-          if (q >= NQ || oy >= Ho || ox >= Wo) continue;
-          const float* xq = xn + ((size_t)(s * oy) * W + s * ox) * Cin;  // identity
-          float* dst = out + (((size_t)frame * Ho + oy) * Wo + ox) * Cout;
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int n = g * 4 + j * (Cout / 4);
-            const float4 bias = __ldg(reinterpret_cast<const float4*>(cb + n));
-            float4 sc;
-            if (pw != nullptr) {
-              sc = __ldg(reinterpret_cast<const float4*>(pb + n));
-            } else {
-              sc = __ldg(reinterpret_cast<const float4*>(xq + n));
+          for (int h = 0; h < 2; ++h) {
+            const int q = m0 + 16 * i + 8 * h + g, oy = oy0 + q / TW, ox = ox0 + q % TW;
+            if (oy >= Ho || ox >= Wo) continue;
+            const float* xq = xn + ((size_t)(s * oy) * W + s * ox) * Cin;  // identity
+            float* dst = out + (((size_t)frame * Ho + oy) * Wo + ox) * Cout;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int n = c_lo + n0 + 8 * j + 2 * t;
+              const float2 bias = __ldg(reinterpret_cast<const float2*>(cb + n));
+              const float2 sc = __ldg(reinterpret_cast<const float2*>(
+                  pw != nullptr ? pb + n : xq + n));
+              float2 v;
+              v.x = fmaxf(acc[i][j][2 * h] + bias.x + sc.x, 0.f);
+              v.y = fmaxf(acc[i][j][2 * h + 1] + bias.y + sc.y, 0.f);
+              *reinterpret_cast<float2*>(dst + n) = v;
             }
-            float4 v;
-            v.x = fmaxf(acc[r][4 * j + 0] + bias.x + sc.x, 0.f);
-            v.y = fmaxf(acc[r][4 * j + 1] + bias.y + sc.y, 0.f);
-            v.z = fmaxf(acc[r][4 * j + 2] + bias.z + sc.z, 0.f);
-            v.w = fmaxf(acc[r][4 * j + 3] + bias.w + sc.w, 0.f);
-            *reinterpret_cast<float4*>(dst + n) = v;
           }
-        }
       }
     }
   }
 }
 
-static size_t bottleneck_block_smem(int Cin, int Ci, int Cout, int s, int TH, int TW) {
+static size_t bottleneck_block_smem(int Ci, int Cout, int s, int TH, int TW) {
   const int na = ((TH - 1) * s + 3) * ((TW - 1) * s + 3);
   const int nap = (na + 3) / 4 * 4, nq = TH * TW;
-  return sizeof(float) * ((size_t)Ci * nap + (size_t)Ci * nq +
-                          (size_t)KC * (nap > nq ? nap : nq) +
-                          (size_t)KC * (Ci > Cout ? Ci : Cout));
+  const int xc = KC * (nap > nq ? nap : nq), xp = nq * (KC + 4);
+  return sizeof(float) * ((size_t)Ci * nap + (size_t)nq * (Ci + 4) +
+                          (size_t)(xc > xp ? xc : xp) +
+                          (size_t)KC * ((Ci > Cout ? Ci : Cout) + 8));
 }
 
 extern "C" int bottleneck_block(
@@ -279,10 +357,10 @@ extern "C" int bottleneck_block(
     const void* bw, const void* bb, const void* cw, const void* cb,
     const void* pw, const void* pb, int Ci, int Cout, int s, int TH, int TW,
     void* out, void* stream) {
-  if (Ci % 8 || Cout % 16 || H % s || W % s || (TH * TW) % 4)
+  if (Cin % 4 || Ci % KC || Cout % 64 || H % s || W % s || (TH * TW) % 32)
     return (int)cudaErrorInvalidValue;
   if (pw == nullptr && (Cin != Cout || s != 1)) return (int)cudaErrorInvalidValue;
-  const size_t smem = bottleneck_block_smem(Cin, Ci, Cout, s, TH, TW);
+  const size_t smem = bottleneck_block_smem(Ci, Cout, s, TH, TW);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         bottleneck_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

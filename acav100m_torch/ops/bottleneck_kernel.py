@@ -88,9 +88,9 @@ def _check_block(blk: Dict[str, Tensor], cin: int, dev) -> None:
                 or t.data_ptr() % 16):
             raise ValueError(f"{key} must be a contiguous, 16-byte aligned float32 "
                              f"tensor on {dev}")
-    if inner % 8 or cout % 16:
-        raise ValueError(f"the kernel takes inner channels in multiples of 8 and "
-                         f"output channels in multiples of 16, got {inner}, {cout}")
+    if cin % 4 or inner % 32 or cout % 64:
+        raise ValueError(f"the kernel takes input, inner and output channels in "
+                         f"multiples of 4, 32 and 64, got {cin}, {inner}, {cout}")
 
 
 def fused_stage(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
@@ -108,6 +108,8 @@ def fused_stage(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
         raise ValueError(f"kernel K2 takes float32, got {x.dtype}")
     fn = _bind()
     h = x.contiguous()
+    if h.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
     s = stride
     with torch.cuda.device(x.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
@@ -117,13 +119,13 @@ def fused_stage(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
                 raise ValueError(f"frame {hh}x{ww} not divisible by stride {s}")
             _check_block(blk, cin, x.device)
             inner, cout = blk["aw"].shape[1], blk["cw"].shape[1]
-            tile = max(2, 8 // s)  # output tile side; its pixel count is a multiple of 4
+            th, tw = (8, 8) if s == 1 else (4, 8)  # output tile; pixels a multiple of 32
             out = torch.empty((n, hh // s, ww // s, cout), device=x.device,
                               dtype=torch.float32)
             err = fn(_ptr(h), n, hh, ww, cin,
                      *(_ptr(blk[k]) for k in _KEYS),
                      _ptr(blk.get("pw")), _ptr(blk.get("pb")),
-                     inner, cout, s, tile, tile, _ptr(out), stream)
+                     inner, cout, s, th, tw, _ptr(out), stream)
             cuda_build.check(err, "bottleneck_block")
             fused_stage.launches += 1
             h, s = out, 1

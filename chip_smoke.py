@@ -50,6 +50,7 @@ ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores
+TF32_TENSOR_FLOPS = 495e12  # dense TF32 on the tensor cores
 AUDIO_DIMS = [64, 128, 256, 512, 128]
 VIDEO_DIMS = [88, 352, 704, 1408, 2304]
 KERNELS = [
@@ -85,8 +86,10 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound(nbytes: float, flops: float, rate: float = FP32_FLOPS):
+    """Least time in ms for the bytes at the memory rate and the operations
+    at ``rate``, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -195,7 +198,7 @@ def check_k2(gen: torch.Generator) -> dict:
             err_can = float((out - can).abs().max()) / scale
             log(f"K2 {n} frames {hw}x{hw} stride {stride}: max err {err:.2e} vs plain, "
                 f"{err_can:.2e} vs canonical cuDNN stage (relative to max |y| {scale:.3f})")
-            check(err <= 1e-3 and err_can <= 1e-3, f"K2 at {hw}x{hw} stride {stride}")
+            check(err <= 1e-5 and err_can <= 1e-3, f"K2 at {hw}x{hw} stride {stride}")
             if stride == 1:
                 ms = time_ms(lambda: fused_stage(x, folded, stride))
                 plain = time_ms(lambda: fused_stage_ref(x, folded, stride))
@@ -205,7 +208,8 @@ def check_k2(gen: torch.Generator) -> dict:
                             for key, v in blk.items() if key.endswith("w"))
                 nbytes = 4 * (x.numel() + out.numel()
                               + sum(v.numel() for blk in folded for v in blk.values()))
-                bound_ms, bound_by = bound(nbytes, flops)
+                # 3xTF32 issues three TF32 products for each fp32 one
+                bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_TENSOR_FLOPS)
                 result = dict(max_abs_err=float((out - ref).abs().max()), ms=ms,
                               plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
                               library_ms=library)
