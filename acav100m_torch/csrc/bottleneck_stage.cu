@@ -22,10 +22,10 @@
 //   2. b on the tile, as 9 shifted products over a;
 //   3. y = b . cw (+ x . pw for the projection) with the shortcut, written
 //      out.
-// Products a and b run as fp32 FMA on CUDA cores (4 pixels x 8 or 4
-// channels a thread, a channel-major). Product c and the projection run on
-// the tensor cores in 3xTF32 (below): a GEMM with M = the tile's pixels,
-// N = Cout, K = Ci or Cin, b held pixel-major in shared memory.
+// Product b runs as fp32 FMA on CUDA cores (4 pixels x 4 channels a
+// thread). Products a, c and the projection run on the tensor cores in
+// 3xTF32 (below) as GEMMs: M = the region's or the tile's pixels, N = Ci or
+// Cout, K = Cin or Ci, with a and b held pixel-major in shared memory.
 //
 // 3xTF32. Each fp32 operand v is split in registers into
 // big = tf32(v) and small = tf32(v - big) (cvt.rna), and each product
@@ -165,65 +165,72 @@ __global__ void __launch_bounds__(NT, 2) bottleneck_block_kernel(
   const int oy0 = blockIdx.y * TH, ox0 = blockIdx.x * TW;
   const int AH = (TH - 1) * s + 3, AW = (TW - 1) * s + 3;  // region + halo
   const int ry0 = oy0 * s - 1, rx0 = ox0 * s - 1;          // region origin
-  const int NA = AH * AW, NAP = (NA + 3) / 4 * 4, NQ = TH * TW;
-  const int SB = Ci + 4, SX = KC + 4;  // pixel-major row strides, 4 mod 8
+  const int NA = AH * AW, NAM = (NA + 47) / 48 * 48, NQ = TH * TW;
+  const int SA = Ci + 4, SX = KC + 4;  // pixel-major row strides, 4 mod 8
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
 
-  float* aT = smem;                                  // Ci x NAP
-  float* bS = aT + Ci * NAP;                         // NQ x SB
-  float* xc = bS + NQ * SB;                          // max(KC x NAP, NQ x SX)
-  float* wc = xc + max(KC * max(NAP, NQ), NQ * SX);  // KC x (max(Ci, Cout) + 8)
-  const int bo = (int)(bS - smem), xo = (int)(xc - smem), wo = (int)(wc - smem);
+  // shared memory, by phase (offsets in floats):
+  //   a: aS (NAM x SA) at 0; x chunk (NAM x SX) and aw chunk (KC x Ci+8) after
+  //   b: aS; bS (NQ x SA) after it; bw chunk (KC x Ci) after bS
+  //   c: x chunk (NQ x SX) and cw/pw chunk (KC x ncols+8) at 0 if they fit
+  //      below bS, else after it
+  const int A_END = NAM * SA, bo = A_END;
+  const int c_stage = NQ * SX + KC * (Cout + 8);
+  const int cxo = c_stage <= A_END ? 0 : bo + NQ * SA, cwo = cxo + NQ * SX;
+  float* aS = smem;
+  float* bS = smem + bo;
   const float* xn = x + (size_t)frame * H * W * Cin;
 
-  // 1. a = relu(x . aw + ab) on the region; 4 pixels x 8 channels a thread
+  // 1. a = relu(x . aw + ab) on the region's NAM rows, on the tensor cores.
+  // A warp owns 48 region pixels x 32 channels.
   {
-    const int ng = Ci / 8, items = (NAP / 4) * ng;
-    for (int item0 = 0; item0 < items; item0 += NT) {
-      const int item = item0 + tid;
+    const int mg = NAM / 48, items = mg * (Ci / 32);
+    const int xo = A_END, wo = xo + NAM * SX, ldw = Ci + 8;
+    for (int r0 = 0; r0 < items; r0 += NWARP) {
+      const int item = r0 + warp;
       const bool live = item < items;
-      const int g = item % ng, p0 = (item / ng) * 4;
-      float acc[4][8] = {};
+      const int m0 = (item % mg) * 48, n0 = (item / mg) * 32;
+      float acc[3][4][4] = {};
+      int ao[3][2];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) ao[i][h] = xo + (m0 + 16 * i + 8 * h + g) * SX;
       for (int k0 = 0; k0 < Cin; k0 += KC) {
         __syncthreads();
-        for (int i = tid; i < NAP * KC; i += NT) {
-          const int p = i / KC, kk = i % KC;
+        for (int i = tid; i < NAM * (KC / 4); i += NT) {
+          const int p = i / (KC / 4), c = (i % (KC / 4)) * 4;
           const int yy = ry0 + p / AW, xx = rx0 + p % AW;
-          xc[kk * NAP + p] = (p < NA && k0 + kk < Cin && yy >= 0 && yy < H &&
-                              xx >= 0 && xx < W)
-                                 ? __ldg(xn + ((size_t)yy * W + xx) * Cin + k0 + kk)
-                                 : 0.f;
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (p < NA && k0 + c < Cin && yy >= 0 && yy < H && xx >= 0 && xx < W)
+            v = __ldg(reinterpret_cast<const float4*>(xn + ((size_t)yy * W + xx) * Cin + k0 + c));
+          *reinterpret_cast<float4*>(smem + xo + p * SX + c) = v;
         }
-        stage_weights(wc, aw, k0, Cin, Ci);
+        stage_w(wo, aw, Ci, k0, Cin, 0, Ci);
         __syncthreads();
-        if (live) {
-#pragma unroll 4
-          for (int kk = 0; kk < KC; ++kk) {
-            const float4 a4 = lds4(xc + kk * NAP + p0);
-            const float4 w0 = lds4(wc + kk * Ci + g * 4);
-            const float4 w1 = lds4(wc + kk * Ci + g * 4 + Ci / 2);
-            const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              fma4(acc[r], av[r], w0);
-              fma4(acc[r] + 4, av[r], w1);
-            }
-          }
-        }
+        if (live) mma_chunk<3, 4>(acc, ao, 0, wo + n0, ldw, lane);
       }
       if (live) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int p = p0 + r;
-          const int yy = ry0 + p / AW, xx = rx0 + p % AW;
-          const bool inside = p < NA && yy >= 0 && yy < H && xx >= 0 && xx < W;
+        for (int i = 0; i < 3; ++i)
 #pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            const int n = g * 4 + (c / 4) * (Ci / 2) + c % 4;
-            aT[n * NAP + p] = inside ? fmaxf(acc[r][c] + __ldg(ab + n), 0.f) : 0.f;
+          for (int h = 0; h < 2; ++h) {
+            const int p = m0 + 16 * i + 8 * h + g;
+            const int yy = ry0 + p / AW, xx = rx0 + p % AW;
+            const bool inside = p < NA && yy >= 0 && yy < H && xx >= 0 && xx < W;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int n = n0 + 8 * j + 2 * t;
+              const float2 bias = __ldg(reinterpret_cast<const float2*>(ab + n));
+              float2 v = make_float2(0.f, 0.f);
+              if (inside) {
+                v.x = fmaxf(acc[i][j][2 * h] + bias.x, 0.f);
+                v.y = fmaxf(acc[i][j][2 * h + 1] + bias.y, 0.f);
+              }
+              *reinterpret_cast<float2*>(aS + p * SA + n) = v;
+            }
           }
-        }
       }
     }
   }
@@ -231,6 +238,7 @@ __global__ void __launch_bounds__(NT, 2) bottleneck_block_kernel(
   // 2. b = relu(conv3x3(a, stride s) + bb) on the tile; 4 pixels x 4 channels
   {
     const int ng = Ci / 4, items = (NQ / 4) * ng;
+    float* wc = bS + NQ * SA;
     for (int item0 = 0; item0 < items; item0 += NT) {
       const int item = item0 + tid;
       const bool live = item < items;
@@ -250,11 +258,11 @@ __global__ void __launch_bounds__(NT, 2) bottleneck_block_kernel(
           __syncthreads();
           if (live) {
 #pragma unroll 4
-            for (int kk = 0; kk < KC && k0 + kk < Ci; ++kk) {
-              const float* arow = aT + (k0 + kk) * NAP + off;
+            for (int kk = 0; kk < KC; ++kk) {
               const float4 w = lds4(wc + kk * Ci + g * 4);
 #pragma unroll
-              for (int r = 0; r < 4; ++r) fma4(acc[r], arow[base[r]], w);
+              for (int r = 0; r < 4; ++r)
+                fma4(acc[r], aS[(base[r] + off) * SA + k0 + kk], w);
             }
           }
         }
@@ -265,7 +273,7 @@ __global__ void __launch_bounds__(NT, 2) bottleneck_block_kernel(
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int n = g * 4 + c;
-            bS[(q0 + r) * SB + n] = fmaxf(acc[r][c] + __ldg(bb + n), 0.f);
+            bS[(q0 + r) * SA + n] = fmaxf(acc[r][c] + __ldg(bb + n), 0.f);
           }
       }
     }
@@ -289,18 +297,18 @@ __global__ void __launch_bounds__(NT, 2) bottleneck_block_kernel(
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) ao[i][h] = bo + (m0 + 16 * i + 8 * h + g) * SB;
+        for (int h = 0; h < 2; ++h) ao[i][h] = bo + (m0 + 16 * i + 8 * h + g) * SA;
       for (int k0 = 0; k0 < Ci; k0 += KC) {
         __syncthreads();
-        stage_w(wo, cw, Cout, k0, Ci, c_lo, ncols);
+        stage_w(cwo, cw, Cout, k0, Ci, c_lo, ncols);
         __syncthreads();
-        if (live) mma_chunk<2, 8>(acc, ao, k0, wo + n0, ldw, lane);
+        if (live) mma_chunk<2, 8>(acc, ao, k0, cwo + n0, ldw, lane);
       }
       if (pw != nullptr) {  // projection: x at the tile's pixels (stride s)
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) ao[i][h] = xo + (m0 + 16 * i + 8 * h + g) * SX;
+          for (int h = 0; h < 2; ++h) ao[i][h] = cxo + (m0 + 16 * i + 8 * h + g) * SX;
         for (int k0 = 0; k0 < Cin; k0 += KC) {
           __syncthreads();
           for (int i = tid; i < NQ * (KC / 4); i += NT) {
@@ -310,11 +318,11 @@ __global__ void __launch_bounds__(NT, 2) bottleneck_block_kernel(
             if (k0 + c < Cin && yy < H && xx < W)
               v = __ldg(reinterpret_cast<const float4*>(
                   xn + ((size_t)yy * W + xx) * Cin + k0 + c));
-            *reinterpret_cast<float4*>(xc + q * SX + c) = v;
+            *reinterpret_cast<float4*>(smem + cxo + q * SX + c) = v;
           }
-          stage_w(wo, pw, Cout, k0, Cin, c_lo, ncols);
+          stage_w(cwo, pw, Cout, k0, Cin, c_lo, ncols);
           __syncthreads();
-          if (live) mma_chunk<2, 8>(acc, ao, 0, wo + n0, ldw, lane);
+          if (live) mma_chunk<2, 8>(acc, ao, 0, cwo + n0, ldw, lane);
         }
       }
       if (live) {
@@ -345,11 +353,15 @@ __global__ void __launch_bounds__(NT, 2) bottleneck_block_kernel(
 
 static size_t bottleneck_block_smem(int Ci, int Cout, int s, int TH, int TW) {
   const int na = ((TH - 1) * s + 3) * ((TW - 1) * s + 3);
-  const int nap = (na + 3) / 4 * 4, nq = TH * TW;
-  const int xc = KC * (nap > nq ? nap : nq), xp = nq * (KC + 4);
-  return sizeof(float) * ((size_t)Ci * nap + (size_t)nq * (Ci + 4) +
-                          (size_t)(xc > xp ? xc : xp) +
-                          (size_t)KC * ((Ci > Cout ? Ci : Cout) + 8));
+  const int nam = (na + 47) / 48 * 48, nq = TH * TW;
+  const int a_end = nam * (Ci + 4);
+  const int phase_a = a_end + nam * (KC + 4) + KC * (Ci + 8);
+  const int phase_b = a_end + nq * (Ci + 4) + KC * Ci;
+  const int c_stage = nq * (KC + 4) + KC * (Cout + 8);
+  const int phase_c = c_stage <= a_end ? 0 : a_end + nq * (Ci + 4) + c_stage;
+  int most = phase_a > phase_b ? phase_a : phase_b;
+  most = most > phase_c ? most : phase_c;
+  return sizeof(float) * (size_t)most;
 }
 
 extern "C" int bottleneck_block(

@@ -119,7 +119,7 @@ def fused_stage(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
                 raise ValueError(f"frame {hh}x{ww} not divisible by stride {s}")
             _check_block(blk, cin, x.device)
             inner, cout = blk["aw"].shape[1], blk["cw"].shape[1]
-            th, tw = (8, 8) if s == 1 else (4, 8)  # output tile; pixels a multiple of 32
+            th, tw = (8, 16) if s == 1 else (4, 8)  # output tile; pixels a multiple of 32
             out = torch.empty((n, hh // s, ww // s, cout), device=x.device,
                               dtype=torch.float32)
             err = fn(_ptr(h), n, hh, ww, cin,
