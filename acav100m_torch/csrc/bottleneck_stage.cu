@@ -12,20 +12,23 @@
 // Design. The Pallas kernel holds a whole frame in VMEM (up to 100 MB
 // scoped); a 64x64 frame is 1.3 MB at Cin 80 and 4.2 MB at 256 channels in
 // fp32, far above the 227 KB of shared memory a Hopper block can use. So
-// each CTA owns one spatial output tile (TH x TW pixels, all Cout channels)
-// of one frame, and runs the block's three products with their operands
-// staged in shared memory chunk by chunk (KC input channels at a time,
-// weights included):
-//   1. a on the tile's input region plus a 1-pixel halo (recomputing the
-//      halo that neighbouring tiles also compute); a is zero outside the
+// each CTA (8 warps) owns one spatial output tile (TH x TW pixels, all Cout
+// channels; 8 x 16 at stride 1) of one frame and runs the block's products
+// as GEMMs on the tensor cores, with x and the weights staged in shared
+// memory KC input channels at a time:
+//   1. a on the tile's input region plus a 1-pixel halo (10 x 18 for an
+//      8 x 16 tile; the halo that neighbouring tiles also compute is
+//      recomputed, 1.41x the tile's work): M = region pixels (rounded up
+//      to 48), N = Ci, K = Cin (zero-padded to KC). a is zero outside the
 //      frame, which is the 3x3 conv's 'same' zero padding;
-//   2. b on the tile, as 9 shifted products over a;
-//   3. y = b . cw (+ x . pw for the projection) with the shortcut, written
-//      out.
-// Product b runs as fp32 FMA on CUDA cores (4 pixels x 4 channels a
-// thread). Products a, c and the projection run on the tensor cores in
-// 3xTF32 (below) as GEMMs: M = the region's or the tile's pixels, N = Ci or
-// Cout, K = Cin or Ci, with a and b held pixel-major in shared memory.
+//   2. b on the tile as an implicit GEMM over the 9 taps: M = tile pixels,
+//      N = Ci, K = 9 Ci, the A fragment read from a at each pixel's region
+//      row shifted by the tap;
+//   3. y = b . cw (+ x[::s, ::s] . pw for the projection): M = tile pixels,
+//      N = Cout, K = Ci (+ Cin), then the shortcut, biases and ReLU, written
+//      out. Pixels past a ragged frame edge are computed and not stored.
+// a and b stay in shared memory between products, pixel-major; b
+// overwrites a once every warp is done with it.
 //
 // 3xTF32. Each fp32 operand v is split in registers into
 // big = tf32(v) and small = tf32(v - big) (cvt.rna), and each product
@@ -42,6 +45,15 @@
 // input channels with a row stride of 8 (mod 32) words, so each fragment's
 // 32 loads fall on 32 different banks.
 //
+// Bound on an H100 SXM at the main path's shape (SlowFast s2_slow at 256^2
+// input: 32 frames of 64x64, Cin 80 -> 256, inner 64, 3 blocks): 57.15
+// GFLOP, issued three times in 3xTF32, is 0.347 ms at the 495 TFLOP/s of
+// dense TF32; the one launch a block design moves about 0.71 GB through
+// device memory (x, three block outputs written, two read back), 0.21 ms
+// at 3.35 TB/s. So it is bound by operations. Later work: one launch for
+// the whole stage (3-pixel halo), which drops the 0.54 GB that goes between
+// blocks; wgmma in place of mma.sync; TMA-fed, pipelined staging.
+//
 // Plain C interface for ctypes; the launcher allocates nothing and returns
 // cudaGetLastError().
 
@@ -54,36 +66,12 @@
 
 extern __shared__ float smem[];
 
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void fma4(float* acc, float a, float4 w) {
-  acc[0] = fmaf(a, w.x, acc[0]);
-  acc[1] = fmaf(a, w.y, acc[1]);
-  acc[2] = fmaf(a, w.z, acc[2]);
-  acc[3] = fmaf(a, w.w, acc[3]);
-}
-
-// rows [k0, k0+KC) of a row-major (K, N) weight matrix into wc (KC x N),
-// zero past K
-__device__ __forceinline__ void stage_weights(float* wc, const float* w, int k0,
-                                              int K, int N) {
-  const int n4 = N / 4;
-  for (int i = threadIdx.x; i < KC * n4; i += NT) {
-    const int kk = i / n4, c = (i % n4) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (k0 + kk < K) v = __ldg(reinterpret_cast<const float4*>(w + (size_t)(k0 + kk) * N + c));
-    *reinterpret_cast<float4*>(wc + kk * N + c) = v;
-  }
-}
-
-// rows [k0, k0+KC) and columns [c0, c0+ncols) of a row-major (K, N) weight
-// matrix into smem[wo + kk * (ncols + 8) + c], zero past K
+// rows [k0, k0+rows) and columns [c0, c0+ncols) of a row-major (K, N)
+// weight matrix into smem[wo + kk * (ncols + 8) + c], zero past K
 __device__ __forceinline__ void stage_w(int wo, const float* w, int N, int k0, int K,
-                                        int c0, int ncols) {
+                                        int c0, int ncols, int rows = KC) {
   const int n4 = ncols / 4, ldw = ncols + 8;
-  for (int i = threadIdx.x; i < KC * n4; i += NT) {
+  for (int i = threadIdx.x; i < rows * n4; i += NT) {
     const int kk = i / n4, c = (i % n4) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (k0 + kk < K)
@@ -172,14 +160,12 @@ __global__ void __launch_bounds__(NT, 2) bottleneck_block_kernel(
 
   // shared memory, by phase (offsets in floats):
   //   a: aS (NAM x SA) at 0; x chunk (NAM x SX) and aw chunk (KC x Ci+8) after
-  //   b: aS; bS (NQ x SA) after it; bw chunk (KC x Ci) after bS
-  //   c: x chunk (NQ x SX) and cw/pw chunk (KC x ncols+8) at 0 if they fit
-  //      below bS, else after it
-  const int A_END = NAM * SA, bo = A_END;
-  const int c_stage = NQ * SX + KC * (Cout + 8);
-  const int cxo = c_stage <= A_END ? 0 : bo + NQ * SA, cwo = cxo + NQ * SX;
+  //   b: aS; one tap of bw (Ci x Ci+8) after it; then bS (NQ x SA) over aS
+  //   c: bS; x chunk (NQ x SX) and cw/pw chunk (KC x ncols+8) after it
+  const int A_END = NAM * SA;
+  const int cxo = NQ * SA, cwo = cxo + NQ * SX;
   float* aS = smem;
-  float* bS = smem + bo;
+  float* bS = smem;
   const float* xn = x + (size_t)frame * H * W * Cin;
 
   // 1. a = relu(x . aw + ab) on the region's NAM rows, on the tensor cores.
@@ -235,47 +221,57 @@ __global__ void __launch_bounds__(NT, 2) bottleneck_block_kernel(
     }
   }
 
-  // 2. b = relu(conv3x3(a, stride s) + bb) on the tile; 4 pixels x 4 channels
+  // 2. b = relu(conv3x3(a, stride s) + bb) on the tile, on the tensor cores,
+  // as an implicit GEMM over the 9 taps (K = 9 Ci): tap (dy, dx) reads the
+  // A fragment from a at the region row of each output pixel plus
+  // dy * AW + dx. A warp owns 32 output pixels x 32 channels; the launcher
+  // admits at most one item a warp, so b can overwrite a when all are done.
   {
-    const int ng = Ci / 4, items = (NQ / 4) * ng;
-    float* wc = bS + NQ * SA;
-    for (int item0 = 0; item0 < items; item0 += NT) {
-      const int item = item0 + tid;
-      const bool live = item < items;
-      const int g = item % ng, q0 = (item / ng) * 4;
-      int base[4];  // region index of tap (0,0) for each pixel
+    const int mg = NQ / 32, items = mg * (Ci / 32);
+    const int wo = A_END, ldw = Ci + 8;
+    const bool live = warp < items;
+    const int m0 = (warp % mg) * 32, n0 = (warp / mg) * 32;
+    float acc[2][4][4] = {};
+    int base[2][2];  // smem offset of each A row's tap (0, 0) in a
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int q = min(q0 + r, NQ - 1);
-        base[r] = (s * (q / TW)) * AW + s * (q % TW);
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = m0 + 16 * i + 8 * h + g;
+        base[i][h] = ((s * (q / TW)) * AW + s * (q % TW)) * SA;
       }
-      float acc[4][4] = {};
-      for (int tap = 0; tap < 9; ++tap) {
-        const int off = (tap / 3) * AW + tap % 3;
-        for (int k0 = 0; k0 < Ci; k0 += KC) {
-          __syncthreads();
-          stage_weights(wc, bw + (size_t)tap * Ci * Ci, k0, Ci, Ci);
-          __syncthreads();
-          if (live) {
-#pragma unroll 4
-            for (int kk = 0; kk < KC; ++kk) {
-              const float4 w = lds4(wc + kk * Ci + g * 4);
+    for (int tap = 0; tap < 9; ++tap) {
+      __syncthreads();
+      stage_w(wo, bw + (size_t)tap * Ci * Ci, Ci, 0, Ci, 0, Ci, Ci);
+      __syncthreads();
+      if (live) {
+        const int off = ((tap / 3) * AW + tap % 3) * SA;
+        int ao[2][2];
 #pragma unroll
-              for (int r = 0; r < 4; ++r)
-                fma4(acc[r], aS[(base[r] + off) * SA + k0 + kk], w);
-            }
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) ao[i][h] = base[i][h] + off;
+        for (int k0 = 0; k0 < Ci; k0 += KC)
+          mma_chunk<2, 4>(acc, ao, k0, wo + k0 * ldw + n0, ldw, lane);
+      }
+    }
+    __syncthreads();  // every warp is done with a
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q = m0 + 16 * i + 8 * h + g;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int n = n0 + 8 * j + 2 * t;
+            const float2 bias = __ldg(reinterpret_cast<const float2*>(bb + n));
+            float2 v;
+            v.x = fmaxf(acc[i][j][2 * h] + bias.x, 0.f);
+            v.y = fmaxf(acc[i][j][2 * h + 1] + bias.y, 0.f);
+            *reinterpret_cast<float2*>(bS + q * SA + n) = v;
           }
         }
-      }
-      if (live) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int n = g * 4 + c;
-            bS[(q0 + r) * SA + n] = fmaxf(acc[r][c] + __ldg(bb + n), 0.f);
-          }
-      }
     }
   }
 
@@ -297,7 +293,7 @@ __global__ void __launch_bounds__(NT, 2) bottleneck_block_kernel(
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) ao[i][h] = bo + (m0 + 16 * i + 8 * h + g) * SA;
+        for (int h = 0; h < 2; ++h) ao[i][h] = (m0 + 16 * i + 8 * h + g) * SA;
       for (int k0 = 0; k0 < Ci; k0 += KC) {
         __syncthreads();
         stage_w(cwo, cw, Cout, k0, Ci, c_lo, ncols);
@@ -356,9 +352,8 @@ static size_t bottleneck_block_smem(int Ci, int Cout, int s, int TH, int TW) {
   const int nam = (na + 47) / 48 * 48, nq = TH * TW;
   const int a_end = nam * (Ci + 4);
   const int phase_a = a_end + nam * (KC + 4) + KC * (Ci + 8);
-  const int phase_b = a_end + nq * (Ci + 4) + KC * Ci;
-  const int c_stage = nq * (KC + 4) + KC * (Cout + 8);
-  const int phase_c = c_stage <= a_end ? 0 : a_end + nq * (Ci + 4) + c_stage;
+  const int phase_b = a_end + Ci * (Ci + 8);
+  const int phase_c = nq * (Ci + 4) + nq * (KC + 4) + KC * (Cout + 8);
   int most = phase_a > phase_b ? phase_a : phase_b;
   most = most > phase_c ? most : phase_c;
   return sizeof(float) * (size_t)most;
@@ -369,7 +364,8 @@ extern "C" int bottleneck_block(
     const void* bw, const void* bb, const void* cw, const void* cb,
     const void* pw, const void* pb, int Ci, int Cout, int s, int TH, int TW,
     void* out, void* stream) {
-  if (Cin % 4 || Ci % KC || Cout % 64 || H % s || W % s || (TH * TW) % 32)
+  if (Cin % 4 || Ci % KC || Cout % 64 || H % s || W % s || (TH * TW) % 32 ||
+      (TH * TW / 32) * (Ci / 32) > NWARP)
     return (int)cudaErrorInvalidValue;
   if (pw == nullptr && (Cin != Cout || s != 1)) return (int)cudaErrorInvalidValue;
   const size_t smem = bottleneck_block_smem(Ci, Cout, s, TH, TW);
