@@ -57,8 +57,11 @@ VARIANTS = {
         '      ""\n')],
     # one product's fragment loads, splits and MMAs gone; staging stays
     "skip_a": [("mma_chunk<3, 4, KA>(", "if (false) mma_chunk<3, 4, KA>(")],
-    "skip_b": [("mma_chunk<2, 4, KC>(", "if (false) mma_chunk<2, 4, KC>(")],
-    "skip_c": [("mma_chunk<2, 8, KC>(", "if (false) mma_chunk<2, 8, KC>(")],
+    "skip_b": [("mma_chunk<2, 4, KC>(part", "if (false) mma_chunk<2, 4, KC>(part")],
+    "skip_c": [("mma_chunk<2, 4, KC>(acc", "if (false) mma_chunk<2, 4, KC>(acc")],
+    # staging, barriers and epilogues alone
+    "no_products": [("mma_chunk<3, 4, KA>(", "if (false) mma_chunk<3, 4, KA>("),
+                    ("mma_chunk<2, 4, KC>(", "if (false) mma_chunk<2, 4, KC>(")],
     # the MMAs alone: fragments are constants, so loads and splits drop out
     "only_mma": [
         ("const float2 lo = *reinterpret_cast<const float2*>(smem + ao[i][0] + 2 * t);",

@@ -354,11 +354,11 @@ __global__ void __launch_bounds__(NT, 2) bottleneck_block_kernel(
   }
 
   // 3. y = relu(b . cw (+ x[::s, ::s] . pw) + cb (+ pb | x)) on the tensor
-  // cores. A warp owns 32 pixels x 64 channels. A round takes as many whole
-  // 64-channel groups as there are warps for, stages only their weight
+  // cores. A warp owns 32 pixels x 32 channels. A round takes as many whole
+  // 32-channel groups as there are warps for, stages only their weight
   // columns, and runs the steps of b . cw and then those of the projection.
   {
-    const int mg = NQ / 32, groups = Cout / 64, gpr = NWARP / mg > 1 ? NWARP / mg : 1;
+    const int mg = NQ / 32, groups = Cout / 32, gpr = NWARP / mg > 1 ? NWARP / mg : 1;
     const int csteps = Ci / KC, steps = csteps + (pw != nullptr ? (Cin + KC - 1) / KC : 0);
     int xoff[MAXR];  // x offset of each staged tile pixel this thread copies, or -1
 #pragma unroll
@@ -369,11 +369,11 @@ __global__ void __launch_bounds__(NT, 2) bottleneck_block_kernel(
     }
     for (int g0 = 0; g0 < groups; g0 += gpr) {
       const int ng = groups - g0 < gpr ? groups - g0 : gpr;
-      const int c0 = g0 * 64, ncols = ng * 64, ldw = ncols + 4;
+      const int c0 = g0 * 32, ncols = ng * 32, ldw = ncols + 4;
       const int stage_sz = NQ * SX + KC * ldw;
       const bool live = warp < mg * ng;
-      const int m0 = (warp % mg) * 32, n0 = (warp / mg) * 64;  // n0 from c0
-      float acc[2][8][4] = {};
+      const int m0 = (warp % mg) * 32, n0 = (warp / mg) * 32;  // n0 from c0
+      float acc[2][4][4] = {};
       auto stage = [&](int k, int buf) {
         const int so = NQ * SA + buf * stage_sz;
         if (k < csteps) {
@@ -402,7 +402,7 @@ __global__ void __launch_bounds__(NT, 2) bottleneck_block_kernel(
             const int q = m0 + 16 * i + 8 * h + g;
             ao[i][h] = on_b ? q * SA + k * KC : so + q * SX;
           }
-        mma_chunk<2, 8, KC>(acc, ao, 0, wo, ldw, lane);
+        mma_chunk<2, 4, KC>(acc, ao, 0, wo, ldw, lane);
       };
       pipeline(steps, stage, compute);
       if (live) {
@@ -415,7 +415,7 @@ __global__ void __launch_bounds__(NT, 2) bottleneck_block_kernel(
             const float* xq = xn + ((size_t)(s * oy) * W + s * ox) * Cin;  // identity
             float* dst = out + (((size_t)frame * Ho + oy) * Wo + ox) * Cout;
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
+            for (int j = 0; j < 4; ++j) {
               const int n = c0 + n0 + 8 * j + 2 * t;
               const float2 bias = __ldg(reinterpret_cast<const float2*>(cb + n));
               const float2 sc = __ldg(reinterpret_cast<const float2*>(
@@ -435,7 +435,7 @@ static size_t bottleneck_block_smem(int Ci, int Cout, int s, int TH, int TW) {
   const int na = ((TH - 1) * s + 3) * ((TW - 1) * s + 3);
   const int nam = (na + 47) / 48 * 48, nq = TH * TW, mg = nq / 32;
   const int gpr = NWARP / mg > 1 ? NWARP / mg : 1;
-  const int ncols = 64 * (Cout / 64 < gpr ? Cout / 64 : gpr);
+  const int ncols = 32 * (Cout / 32 < gpr ? Cout / 32 : gpr);
   const int a_end = nam * (Ci + 8);
   const int phase_a = a_end + 2 * (nam * (KA + 8) + KA * (Ci + 4));
   const int phase_b = a_end + 2 * Ci * (Ci + 4);
@@ -451,7 +451,7 @@ extern "C" int bottleneck_block(
     const void* pw, const void* pb, int Ci, int Cout, int s, int TH, int TW,
     void* out, void* stream) {
   const int nam = (((TH - 1) * s + 3) * ((TW - 1) * s + 3) + 47) / 48 * 48;
-  if (Cin % 4 || Ci % KC || Cout % 64 || H % s || W % s || (TH * TW) % 32 ||
+  if (Cin % 4 || Ci % KC || Cout % 32 || H % s || W % s || (TH * TW) % 32 ||
       (TH * TW / 32) * (Ci / 32) > NWARP || nam * (KA / 4) > MAXR * NT ||
       TH * TW * (KC / 4) > MAXR * NT)
     return (int)cudaErrorInvalidValue;

@@ -88,9 +88,9 @@ def _check_block(blk: Dict[str, Tensor], cin: int, dev) -> None:
                 or t.data_ptr() % 16):
             raise ValueError(f"{key} must be a contiguous, 16-byte aligned float32 "
                              f"tensor on {dev}")
-    if cin % 4 or inner not in (32, 64) or cout % 64:
+    if cin % 4 or inner not in (32, 64) or cout % 32:
         raise ValueError(f"the kernel takes input channels in multiples of 4, 32 or "
-                         f"64 inner channels and output channels in multiples of 64, "
+                         f"64 inner channels and output channels in multiples of 32, "
                          f"got {cin}, {inner}, {cout}")
 
 
