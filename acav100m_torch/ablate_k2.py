@@ -73,10 +73,63 @@ VARIANTS = {
         ("split(smem[wo + (2 * t + 1) * ldw + 8 * (j0 + jj) + g], bb[jj][1], bs[jj][1]);",
          "split(6.f, bb[jj][1], bs[jj][1]);"),
     ],
+    # product c's epilogue reads no bias and no shortcut ...
+    "c_epi_no_reads": [
+        ("const float2 bias = __ldg(reinterpret_cast<const float2*>(cb + n));\n"
+         "              const float2 sc = __ldg(reinterpret_cast<const float2*>(\n"
+         "                  pw != nullptr ? pb + n : xq + n));",
+         "const float2 bias = make_float2(0.f, 0.f), sc = bias;")],
+    # ... or writes nothing
+    "c_epi_no_stores": [("*reinterpret_cast<float2*>(dst + n) = v;",
+                         "if (v.x == -1.f) *reinterpret_cast<float2*>(dst + n) = v;")],
     # staging keeps its shared-memory stores and barriers, reads nothing
     "no_global": [("    const bool ok = k0 + kk < K;\n", "    const bool ok = false;\n"),
                   ("const bool ok = xoff[r] >= 0 && k0 + c < Cin;", "const bool ok = false;")],
 }
+
+
+# The card's own rate for the instruction K2 issues: mma.sync m16n8k8 TF32
+# from registers, 8 independent accumulators a warp, two CTAs of 8 warps
+# an SM, as K2 runs.
+MMA_RATE_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void __launch_bounds__(256, 2) mma_rate(float* out, int iters) {
+  uint32_t a[4], b[2];
+  for (int r = 0; r < 4; ++r) a[r] = (threadIdx.x + r) << 13;
+  for (int r = 0; r < 2; ++r) b[r] = (threadIdx.x * 3 + r) << 13;
+  float acc[8][4] = {};
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+f"(acc[j][0]), "+f"(acc[j][1]), "+f"(acc[j][2]), "+f"(acc[j][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  float s = 0.f;
+  for (int j = 0; j < 8; ++j) s += acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int launch(void* out, int blocks, int iters, void* stream) {
+  mma_rate<<<blocks, 256, 0, (cudaStream_t)stream>>>((float*)out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def mma_rate_tflops(nvcc: str) -> float:
+    """TF32 TFLOP/s of mma.sync m16n8k8 alone on this card."""
+    src, lib = OUT / "mma_rate.cu", OUT / "mma_rate.so"
+    src.write_text(MMA_RATE_SRC)
+    subprocess.run([nvcc, *cuda_build.NVCC_FLAGS, "-o", str(lib), str(src)], check=True)
+    fn = ctypes.CDLL(str(lib)).launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    blocks, iters = 2 * torch.cuda.get_device_properties(0).multi_processor_count, 4096
+    out = torch.empty(blocks * 256, device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    ms = time_ms(lambda: cuda_build.check(fn(_ptr(out), blocks, iters, stream), "mma_rate"))
+    return blocks * 8 * iters * 8 * 2 * 16 * 8 * 8 / (ms * 1e-3) / 1e12
 
 
 def variant_source(subs) -> str:
@@ -197,6 +250,8 @@ def main() -> int:
         print(f"{name:10s} {ms:.4f} ms ({ms - full_ms:+.4f} vs full); "
               f"err {err:.2e} of max; {regs}")
     print("full kernel SASS, most frequent:", sass_histogram(built["full"][0]))
+    print(f"mma.sync m16n8k8 TF32 alone: {mma_rate_tflops(cuda_build.find_nvcc()):.1f} "
+          f"TFLOP/s")
     return 0
 
 
