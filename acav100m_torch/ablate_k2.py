@@ -19,7 +19,6 @@ from __future__ import annotations
 import collections
 import ctypes
 import re
-import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -27,7 +26,8 @@ from pathlib import Path
 import torch
 
 from .ops import cuda_build
-from .ops.bottleneck_kernel import _KEYS, _ptr, fused_stage_ref
+from .ops.bottleneck_kernel import _KEYS, _ptr, bind, fused_stage_ref
+from .profiling import card, time_ms
 
 SRC = cuda_build.CSRC / "bottleneck_stage.cu"
 OUT = cuda_build.BUILD_DIR / "ablate_k2"
@@ -164,14 +164,6 @@ def build_all():
     return built
 
 
-def bind(lib: Path):
-    fn = ctypes.CDLL(str(lib)).bottleneck_block
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def run_stage(fn, x, blocks, outs, stream):
     h = x
     for blk, out in zip(blocks, outs):
@@ -182,19 +174,6 @@ def run_stage(fn, x, blocks, outs, stream):
         cuda_build.check(err, "bottleneck_block")
         h = out
     return h
-
-
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
-    torch.cuda.synchronize()
-    events[0].record()
-    for ev in events[1:]:
-        fn()
-        ev.record()
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
 
 
 def sass_histogram(lib: Path, top: int = 24) -> str:
@@ -213,10 +192,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card())
     built = build_all()
     gen = torch.Generator().manual_seed(0)
     dev = torch.device("cuda")
@@ -241,7 +217,7 @@ def main() -> int:
     ref = fused_stage_ref(x, blocks, 1)
     full_ms = None
     for name, (lib, regs) in built.items():
-        fn = bind(lib)
+        fn = bind(ctypes.CDLL(str(lib)))
         y = run_stage(fn, x, blocks, outs, stream)
         torch.cuda.synchronize()
         err = float((y - ref).abs().max() / ref.abs().max())

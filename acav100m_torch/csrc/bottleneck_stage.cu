@@ -21,8 +21,8 @@
 //   1. a on the tile's input region plus a 1-pixel halo (10 x 18 for an
 //      8 x 16 tile; the halo that neighbouring tiles also compute is
 //      recomputed, 1.41x the tile's work): M = region pixels (rounded up
-//      to 48), N = Ci, K = Cin (zero-padded to KC). a is zero outside the
-//      frame, which is the 3x3 conv's 'same' zero padding;
+//      to 48), N = Ci, K = Cin (zero-padded to a multiple of KA). a is
+//      zero outside the frame, which is the 3x3 conv's 'same' padding;
 //   2. b on the tile as an implicit GEMM over the 9 taps: M = tile pixels,
 //      N = Ci, K = 9 Ci, the A fragment read from a at each pixel's region
 //      row shifted by the tap;
@@ -33,7 +33,8 @@
 // overwrites a once every warp is done with it.
 //
 // 3xTF32. Each fp32 operand v is split in registers into
-// big = tf32(v) and small = tf32(v - big) (cvt.rna), and each product
+// big = tf32(v) and small = tf32(v - big), rounded as cvt.rna rounds
+// (to nearest, ties away from zero; see tf32_rna), and each product
 // A.B is issued as three mma.sync.m16n8k8 TF32 products, small.big,
 // big.small and then big.big, into one fp32 accumulator: the small terms
 // first, so their rounding stays below the large term. The dropped
@@ -61,9 +62,12 @@
 // GFLOP, issued three times in 3xTF32, is 0.347 ms at the 495 TFLOP/s of
 // dense TF32; the one launch a block design moves about 0.71 GB through
 // device memory (x, three block outputs written, two read back), 0.21 ms
-// at 3.35 TB/s. So it is bound by operations. Later work: one launch for
-// the whole stage (3-pixel halo), which drops the 0.54 GB that goes between
-// blocks; wgmma in place of mma.sync; TMA-fed, pipelined staging.
+// at 3.35 TB/s. So it is bound by operations. mma.sync TF32 itself runs at
+// 323 TFLOP/s on an H100 80GB HBM3 at 700 W (ablate_k2.py), which puts
+// this design's floor for its 189.7 GFLOP of MMAs (halo and padding
+// included) at 0.59 ms. Later work: one launch for the whole stage
+// (3-pixel halo), which drops the 0.54 GB that goes between blocks; wgmma
+// in place of mma.sync; TMA-fed staging.
 //
 // Plain C interface for ctypes; the launcher allocates nothing and returns
 // cudaGetLastError().

@@ -13,6 +13,14 @@ with a projection shortcut ``x[::s, ::s] . pw + pb`` where the block has
 
 ``fused_stage`` launches the CUDA kernel once per block for CUDA tensors
 and runs ``fused_stage_ref``, the plain PyTorch version, for CPU tensors.
+The kernel runs the block's three products on the tensor cores
+(``mma.sync`` TF32) in 3xTF32: each fp32 operand is split into two TF32
+parts and each product issued three times, which keeps the result within
+a few 1e-6 of the fp32 plain version's max, where one TF32 product misses
+by about 4e-4 (TF32 off in the comparison). It takes float32 NHWC frames
+with input channels in multiples of 4, 32 or 64 inner channels and output
+channels in multiples of 32; each CTA owns an 8 x 16 output tile (4 x 8 at
+stride 2). It raises on anything else.
 """
 
 from __future__ import annotations
@@ -61,14 +69,18 @@ def _ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-@functools.lru_cache(maxsize=None)
-def _bind():
-    lib = cuda_build.load("bottleneck_stage")
+def bind(lib: ctypes.CDLL):
+    """``lib``'s C launcher ``bottleneck_block`` with its signature."""
     fn = lib.bottleneck_block
     fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bind():
+    return bind(cuda_build.load("bottleneck_stage"))
 
 
 def _check_block(blk: Dict[str, Tensor], cin: int, dev) -> None:

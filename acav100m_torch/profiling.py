@@ -12,6 +12,8 @@ the main paths' shapes come from ``chip_smoke.py``.
 
 from __future__ import annotations
 
+import statistics
+import subprocess
 import time
 
 import torch
@@ -21,6 +23,29 @@ from torch.profiler import ProfilerActivity, profile
 from .models import init_weights
 from .models.slowfast import LayerSlowFast
 from .models.vggish import LayerVggish
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median of ``iters`` back-to-back calls, each between two CUDA events.
+    Nothing synchronizes inside the loop, so the host's launch work overlaps
+    the queued device work and a call's time is the device's."""
+    for _ in range(warmup):
+        fn()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    torch.cuda.synchronize()
+    events[0].record()
+    for ev in events[1:]:
+        fn()
+        ev.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
 
 
 def _device_us(evt) -> float:
@@ -58,7 +83,7 @@ def main() -> int:
         raise SystemExit("profile: no CUDA device")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    print(torch.cuda.get_device_name(0))
+    print(card())
     with torch.inference_mode():
         sf, vg = LayerSlowFast(), LayerVggish()
         init_weights(sf, gen)

@@ -25,8 +25,6 @@ from __future__ import annotations
 import json
 import math
 import shutil
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -44,6 +42,7 @@ from acav100m_torch.ops.kmeans_kernel import (
     fused_assign_update,
     fused_assign_update_ref,
 )
+from acav100m_torch.profiling import card, time_ms
 from acav100m_torch.utils.io import dump_pickle, load_pickle, make_feature_row
 
 ROOT = Path(__file__).resolve().parent
@@ -68,22 +67,6 @@ def log(msg: str) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
-
-
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median of ``iters`` back-to-back calls, each between two CUDA events.
-    Nothing synchronizes inside the loop, so the host's launch work overlaps
-    the queued device work and a call's time is the device's."""
-    for _ in range(warmup):
-        fn()
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
-    torch.cuda.synchronize()
-    events[0].record()
-    for ev in events[1:]:
-        fn()
-        ev.record()
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
 
 
 def bound(nbytes: float, flops: float, rate: float = FP32_FLOPS):
@@ -360,10 +343,7 @@ def main() -> int:
     cuda_build.build([name for name, _, _ in KERNELS])
     log(f"built {len(KERNELS)} kernels in {time.time() - t0:.1f} s: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in cuda_build.build_seconds.items()))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    log(smi)
+    log(card())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     # phase 2, TF32 off for the comparisons
