@@ -56,9 +56,9 @@ def _ptr(t: Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-@functools.lru_cache(maxsize=None)
-def _bind():
-    lib = cuda_build.load("kmeans_assign_update")
+def bind(lib: ctypes.CDLL):
+    """``lib``'s C launcher ``kmeans_assign_update`` and its tile-size
+    function, with their signatures."""
     fn = lib.kmeans_assign_update
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 7)
@@ -67,6 +67,36 @@ def _bind():
     tile.argtypes = [ctypes.c_int]
     tile.restype = ctypes.c_int
     return fn, tile
+
+
+@functools.lru_cache(maxsize=None)
+def _bind():
+    return bind(cuda_build.load("kmeans_assign_update"))
+
+
+def launch(lib_fns, centers: Tensor, counts: Tensor, batch: Tensor,
+           threshold: float) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Allocate the outputs and scratch and call the launcher ``lib_fns``
+    (from ``bind``) on the current stream; no checks of the inputs."""
+    fn, tile = lib_fns
+    m, k, d = centers.shape
+    b = batch.shape[1]
+    tiles = -(-b // tile(k))
+    dev = batch.device
+    f32 = dict(device=dev, dtype=torch.float32)
+    best = torch.empty((m, b), device=dev, dtype=torch.int32)
+    part_counts = torch.empty((tiles, m, k), **f32)
+    part_minsum = torch.empty((tiles, m), **f32)
+    counts_add = torch.empty((m, k), **f32)
+    deltas = torch.empty((m, k, d), **f32)
+    min_mean = torch.empty((m,), **f32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(_ptr(centers), _ptr(counts), _ptr(batch), float(threshold),
+                 m, k, b, d, _ptr(best), _ptr(part_counts), _ptr(part_minsum),
+                 _ptr(counts_add), _ptr(deltas), _ptr(min_mean), ctypes.c_void_p(stream))
+    cuda_build.check(err, "kmeans_assign_update")
+    return best, counts_add, deltas, min_mean
 
 
 def fused_assign_update(
@@ -96,25 +126,9 @@ def fused_assign_update(
             raise ValueError(f"{name} must be contiguous float32, got {t.dtype}")
     if k > _KMAX:
         raise ValueError(f"K={k} centers exceeds the kernel's limit {_KMAX}")
-    b = batch.shape[1]
-    fn, tile = _bind()
-    tiles = -(-b // tile(k))
-    dev = batch.device
-    f32 = dict(device=dev, dtype=torch.float32)
-    best = torch.empty((m, b), device=dev, dtype=torch.int32)
-    part_counts = torch.empty((tiles, m, k), **f32)
-    part_minsum = torch.empty((tiles, m), **f32)
-    counts_add = torch.empty((m, k), **f32)
-    deltas = torch.empty((m, k, d), **f32)
-    min_mean = torch.empty((m,), **f32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_ptr(centers), _ptr(counts), _ptr(batch), float(threshold),
-                 m, k, b, d, _ptr(best), _ptr(part_counts), _ptr(part_minsum),
-                 _ptr(counts_add), _ptr(deltas), _ptr(min_mean), ctypes.c_void_p(stream))
-    cuda_build.check(err, "kmeans_assign_update")
+    out = launch(_bind(), centers, counts, batch, threshold)
     fused_assign_update.launches += 1
-    return best, counts_add, deltas, min_mean
+    return out
 
 
 fused_assign_update.launches = 0

@@ -12,6 +12,7 @@ the main paths' shapes come from ``chip_smoke.py``.
 
 from __future__ import annotations
 
+import itertools
 import statistics
 import subprocess
 import time
@@ -46,6 +47,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         ev.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+
+
+def time_cold_ms(fn, sets, iters: int = 20, warmup: int = 3) -> float:
+    """``time_ms`` of ``fn(*args)`` with the calls rotating over ``sets`` of
+    arguments, so that inputs larger than the L2 in all come from device
+    memory, as they would for a caller that has not just touched them."""
+    rotation = itertools.cycle(sets)
+    return time_ms(lambda: fn(*next(rotation)), iters, warmup)
 
 
 def _device_us(evt) -> float:

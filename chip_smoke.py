@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from acav100m_torch import cli
+from acav100m_torch.ablate_k1 import COLD_SETS, k1_inputs
 from acav100m_torch.models import init_weights
 from acav100m_torch.models.slowfast import LayerSlowFast, ResBlock
 from acav100m_torch.ops import cuda_build
@@ -42,7 +43,7 @@ from acav100m_torch.ops.kmeans_kernel import (
     fused_assign_update,
     fused_assign_update_ref,
 )
-from acav100m_torch.profiling import card, time_ms
+from acav100m_torch.profiling import card, time_cold_ms, time_ms
 from acav100m_torch.utils.io import dump_pickle, load_pickle, make_feature_row
 
 ROOT = Path(__file__).resolve().parent
@@ -89,23 +90,23 @@ def counts():
 
 def check_k1(gen: torch.Generator) -> dict:
     """K1 at the shapes both main paths give it: path B's K=32, B=1024 (timed)
-    and its ragged B=1000, and path A's K=4, B=4 (one tile, one partial)."""
-    m, d = 10, 2304
+    and its ragged B=1000, and path A's K=4, B=4 (one tile, one partial);
+    rows and centers zero past each of the ten taps' widths."""
     result = {}
     # (k, b, samples seen): the threshold (seen / k)**0.7 past warmup, with
     # counts drawn below twice it, marks about half the centers underused
     for k, b, seen in ((32, 1024, 20000), (32, 1000, 20000), (4, 4, 48)):
-        threshold = (seen / k) ** 0.7
-        batch = torch.randn((m, b, d), generator=gen).cuda()
-        pick = torch.randperm(b, generator=gen)[:k].cuda()
-        centers = (batch[:, pick] + 0.1 * torch.randn((m, k, d), generator=gen).cuda())
-        centers = centers.contiguous()
-        cnt = torch.randint(0, int(2 * threshold), (m, k), generator=gen).float().cuda()
+        args = k1_inputs(gen, k, b, seen=seen)
+        centers, cnt, batch, threshold = args
+        m, _, d = centers.shape
         underused = int((cnt < threshold).sum())
         check(0 < underused < m * k, f"K1 at K={k} B={b}: some centers underused")
-        best, c_add, deltas, mean = fused_assign_update(centers, cnt, batch, threshold)
+        best, c_add, deltas, mean = out = fused_assign_update(*args)
+        again = fused_assign_update(*args)
         torch.cuda.synchronize()
-        best_p, _, _, mean_p = fused_assign_update_ref(centers, cnt, batch, threshold)
+        check(all(torch.equal(u, v) for u, v in zip(out, again)),
+              f"K1 at K={k} B={b}: two launches bitwise equal")
+        best_p, _, _, mean_p = fused_assign_update_ref(*args)
         dist = discounted_distances(centers, cnt, batch, threshold)
         two = dist.topk(2, dim=-1, largest=False).values
         decisive = (two[..., 1] - two[..., 0]) > 1e-4 * two[..., 0].abs()
@@ -120,20 +121,24 @@ def check_k1(gen: torch.Generator) -> dict:
         log(f"K1 K={k} B={b}: best differs on {flips} of {int(decisive.sum())} decisive "
             f"rows ({int((best != best_p).sum())} of {m * b} in all); counts rel err "
             f"{err_c:.2e}, deltas rel err {err_d:.2e}, mean min-dist rel err {err_m:.2e}; "
-            f"{underused} of {m * k} centers underused")
+            f"{underused} of {m * k} centers underused; two launches bitwise equal")
         check(flips == 0, f"K1 argmin at K={k} B={b}")
         check(err_c <= 1e-4 and err_d <= 1e-4 and err_m <= 1e-4, f"K1 sums at K={k} B={b}")
         if (k, b) == (32, 1024):
-            ms = time_ms(lambda: fused_assign_update(centers, cnt, batch, threshold))
-            plain = time_ms(lambda: fused_assign_update_ref(centers, cnt, batch, threshold))
+            sets = [args] + [k1_inputs(gen, k, b) for _ in range(COLD_SETS - 1)]
+            warm = time_ms(lambda: fused_assign_update(*args))
+            cold = time_cold_ms(fused_assign_update, sets)
+            plain = time_ms(lambda: fused_assign_update_ref(*args))
             nbytes = 4 * (m * b * d + 2 * m * k * d + 2 * m * k + m * b + m)
             flops = 2 * m * b * k * d + 2 * m * (b + k) * d + m * b * d
             bound_ms, bound_by = bound(nbytes, flops)
-            result = dict(max_abs_err=abs_d, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+            result = dict(max_abs_err=abs_d, ms=cold, plain_ms=plain, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=None)
-    log(f"K1 at M={m} K=32 D={d} B=1024: {result['ms']:.4f} ms, plain "
-        f"{result['plain_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms "
-        f"({result['bound_by']}); no single library call computes it")
+            log(f"K1 at M={m} K={k} D={d} B={b}: {cold:.4f} ms with a cold L2 (calls "
+                f"rotate over {COLD_SETS} input sets, {COLD_SETS * 4 * m * b * d / 1e6:.0f} MB "
+                f"of rows), {warm:.4f} ms warm (the same inputs each call); plain "
+                f"{plain:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}); no single library "
+                f"call computes it")
     return result
 
 
