@@ -7,8 +7,10 @@ Without a hardware profiler, this builds variants of
 by a text substitution, and times each at the main path's shape (M=10
 clusterings of K=32 centers, B=1024 rows, D=2304 columns, the ten feature
 taps' real widths zero-padded to D) as the median of 20 back-to-back calls
-between CUDA events: warm (the same inputs every call) and cold (the calls
-rotate over four input sets, more than the L2 holds). A variant computes
+between CUDA events, each call replayed from a CUDA graph so that the
+host's launch work stays out: warm (the same inputs every call) and cold
+(the calls rotate over four input sets, more than the L2 holds); and cold
+without the graph ("eager", what a caller's loop sees). A variant computes
 wrong numbers; only its time is read, beside the full kernel's. Each
 substitution must match the source, so an edit to the kernel that moves
 what a variant removes makes this script fail instead of timing the wrong
@@ -28,7 +30,7 @@ import torch
 from .ablate_k2 import sass_histogram
 from .ops import cuda_build
 from .ops import kmeans_kernel as kk
-from .profiling import card, time_cold_ms, time_ms
+from .profiling import card, time_cold_ms
 
 SRC = cuda_build.CSRC / "kmeans_assign_update.cu"
 OUT = cuda_build.BUILD_DIR / "ablate_k1"
@@ -39,8 +41,11 @@ COLD_SETS = 4
 
 _NO_ACCUMULATE = ("  accumulate_kernel<<<dim3((D + NC - 1) / NC, M), NC, smem2, s>>>(",
                   "  if (false) accumulate_kernel<<<dim3((D + NC - 1) / NC, M), NC, smem2, s>>>(")
-_NO_PRODUCT = ("acc[a][b] = fmaf(xv[a], cv[b], acc[a][b]);", ";")
-_NO_NORMS = ("sq = fmaf(v[dd], v[dd], sq);", ";")
+# the product's fragment loads, splits and MMAs (the norms' A loads stay)
+_NO_PRODUCT = [("          if (j < nt8) {\n", "          if (false) {\n"),
+               ("          if (j < nt8) mma_tf32(", "          if (false) mma_tf32(")]
+_NO_NORMS = [("xq0 = fmaf(a0, a0, xq0); xq0 = fmaf(a2, a2, xq0);", ";"),
+             ("xq1 = fmaf(a1, a1, xq1); xq1 = fmaf(a3, a3, xq1);", ";")]
 
 # name -> [(text in the source, replacement)]
 VARIANTS = {
@@ -49,13 +54,24 @@ VARIANTS = {
     "assign_only": [_NO_ACCUMULATE],
     # the accumulate kernel alone, on assignments made up in place
     "accumulate_only": [
-        ("  assign_kernel<CREGS><<<grid, NT, smem, s>>>(",
-         "  if (false) assign_kernel<CREGS><<<grid, NT, smem, s>>>("),
+        ("  assign_kernel<<<dim3(T, M), NT, smem, s>>>(",
+         "  if (false) assign_kernel<<<dim3(T, M), NT, smem, s>>>("),
         ("sbest[i] = best[(size_t)m * B + r0 + i];", "sbest[i] = (r0 + i) % K;")],
-    # assign without the distance product (its shared-memory reads drop too)
-    "assign_no_product": [_NO_ACCUMULATE, _NO_PRODUCT],
+    # assign without the distance product
+    "assign_no_product": [_NO_ACCUMULATE, *_NO_PRODUCT],
     # assign with its loads, staging and barriers only: no product, no norms
-    "assign_loads_only": [_NO_ACCUMULATE, _NO_PRODUCT, _NO_NORMS],
+    "assign_loads_only": [_NO_ACCUMULATE, *_NO_PRODUCT, *_NO_NORMS],
+    # assign with fragments loaded and split but no tensor-core work
+    "assign_no_mma": [_NO_ACCUMULATE, (
+        '      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "\n'
+        '      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"\n',
+        '      ""\n')],
+    # no kernel at all: the host's own work per call
+    "no_launch": [_NO_ACCUMULATE, ("  assign_kernel<<<dim3(T, M), NT, smem, s>>>(",
+                                   "  if (false) assign_kernel<<<dim3(T, M), NT, smem, s>>>(")],
+    # 1xTF32: only the big.big product (wrong in the last digits)
+    "one_mma": [("          if (j < nt8) mma_tf32(part[j], as, bb[j]);\n", "          ;\n"),
+                ("          if (j < nt8) mma_tf32(part[j], ab, bs[j]);\n", "          ;\n")],
 }
 
 
@@ -128,12 +144,13 @@ def main() -> int:
         best, c_add, deltas, mean = call(*sets[0])
         torch.cuda.synchronize()
         err = float((deltas - d_p).abs().max() / d_p.abs().max())
-        warm = time_ms(lambda: call(*sets[0]))
-        cold = time_cold_ms(call, sets)
+        eager = time_cold_ms(call, sets)
+        warm = time_cold_ms(call, sets[:1], graph=True)
+        cold = time_cold_ms(call, sets, graph=True)
         full = (warm, cold) if name == "full" else full
         print(f"{name:18s} warm {warm:.4f} ms ({warm - full[0]:+.4f}), cold {cold:.4f} ms "
-              f"({cold - full[1]:+.4f}); best differs on {int((best != best_p).sum())} rows, "
-              f"deltas err {err:.2e} of max; {regs}")
+              f"({cold - full[1]:+.4f}), cold eager {eager:.4f} ms; best differs on "
+              f"{int((best != best_p).sum())} rows, deltas err {err:.2e} of max; {regs}")
     print("full kernel SASS, most frequent:", sass_histogram(built["full"][0]))
     return 0
 

@@ -41,120 +41,213 @@
 // cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#define NT 256     // threads per assign CTA
-#define DC 32      // feature chunk staged per step
-#define TBMAX 64   // rows per assign tile at most
-#define XREGS (TBMAX * DC / NT)
-#define RR 2       // rows per thread tile
-#define RK 4       // centers per thread tile
-#define KMAX 256   // centers supported
-#define NC 128     // columns (threads) per accumulate CTA
-#define RB 2048    // assignments staged per accumulate pass
-#define UNROLL 32  // rows in flight per accumulate thread
+#define NT 256          // threads per assign CTA: 8 warps
+#define NWARP (NT / 32)
+#define TB 64           // rows per assign tile: 16 a row group of warps
+#define DC 32           // features a staged chunk holds
+#define LDS (DC + 4)    // row stride of a staged chunk in floats: 4 (mod 32)
+#define STAGES 4        // chunks in the cp.async ring
+#define CG 32           // centers a pass covers: 4 n-tiles of 8
+#define KMAX 256        // centers supported
+#define NC 128          // columns (threads) per accumulate CTA
+#define RB 2048         // assignments staged per accumulate pass
+#define UNROLL 32       // rows in flight per accumulate thread
 
-template <int CREGS>
+extern __shared__ float smem[];
+
+__device__ __forceinline__ void cp16(float* dst, const float* src, int bytes) {
+  // 16 bytes global -> shared: the first `bytes` from src, zeros after them
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+// cvt.rna.tf32.f32 for any finite v, in two integer instructions: add half
+// a TF32 ulp to the magnitude bits and clear the 13 bits TF32 drops.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float v, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(v);
+  small = tf32_rna(v - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Issue the cp.async copies of features [d0, d0+DC) of the tile's rows and
+// of centers [k0, k0+kn) into one ring slot; rows and centers past the
+// ends, and features past D, land as zeros.
+__device__ __forceinline__ void stage_chunk(float* xs, float* cs, const float* xm,
+                                            const float* cm, int row0, int rows, int k0,
+                                            int kn, int D, int d0) {
+  for (int i = threadIdx.x; i < (TB + CG) * (DC / 4); i += NT) {
+    const int r = i / (DC / 4), q = (i % (DC / 4)) * 4, d = d0 + q;
+    const bool is_x = r < TB;
+    const int rr = is_x ? r : r - TB;
+    const bool ok = (is_x ? rr < rows : rr < kn) && d < D;
+    const float* src = is_x ? xm + (size_t)(row0 + rr) * D + d : cm + (size_t)(k0 + rr) * D + d;
+    cp16((is_x ? xs : cs) + rr * LDS + q, ok ? src : xm, ok ? 4 * min(4, D - d) : 0);
+  }
+}
+
+// One tile of TB rows of clustering m: distances to all K centers on the
+// tensor cores, discount, first-index argmin, per-tile partial counts and
+// min-sum. Warp w owns rows 16 (w & 3) .. +15 against the CG centers of a
+// pass, and half kh = w >> 2 of each chunk's features; the two halves'
+// sums are added in a fixed order at the end of the pass.
 __global__ void __launch_bounds__(NT) assign_kernel(
     const float* __restrict__ centers,  // (M,K,D)
     const float* __restrict__ counts,   // (M,K)
     const float* __restrict__ batch,    // (M,B,D)
-    float threshold, int K, int B, int D, int TB,
+    float threshold, int K, int B, int D,
     int* __restrict__ best,             // (M,B)
     float* __restrict__ part_counts,    // (T,M,K)
     float* __restrict__ part_minsum) {  // (T,M)
   const int tile = blockIdx.x, m = blockIdx.y, M = gridDim.y;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, rg = warp & 3, kh = warp >> 2;
   const int row0 = tile * TB;
   const int rows = min(TB, B - row0);
-  const int KG = (K + RK - 1) / RK, KP = KG * RK;
 
-  extern __shared__ float smem[];
-  float* xs = smem;                  // TB x (DC+1)
-  float* cs = xs + TB * (DC + 1);    // KP x (DC+1)
-  float* x2 = cs + KP * (DC + 1);    // TB
-  float* c2 = x2 + TB;               // KP
-  float* dist = c2 + KP;             // TB x K
-  float* mind = dist + TB * K;       // TB
-  int* bst = (int*)(mind + TB);      // TB
+  float* ring = smem;                          // STAGES x (TB + CG) x LDS
+  float* x2 = ring + STAGES * (TB + CG) * LDS; // TB
+  float* c2 = x2 + TB;                         // CG, this pass's centers
+  float* xh = c2 + CG;                         // TB, half 1's share of x2
+  float* ch = xh + TB;                         // CG, half 1's share of c2
+  float* dist = ch + CG;                       // TB x K
+  float* mind = dist + TB * K;                 // TB
+  int* bst = (int*)(mind + TB);                // TB
 
   const float* xm = batch + (size_t)m * B * D;
-  const float* cm = centers + (size_t)m * K * D;
-  const int nx = TB * DC, nc = KP * DC;
+  const int nchunks = (D + DC - 1) / DC;
+  float xq0 = 0.f, xq1 = 0.f;  // this thread's share of |x|^2, rows g and g+8
 
-  float xr[XREGS], cr[CREGS];
-#define LOAD_CHUNK(d0)                                                        \
-  _Pragma("unroll") for (int j = 0; j < XREGS; ++j) {                         \
-    const int i = tid + j * NT, r = i / DC, d = (d0) + i % DC;                \
-    xr[j] = (i < nx && r < rows && d < D) ? __ldg(xm + (size_t)(row0 + r) * D + d) : 0.f; \
-  }                                                                           \
-  _Pragma("unroll") for (int j = 0; j < CREGS; ++j) {                         \
-    const int i = tid + j * NT, k = i / DC, d = (d0) + i % DC;                \
-    cr[j] = (i < nc && k < K && d < D) ? __ldg(cm + (size_t)k * D + d) : 0.f; \
-  }
-
-  const bool worker = tid < (TB / RR) * KG;
-  const int rg = tid / KG, cg = tid % KG;
-  float acc[RR][RK] = {};
-  for (int i = tid; i < TB + KP; i += NT) {
-    if (i < TB) x2[i] = 0.f; else c2[i - TB] = 0.f;
-  }
-  LOAD_CHUNK(0)
-  for (int d0 = 0; d0 < D; d0 += DC) {
-    __syncthreads();  // the previous chunk is consumed
+  for (int k0 = 0; k0 < K; k0 += CG) {
+    const int kn = min(CG, K - k0), nt8 = (kn + 7) / 8;
+    const float* cm = centers + ((size_t)m * K + k0) * D;
+    float tot[4][4] = {};
+    float cq[4] = {};  // row group 0's share of |c|^2
 #pragma unroll
-    for (int j = 0; j < XREGS; ++j) {
-      const int i = tid + j * NT;
-      if (i < nx) xs[(i / DC) * (DC + 1) + i % DC] = xr[j];
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < nchunks) {
+        float* slot = ring + s * (TB + CG) * LDS;
+        stage_chunk(slot, slot + TB * LDS, xm, cm, row0, rows, 0, kn, D, s * DC);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    for (int c = 0; c < nchunks; ++c) {
+      asm volatile("cp.async.wait_group %0;\n" :: "n"(STAGES - 2) : "memory");
+      __syncthreads();  // chunk c landed; every warp is done with chunk c-1
+      if (c + STAGES - 1 < nchunks) {
+        float* slot = ring + ((c + STAGES - 1) % STAGES) * (TB + CG) * LDS;
+        stage_chunk(slot, slot + TB * LDS, xm, cm, row0, rows, 0, kn, D,
+                    (c + STAGES - 1) * DC);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      const float* xa = ring + (c % STAGES) * (TB + CG) * LDS + (16 * rg + g) * LDS;
+      const float* cb = ring + (c % STAGES) * (TB + CG) * LDS + (TB + g) * LDS;
+      // each chunk sums into a fresh accumulator, added to the total in
+      // fp32: the tensor cores' own sums round toward zero
+      float part[4][4] = {};
+#pragma unroll
+      for (int kk = kh * (DC / 2); kk < (kh + 1) * (DC / 2); kk += 8) {
+        const float a0 = xa[kk + t], a1 = xa[8 * LDS + kk + t];
+        const float a2 = xa[kk + t + 4], a3 = xa[8 * LDS + kk + t + 4];
+        if (k0 == 0) {
+          xq0 = fmaf(a0, a0, xq0); xq0 = fmaf(a2, a2, xq0);
+          xq1 = fmaf(a1, a1, xq1); xq1 = fmaf(a3, a3, xq1);
+        }
+        uint32_t ab[4], as[4];
+        split(a0, ab[0], as[0]); split(a1, ab[1], as[1]);
+        split(a2, ab[2], as[2]); split(a3, ab[3], as[3]);
+        uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j < nt8) {
+            const float b0 = cb[8 * j * LDS + kk + t], b1 = cb[8 * j * LDS + kk + t + 4];
+            if (rg == 0) { cq[j] = fmaf(b0, b0, cq[j]); cq[j] = fmaf(b1, b1, cq[j]); }
+            split(b0, bb[j][0], bs[j][0]); split(b1, bb[j][1], bs[j][1]);
+          }
+        }
+        // small.big, big.small, then big.big, each for every n-tile in a
+        // row, so that an MMA seldom waits on the one before it
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < nt8) mma_tf32(part[j], as, bb[j]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < nt8) mma_tf32(part[j], ab, bs[j]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < nt8) mma_tf32(part[j], ab, bb[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tot[j][e] += part[j][e];
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    // the quad's four shares of each norm, in a fixed order
+    if (k0 == 0) {
+      xq0 += __shfl_xor_sync(0xffffffffu, xq0, 1); xq0 += __shfl_xor_sync(0xffffffffu, xq0, 2);
+      xq1 += __shfl_xor_sync(0xffffffffu, xq1, 1); xq1 += __shfl_xor_sync(0xffffffffu, xq1, 2);
     }
 #pragma unroll
-    for (int j = 0; j < CREGS; ++j) {
-      const int i = tid + j * NT;
-      if (i < nc) cs[(i / DC) * (DC + 1) + i % DC] = cr[j];
+    for (int j = 0; j < 4; ++j) {
+      cq[j] += __shfl_xor_sync(0xffffffffu, cq[j], 1);
+      cq[j] += __shfl_xor_sync(0xffffffffu, cq[j], 2);
+    }
+    __syncthreads();  // every warp is done with the ring
+    // half 1 hands its sums to half 0 through shared memory
+    float* th = ring + (rg * 32 + lane) * 16;
+    if (kh == 1) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) th[4 * j + e] = tot[j][e];
+      if (t == 0 && k0 == 0) { xh[16 * rg + g] = xq0; xh[16 * rg + g + 8] = xq1; }
+      if (t == 0 && rg == 0)
+        for (int j = 0; j < 4; ++j) ch[8 * j + g] = cq[j];
     }
     __syncthreads();
-    if (d0 + DC < D) { LOAD_CHUNK(d0 + DC) }  // in flight during the products
-    // squared norms: element i is always owned by the same thread
-    for (int i = tid; i < TB + KP; i += NT) {
-      const float* v = i < TB ? xs + i * (DC + 1) : cs + (i - TB) * (DC + 1);
-      float sq = 0.f;
+    if (kh == 0) {
 #pragma unroll
-      for (int dd = 0; dd < DC; ++dd) sq = fmaf(v[dd], v[dd], sq);
-      if (i < TB) x2[i] += sq; else c2[i - TB] += sq;
-    }
-    if (worker) {
-      const float* xa = xs + rg * RR * (DC + 1);
-      const float* ca = cs + cg * RK * (DC + 1);
-#pragma unroll 8
-      for (int dd = 0; dd < DC; ++dd) {
-        float xv[RR], cv[RK];
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int a = 0; a < RR; ++a) xv[a] = xa[a * (DC + 1) + dd];
-#pragma unroll
-        for (int b = 0; b < RK; ++b) cv[b] = ca[b * (DC + 1) + dd];
-#pragma unroll
-        for (int a = 0; a < RR; ++a)
-#pragma unroll
-          for (int b = 0; b < RK; ++b) acc[a][b] = fmaf(xv[a], cv[b], acc[a][b]);
+        for (int e = 0; e < 4; ++e) tot[j][e] += th[4 * j + e];
+      if (t == 0 && k0 == 0) {
+        x2[16 * rg + g] = xq0 + xh[16 * rg + g];
+        x2[16 * rg + g + 8] = xq1 + xh[16 * rg + g + 8];
       }
+      if (t == 0 && rg == 0)
+        for (int j = 0; j < 4; ++j) c2[8 * j + g] = cq[j] + ch[8 * j + g];
     }
-  }
-#undef LOAD_CHUNK
-  __syncthreads();
-
-  if (worker) {
+    __syncthreads();
+    if (kh == 0) {
 #pragma unroll
-    for (int a = 0; a < RR; ++a)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int b = 0; b < RK; ++b) {
-        const int r = rg * RR + a, k = cg * RK + b;
-        if (k < K) {
-          float dv = -2.f * acc[a][b] + x2[r] + c2[k];
-          if (counts[m * K + k] < threshold) dv = dv / 5.f;
-          dist[r * K + k] = dv;
+        for (int e = 0; e < 4; ++e) {
+          const int r = 16 * rg + g + 8 * (e >> 1), kl = 8 * j + 2 * t + (e & 1);
+          if (kl < kn) {
+            float dv = -2.f * tot[j][e] + x2[r] + c2[kl];
+            if (counts[m * K + k0 + kl] < threshold) dv = dv / 5.f;
+            dist[r * K + k0 + kl] = dv;
+          }
         }
-      }
+    }
+    __syncthreads();  // the ring and c2 are free for the next pass
   }
-  __syncthreads();
 
   for (int r = tid; r < rows; r += NT) {
     float bd = dist[r * K];
@@ -188,7 +281,6 @@ __global__ void __launch_bounds__(NC) accumulate_kernel(
     float* __restrict__ counts_add, float* __restrict__ min_mean) {
   const int m = blockIdx.y, M = gridDim.y, tid = threadIdx.x;
   const int d = blockIdx.x * NC + tid;
-  extern __shared__ float smem[];
   float* acc = smem;                  // K x NC: column tid owned by thread tid
   int* sbest = (int*)(acc + K * NC);  // RB
   for (int k = 0; k < K; ++k) acc[k * NC + tid] = 0.f;
@@ -236,54 +328,26 @@ __global__ void __launch_bounds__(NC) accumulate_kernel(
   }
 }
 
-// rows per assign tile for K centers: TB/RR row groups x ceil(K/RK) center
-// groups of threads, at most NT
-extern "C" int kmeans_assign_update_tile(int K) {
-  const int kg = (K + RK - 1) / RK;
-  return RR * min(TBMAX / RR, NT / kg);
-}
-
-template <int CREGS>
-static cudaError_t launch_assign(dim3 grid, size_t smem, cudaStream_t s,
-                                 const float* c, const float* n, const float* x,
-                                 float thr, int K, int B, int D, int TB, int* best,
-                                 float* pc, float* pm) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        assign_kernel<CREGS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  assign_kernel<CREGS><<<grid, NT, smem, s>>>(c, n, x, thr, K, B, D, TB, best, pc, pm);
-  return cudaGetLastError();
-}
+// rows per assign tile (K centers are covered in passes of CG)
+extern "C" int kmeans_assign_update_tile(int K) { return TB; }
 
 extern "C" int kmeans_assign_update(
     const void* centers, const void* counts, const void* batch, float threshold,
     int M, int K, int B, int D, void* best, void* part_counts, void* part_minsum,
     void* counts_add, void* deltas, void* min_mean, void* stream) {
-  if (K < 1 || K > KMAX) return (int)cudaErrorInvalidValue;
+  if (K < 1 || K > KMAX || D % 4) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int TB = kmeans_assign_update_tile(K);
   const int T = (B + TB - 1) / TB;
-  const int KP = (K + RK - 1) / RK * RK;
-  const size_t smem = sizeof(float) * ((size_t)(TB + KP) * (DC + 1) + TB + KP +
+  const size_t smem = sizeof(float) * ((size_t)STAGES * (TB + CG) * LDS + 2 * (TB + CG) +
                                        (size_t)TB * K + TB) + sizeof(int) * TB;
-  const dim3 grid(T, M);
-  const int cregs = (KP * DC + NT - 1) / NT;
-  const float* c = (const float*)centers;
-  const float* n = (const float*)counts;
+  cudaError_t err = cudaFuncSetAttribute(
+      assign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   const float* x = (const float*)batch;
-  cudaError_t err;
-  if (cregs <= 4)
-    err = launch_assign<4>(grid, smem, s, c, n, x, threshold, K, B, D, TB, (int*)best,
-                           (float*)part_counts, (float*)part_minsum);
-  else if (cregs <= 8)
-    err = launch_assign<8>(grid, smem, s, c, n, x, threshold, K, B, D, TB, (int*)best,
-                           (float*)part_counts, (float*)part_minsum);
-  else
-    err = launch_assign<KMAX * DC / NT>(grid, smem, s, c, n, x, threshold, K, B, D, TB,
-                                        (int*)best, (float*)part_counts,
-                                        (float*)part_minsum);
+  assign_kernel<<<dim3(T, M), NT, smem, s>>>(
+      (const float*)centers, (const float*)counts, x, threshold, K, B, D, (int*)best,
+      (float*)part_counts, (float*)part_minsum);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem2 = sizeof(float) * (size_t)K * NC + sizeof(int) * RB;
   if (smem2 > 48 * 1024) {

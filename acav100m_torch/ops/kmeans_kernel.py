@@ -81,6 +81,11 @@ def launch(lib_fns, centers: Tensor, counts: Tensor, batch: Tensor,
     fn, tile = lib_fns
     m, k, d = centers.shape
     b = batch.shape[1]
+    if d % 4:  # the kernel stages rows in 16-byte groups: pad with zero columns
+        d4 = d + 4 - d % 4
+        out = launch(lib_fns, F.pad(centers, (0, d4 - d)), counts,
+                     F.pad(batch, (0, d4 - d)), threshold)
+        return out[0], out[1], out[2][..., :d].contiguous(), out[3]
     tiles = -(-b // tile(k))
     dev = batch.device
     f32 = dict(device=dev, dtype=torch.float32)
@@ -124,6 +129,8 @@ def fused_assign_update(
     for name, t in (("centers", centers), ("counts", counts), ("batch", batch)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32, got {t.dtype}")
+        if name != "counts" and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     if k > _KMAX:
         raise ValueError(f"K={k} centers exceeds the kernel's limit {_KMAX}")
     out = launch(_bind(), centers, counts, batch, threshold)

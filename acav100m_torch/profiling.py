@@ -12,6 +12,7 @@ the main paths' shapes come from ``chip_smoke.py``.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import statistics
 import subprocess
@@ -33,10 +34,27 @@ def card() -> str:
                           check=True).stdout.strip().splitlines()[0]
 
 
+def graphed(fn):
+    """``fn`` captured once in a CUDA graph; returns its replay. Timing the
+    replay leaves out the host's work around each launch (allocations,
+    argument packing), which a short kernel can take less time than."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Median of ``iters`` back-to-back calls, each between two CUDA events.
     Nothing synchronizes inside the loop, so the host's launch work overlaps
-    the queued device work and a call's time is the device's."""
+    the queued device work and a call's time is the device's, as long as
+    the host issues a call faster than the device runs it."""
     for _ in range(warmup):
         fn()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
@@ -49,12 +67,16 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:]))
 
 
-def time_cold_ms(fn, sets, iters: int = 20, warmup: int = 3) -> float:
+def time_cold_ms(fn, sets, iters: int = 20, warmup: int = 3, graph: bool = False) -> float:
     """``time_ms`` of ``fn(*args)`` with the calls rotating over ``sets`` of
     arguments, so that inputs larger than the L2 in all come from device
-    memory, as they would for a caller that has not just touched them."""
-    rotation = itertools.cycle(sets)
-    return time_ms(lambda: fn(*next(rotation)), iters, warmup)
+    memory, as they would for a caller that has not just touched them.
+    With ``graph``, each set's call is a CUDA graph replay (``graphed``)."""
+    calls = [functools.partial(fn, *args) for args in sets]
+    if graph:
+        calls = [graphed(c) for c in calls]
+    rotation = itertools.cycle(calls)
+    return time_ms(lambda: next(rotation)(), iters, warmup)
 
 
 def _device_us(evt) -> float:

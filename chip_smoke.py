@@ -126,8 +126,11 @@ def check_k1(gen: torch.Generator) -> dict:
         check(err_c <= 1e-4 and err_d <= 1e-4 and err_m <= 1e-4, f"K1 sums at K={k} B={b}")
         if (k, b) == (32, 1024):
             sets = [args] + [k1_inputs(gen, k, b) for _ in range(COLD_SETS - 1)]
-            warm = time_ms(lambda: fused_assign_update(*args))
-            cold = time_cold_ms(fused_assign_update, sets)
+            # each call a CUDA graph replay: a call's host work (0.06 ms)
+            # outlasts the kernel, so eager calls would time the host
+            warm = time_cold_ms(fused_assign_update, [args], graph=True)
+            cold = time_cold_ms(fused_assign_update, sets, graph=True)
+            eager = time_cold_ms(fused_assign_update, sets)
             plain = time_ms(lambda: fused_assign_update_ref(*args))
             nbytes = 4 * (m * b * d + 2 * m * k * d + 2 * m * k + m * b + m)
             flops = 2 * m * b * k * d + 2 * m * (b + k) * d + m * b * d
@@ -136,9 +139,9 @@ def check_k1(gen: torch.Generator) -> dict:
                           bound_by=bound_by, library_ms=None)
             log(f"K1 at M={m} K={k} D={d} B={b}: {cold:.4f} ms with a cold L2 (calls "
                 f"rotate over {COLD_SETS} input sets, {COLD_SETS * 4 * m * b * d / 1e6:.0f} MB "
-                f"of rows), {warm:.4f} ms warm (the same inputs each call); plain "
-                f"{plain:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}); no single library "
-                f"call computes it")
+                f"of rows), {warm:.4f} ms warm (the same inputs each call), both as graph "
+                f"replays; {eager:.4f} ms cold as eager calls; plain {plain:.4f} ms; bound "
+                f"{bound_ms:.4f} ms ({bound_by}); no single library call computes it")
     return result
 
 
