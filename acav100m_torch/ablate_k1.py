@@ -39,24 +39,29 @@ OUT = cuda_build.BUILD_DIR / "ablate_k1"
 TAP_DIMS = (88, 352, 704, 1408, 2304, 64, 128, 256, 512, 128)
 COLD_SETS = 4
 
-_NO_ACCUMULATE = ("  accumulate_kernel<<<dim3((D + NC - 1) / NC, M), NC, smem2, s>>>(",
-                  "  if (false) accumulate_kernel<<<dim3((D + NC - 1) / NC, M), NC, smem2, s>>>(")
+_NO_ACCUMULATE = ("      accumulate_block(a, w, m, idx, dims.d[m]);",
+                  "      (void)0;")
 # the product's fragment loads, splits and MMAs (the norms' A loads stay)
 _NO_PRODUCT = [("          if (j < nt8) {\n", "          if (false) {\n"),
                ("          if (j < nt8) mma_tf32(", "          if (false) mma_tf32(")]
 _NO_NORMS = [("xq0 = fmaf(a0, a0, xq0); xq0 = fmaf(a2, a2, xq0);", ";"),
              ("xq1 = fmaf(a1, a1, xq1); xq1 = fmaf(a3, a3, xq1);", ";")]
 
+
+def _define(name: str, old: int, new: int):
+    return (f"#define {name} {old} ", f"#define {name} {new} ")
+
+
 # name -> [(text in the source, replacement)]
 VARIANTS = {
     "full": [],
-    # the assign kernel alone
+    # assign tiles only (they still sort each clustering's rows)
     "assign_only": [_NO_ACCUMULATE],
-    # the accumulate kernel alone, on assignments made up in place
+    # accumulate blocks behind assign tiles that stage nothing and make up
+    # a balanced assignment
     "accumulate_only": [
-        ("  assign_kernel<<<dim3(T, M), NT, smem, s>>>(",
-         "  if (false) assign_kernel<<<dim3(T, M), NT, smem, s>>>("),
-        ("sbest[i] = best[(size_t)m * B + r0 + i];", "sbest[i] = (r0 + i) % K;")],
+        ("  const int nchunks = (dm + DC - 1) / DC;", "  const int nchunks = 0;"),
+        ("    bst[r] = bk;", "    bst[r] = bk = (row0 + r) % K;")],
     # assign without the distance product
     "assign_no_product": [_NO_ACCUMULATE, *_NO_PRODUCT],
     # assign with its loads, staging and barriers only: no product, no norms
@@ -66,12 +71,17 @@ VARIANTS = {
         '      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "\n'
         '      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"\n',
         '      ""\n')],
-    # no kernel at all: the host's own work per call
-    "no_launch": [_NO_ACCUMULATE, ("  assign_kernel<<<dim3(T, M), NT, smem, s>>>(",
-                                   "  if (false) assign_kernel<<<dim3(T, M), NT, smem, s>>>(")],
+    # no kernel at all: the host's own work per call, and the counters' memset
+    "no_launch": [("  k1_kernel<<<grid, NT, smem, s>>>(a, w, dd);",
+                   "  if (false) k1_kernel<<<grid, NT, smem, s>>>(a, w, dd);")],
     # 1xTF32: only the big.big product (wrong in the last digits)
     "one_mma": [("          if (j < nt8) mma_tf32(part[j], as, bb[j]);\n", "          ;\n"),
                 ("          if (j < nt8) mma_tf32(part[j], ab, bs[j]);\n", "          ;\n")],
+    # candidates: a deeper ring, wider chunks, one CTA an SM, no register cap
+    "stages6": [_define("STAGES", 4, 6)],
+    "dc64_stages3": [_define("DC", 32, 64), _define("STAGES", 4, 3)],
+    "grid1": [_define("CTAS_PER_SM", 2, 1), _define("MINB", 2, 1)],
+    "minb1": [_define("MINB", 2, 1)],
 }
 
 
@@ -135,22 +145,27 @@ def main() -> int:
     centers, counts, batch, threshold = sets[0]
     best_p, c_p, d_p, mean_p = kk.fused_assign_update_ref(centers, counts, batch, threshold)
     full = None
+    dims_sets = [args + (TAP_DIMS,) for args in sets]
     for name, (lib, regs) in built.items():
         fns = kk.bind(ctypes.CDLL(str(lib)))
 
         def call(*args, fns=fns):
             return kk.launch(fns, *args)
 
-        best, c_add, deltas, mean = call(*sets[0])
+        best, c_add, deltas, mean = out = call(*sets[0])
+        same = all(torch.equal(u, v) for u, v in zip(out, call(*dims_sets[0])))
         torch.cuda.synchronize()
         err = float((deltas - d_p).abs().max() / d_p.abs().max())
-        eager = time_cold_ms(call, sets)
         warm = time_cold_ms(call, sets[:1], graph=True)
         cold = time_cold_ms(call, sets, graph=True)
-        full = (warm, cold) if name == "full" else full
-        print(f"{name:18s} warm {warm:.4f} ms ({warm - full[0]:+.4f}), cold {cold:.4f} ms "
-              f"({cold - full[1]:+.4f}), cold eager {eager:.4f} ms; best differs on "
-              f"{int((best != best_p).sum())} rows, deltas err {err:.2e} of max; {regs}")
+        cold_dims = time_cold_ms(call, dims_sets, graph=True)
+        eager = time_cold_ms(call, dims_sets)
+        full = (warm, cold, cold_dims) if name == "full" else full
+        print(f"{name:18s} padded: warm {warm:.4f} ms ({warm - full[0]:+.4f}), cold "
+              f"{cold:.4f} ms ({cold - full[1]:+.4f}); with dims: cold {cold_dims:.4f} ms "
+              f"({cold_dims - full[2]:+.4f}), eager {eager:.4f} ms; best differs on "
+              f"{int((best != best_p).sum())} rows, deltas err {err:.2e} of max, dims "
+              f"{'bitwise equal' if same else 'DIFFER'}; {regs}")
     print("full kernel SASS, most frequent:", sass_histogram(built["full"][0]))
     return 0
 

@@ -8,42 +8,62 @@
 //   counts_add (M,K) f32  one-hot counts of best;
 //   deltas (M,K,D) f32    sum of the rows assigned to each center;
 //   min_mean (M,) f32     mean over rows of the minimum distance.
+// dims (optional, M ints): clustering m's rows and centers are zero at and
+// past column dims[m]. The kernel then neither reads nor multiplies those
+// columns, and writes zeros to deltas there; the results are those of the
+// zero-padded input.
 //
 // Design. The TPU version walks a sequential grid and accumulates counts
 // and deltas in place across batch tiles. Hopper runs blocks in parallel
 // and in no order, and no float atomics are used here, so every sum has a
-// fixed order and the results repeat bit for bit:
-//   * assign_kernel: one CTA per (tile of TB rows, clustering m). It
-//     streams the tile and the K centers through shared memory in chunks of
-//     DC features, the next chunk's loads in flight in registers while the
-//     current one is used. Each thread owns a 2-row x 4-center register
-//     tile of the (TB,K) distance product in fp32 FMA. Then the
-//     first-index argmin, and per-tile partial counts and min-sums (tiny).
-//     The ragged tail tile is masked (no pad-and-subtract).
-//   * accumulate_kernel: one CTA per (128 feature columns, clustering m).
-//     Each thread owns one column and walks all B rows in order, adding
-//     each row's value into its center's accumulator in shared memory.
-//     That is the deltas without any per-tile partials. The first column
-//     block also sums the tiles' partial counts and min-sums in tile order.
+// fixed order and two launches on the same inputs give the same bytes.
+// One persistent launch takes work items from one queue index, in the
+// order A(0), A(1) C(0), A(2) C(1), ..., C(M-1), where A(m) are the assign
+// tiles of clustering m and C(m) its accumulate column blocks:
+//   * assign tile (TB rows of m): rows and centers are staged chunk by
+//     chunk (DC features) through a cp.async ring; the distance product
+//     runs on the tensor cores (mma.sync m16n8k8 TF32, 3xTF32 below), the
+//     norms from the same staged chunks in fp32; then the discount, the
+//     first-index argmin, and per tile the count of each center, each
+//     row's rank among the tile's rows of its center, and the min-sum.
+//     The last tile of m to finish (a completion counter) sums the tiles'
+//     counts and min-sums in tile order, sorts m's rows by center (row
+//     order kept within a center: the tiles' counts and ranks give each
+//     row its place) and then releases m;
+//   * accumulate block (NCOL columns of m): waits for m's release; each
+//     warp owns a run of centers whose rows are contiguous in the sorted
+//     order and sums each center's rows in row order into registers, 4
+//     columns a lane, the rows' loads UA deep in flight. Those are the
+//     deltas with the same additions in the same order as a walk over the
+//     rows. Because C(m) comes right after A(m+1) in the queue, its reads
+//     of m's rows mostly find them in the L2, where A(m) left them.
+// An item waits only on items earlier in the queue, which running CTAs
+// hold and finish without waiting, so the grid cannot deadlock.
+//
+// 3xTF32. Each fp32 operand v is split in registers into big = tf32(v) and
+// small = tf32(v - big), rounded as cvt.rna rounds, and each product is
+// issued as three MMAs (small.big, big.small, big.big) into an fp32
+// accumulator: close to an fp32 product (one TF32 product keeps about
+// 2^-11). The tensor cores round their fp32 sums toward zero, so each
+// chunk's products sum into a fresh accumulator that is then added to the
+// running total with an fp32 add. Centers are padded to the MMA width of 8
+// with zeros in shared memory and kept out of the argmin.
 //
 // Bound on an H100 SXM at the main path's shape (M=10, K=32, D=2304,
-// B=1024): the kernel must move 100 MB (batch 94.4 MB, centers and deltas
-// 5.9 MB), about 30 us at 3.35 TB/s. The operations it needs are 1.6 GFLOP
-// (the distance product 1.51, norms and the delta sums of each row once),
-// about 24 us at the 67 TFLOP/s of fp32 FMA; written as a one-hot product,
-// as on the TPU, the delta sums would double that to 3.0 GFLOP (45 us). So
-// bytes and operations are close, bytes slightly ahead. This version reads
-// the batch twice (once per kernel, 189 MB), which puts its own floor near
-// 56 us; keeping the tile on chip between the two uses is later work, and
-// so are TF32 tensor cores, which would change the argmin numerics.
+// B=1024; the taps' real widths sum to 5944 of the 23040 padded columns):
+// over the real columns the function must move 4 B x (1024 x 5944 rows +
+// 32 x 5944 centers + 10 x 32 x 2304 deltas) = 28 MB, 8.4 us at 3.35 TB/s
+// (100 MB and 30 us padded). Its operations, 3 x 0.39 GFLOP of TF32 MMAs,
+// take 2.4 us at 495 TFLOP/s. So it is bound by bytes.
 //
-// Plain C interface for ctypes; the launcher allocates nothing and returns
-// cudaGetLastError().
+// Plain C interface for ctypes; the launcher allocates nothing (the caller
+// passes a workspace of kmeans_assign_update_workspace() bytes) and
+// returns the first CUDA error.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define NT 256          // threads per assign CTA: 8 warps
+#define NT 256          // threads per CTA: 8 warps
 #define NWARP (NT / 32)
 #define TB 64           // rows per assign tile: 16 a row group of warps
 #define DC 32           // features a staged chunk holds
@@ -51,11 +71,31 @@
 #define STAGES 4        // chunks in the cp.async ring
 #define CG 32           // centers a pass covers: 4 n-tiles of 8
 #define KMAX 256        // centers supported
-#define NC 128          // columns (threads) per accumulate CTA
-#define RB 2048         // assignments staged per accumulate pass
-#define UNROLL 32       // rows in flight per accumulate thread
+#define MMAX 64         // clusterings supported
+#define NCOL 128        // columns an accumulate block covers: 4 a lane
+#define UA 16           // rows in flight per accumulate lane
+#define CTAS_PER_SM 2   // persistent grid, at most what can be resident
+#define MINB 2          // CTAs an SM must hold: caps registers at 128 a thread
 
 extern __shared__ float smem[];
+
+struct Dims {
+  int d[MMAX];
+};
+
+// The workspace: counters, zero when a launch starts, then scratch.
+struct Work {
+  int* queue;          // next work item
+  int* done;           // (MMAX) assign tiles finished, per clustering
+  int* ready;          // (MMAX) 1 once the clustering's rows are sorted
+  int* part_cnt;       // (T,M,K) rows of each center in each tile; then
+                       // where the tile's rows of the center start in order
+  float* part_minsum;  // (T,M)
+  int* rank;           // (M,B) a row's rank among its tile's rows of its center
+  int* order;          // (M,B) rows sorted by center, row order within one
+  int* seg;            // (M,K+1) where each center's rows start in order
+};
+#define COUNTER_BYTES (sizeof(int) * (1 + 2 * MMAX))
 
 __device__ __forceinline__ void cp16(float* dst, const float* src, int bytes) {
   // 16 bytes global -> shared: the first `bytes` from src, zeros after them
@@ -85,35 +125,87 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // Issue the cp.async copies of features [d0, d0+DC) of the tile's rows and
-// of centers [k0, k0+kn) into one ring slot; rows and centers past the
-// ends, and features past D, land as zeros.
+// of kn centers into one ring slot; rows and centers past the ends, and
+// features at or past dm, land as zeros without being read. Rows are D
+// floats apart.
 __device__ __forceinline__ void stage_chunk(float* xs, float* cs, const float* xm,
-                                            const float* cm, int row0, int rows, int k0,
-                                            int kn, int D, int d0) {
+                                            const float* cm, int row0, int rows, int kn,
+                                            int D, int dm, int d0) {
   for (int i = threadIdx.x; i < (TB + CG) * (DC / 4); i += NT) {
     const int r = i / (DC / 4), q = (i % (DC / 4)) * 4, d = d0 + q;
     const bool is_x = r < TB;
     const int rr = is_x ? r : r - TB;
-    const bool ok = (is_x ? rr < rows : rr < kn) && d < D;
-    const float* src = is_x ? xm + (size_t)(row0 + rr) * D + d : cm + (size_t)(k0 + rr) * D + d;
-    cp16((is_x ? xs : cs) + rr * LDS + q, ok ? src : xm, ok ? 4 * min(4, D - d) : 0);
+    const bool ok = (is_x ? rr < rows : rr < kn) && d < dm;
+    const float* src = is_x ? xm + (size_t)(row0 + rr) * D + d : cm + (size_t)rr * D + d;
+    cp16((is_x ? xs : cs) + rr * LDS + q, ok ? src : xm, ok ? 4 * min(4, dm - d) : 0);
   }
 }
 
+struct Args {
+  const float* centers;  // (M,K,D)
+  const float* counts;   // (M,K)
+  const float* batch;    // (M,B,D)
+  float threshold;
+  int M, K, B, D, T, NB;
+  int* best;             // (M,B)
+  float* counts_add;     // (M,K)
+  float* deltas;         // (M,K,D)
+  float* min_mean;       // (M)
+};
+
+// The last assign tile of m: counts and min-sum summed in tile order, m's
+// rows sorted by center, then m released to its accumulate blocks.
+__device__ void finish(const Args& a, const Work& w, int m) {
+  const int tid = threadIdx.x, K = a.K, M = a.M, T = a.T;
+  int* cnt = (int*)smem;  // K
+  int* segs = cnt + K;    // K+1
+  int* pc = w.part_cnt;
+  for (int k = tid; k < K; k += NT) {
+    int s = 0;
+    for (int t = 0; t < T; ++t) s += __ldcg(pc + ((size_t)t * M + m) * K + k);
+    cnt[k] = s;
+    a.counts_add[m * K + k] = (float)s;
+  }
+  if (tid == 0) {
+    float s = 0.f;
+    for (int t = 0; t < T; ++t) s += __ldcg(w.part_minsum + (size_t)t * M + m);
+    a.min_mean[m] = s / (float)a.B;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    segs[0] = 0;
+    for (int k = 0; k < K; ++k) segs[k + 1] = segs[k] + cnt[k];
+  }
+  __syncthreads();
+  for (int k = tid; k <= K; k += NT) w.seg[m * (K + 1) + k] = segs[k];
+  for (int k = tid; k < K; k += NT) {  // tile counts -> where the tile's rows start
+    int run = segs[k];
+    for (int t = 0; t < T; ++t) {
+      int* p = pc + ((size_t)t * M + m) * K + k;
+      const int c = __ldcg(p);
+      *p = run;
+      run += c;
+    }
+  }
+  __syncthreads();
+  for (int r = tid; r < a.B; r += NT) {
+    const int k = __ldcg(a.best + (size_t)m * a.B + r);
+    const int pos = __ldcg(pc + ((size_t)(r / TB) * M + m) * K + k) +
+                    __ldcg(w.rank + (size_t)m * a.B + r);
+    w.order[(size_t)m * a.B + pos] = r;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) atomicExch(w.ready + m, 1);
+}
+
 // One tile of TB rows of clustering m: distances to all K centers on the
-// tensor cores, discount, first-index argmin, per-tile partial counts and
+// tensor cores, discount, first-index argmin, the tile's counts, ranks and
 // min-sum. Warp w owns rows 16 (w & 3) .. +15 against the CG centers of a
 // pass, and half kh = w >> 2 of each chunk's features; the two halves'
 // sums are added in a fixed order at the end of the pass.
-__global__ void __launch_bounds__(NT) assign_kernel(
-    const float* __restrict__ centers,  // (M,K,D)
-    const float* __restrict__ counts,   // (M,K)
-    const float* __restrict__ batch,    // (M,B,D)
-    float threshold, int K, int B, int D,
-    int* __restrict__ best,             // (M,B)
-    float* __restrict__ part_counts,    // (T,M,K)
-    float* __restrict__ part_minsum) {  // (T,M)
-  const int tile = blockIdx.x, m = blockIdx.y, M = gridDim.y;
+__device__ void assign_tile(const Args& a, const Work& w, int m, int tile, int dm) {
+  const int K = a.K, B = a.B, D = a.D;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, rg = warp & 3, kh = warp >> 2;
   const int row0 = tile * TB;
@@ -128,20 +220,20 @@ __global__ void __launch_bounds__(NT) assign_kernel(
   float* mind = dist + TB * K;                 // TB
   int* bst = (int*)(mind + TB);                // TB
 
-  const float* xm = batch + (size_t)m * B * D;
-  const int nchunks = (D + DC - 1) / DC;
+  const float* xm = a.batch + (size_t)m * B * D;
+  const int nchunks = (dm + DC - 1) / DC;
   float xq0 = 0.f, xq1 = 0.f;  // this thread's share of |x|^2, rows g and g+8
 
   for (int k0 = 0; k0 < K; k0 += CG) {
     const int kn = min(CG, K - k0), nt8 = (kn + 7) / 8;
-    const float* cm = centers + ((size_t)m * K + k0) * D;
+    const float* cm = a.centers + ((size_t)m * K + k0) * D;
     float tot[4][4] = {};
     float cq[4] = {};  // row group 0's share of |c|^2
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
       if (s < nchunks) {
         float* slot = ring + s * (TB + CG) * LDS;
-        stage_chunk(slot, slot + TB * LDS, xm, cm, row0, rows, 0, kn, D, s * DC);
+        stage_chunk(slot, slot + TB * LDS, xm, cm, row0, rows, kn, D, dm, s * DC);
       }
       asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
@@ -150,7 +242,7 @@ __global__ void __launch_bounds__(NT) assign_kernel(
       __syncthreads();  // chunk c landed; every warp is done with chunk c-1
       if (c + STAGES - 1 < nchunks) {
         float* slot = ring + ((c + STAGES - 1) % STAGES) * (TB + CG) * LDS;
-        stage_chunk(slot, slot + TB * LDS, xm, cm, row0, rows, 0, kn, D,
+        stage_chunk(slot, slot + TB * LDS, xm, cm, row0, rows, kn, D, dm,
                     (c + STAGES - 1) * DC);
       }
       asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -241,7 +333,7 @@ __global__ void __launch_bounds__(NT) assign_kernel(
           const int r = 16 * rg + g + 8 * (e >> 1), kl = 8 * j + 2 * t + (e & 1);
           if (kl < kn) {
             float dv = -2.f * tot[j][e] + x2[r] + c2[kl];
-            if (counts[m * K + k0 + kl] < threshold) dv = dv / 5.f;
+            if (a.counts[m * K + k0 + kl] < a.threshold) dv = dv / 5.f;
             dist[r * K + k0 + kl] = dv;
           }
         }
@@ -258,105 +350,197 @@ __global__ void __launch_bounds__(NT) assign_kernel(
     }
     bst[r] = bk;
     mind[r] = bd;
-    best[(size_t)m * B + row0 + r] = bk;
+    a.best[(size_t)m * B + row0 + r] = bk;
   }
   __syncthreads();
-
+  for (int r = tid; r < rows; r += NT) {
+    int c = 0;
+    for (int q = 0; q < r; ++q) c += bst[q] == bst[r];
+    w.rank[(size_t)m * B + row0 + r] = c;
+  }
   for (int k = tid; k < K; k += NT) {
     int c = 0;
     for (int r = 0; r < rows; ++r) c += bst[r] == k;
-    part_counts[((size_t)tile * M + m) * K + k] = (float)c;
+    w.part_cnt[((size_t)tile * a.M + m) * K + k] = c;
   }
   if (tid == 0) {
     float s = 0.f;
     for (int r = 0; r < rows; ++r) s += mind[r];
-    part_minsum[(size_t)tile * M + m] = s;
+    w.part_minsum[(size_t)tile * a.M + m] = s;
+  }
+  // completion: the tile's writes are visible before the count moves
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(w.done + m, 1) == a.T - 1;
+  __syncthreads();
+  if (last) {
+    __threadfence();
+    finish(a, w, m);
   }
 }
 
-__global__ void __launch_bounds__(NC) accumulate_kernel(
-    const float* __restrict__ batch, const int* __restrict__ best,
-    const float* __restrict__ part_counts, const float* __restrict__ part_minsum,
-    int K, int B, int D, int T, float* __restrict__ deltas,
-    float* __restrict__ counts_add, float* __restrict__ min_mean) {
-  const int m = blockIdx.y, M = gridDim.y, tid = threadIdx.x;
-  const int d = blockIdx.x * NC + tid;
-  float* acc = smem;                  // K x NC: column tid owned by thread tid
-  int* sbest = (int*)(acc + K * NC);  // RB
-  for (int k = 0; k < K; ++k) acc[k * NC + tid] = 0.f;
-  const float* xm = batch + (size_t)m * B * D + d;
-  for (int r0 = 0; r0 < B; r0 += RB) {
-    const int n = min(RB, B - r0);
-    __syncthreads();
-    for (int i = tid; i < n; i += NC) sbest[i] = best[(size_t)m * B + r0 + i];
-    __syncthreads();
-    if (d < D) {
-      // software pipeline: the next UNROLL rows load while this group adds
-      float v[UNROLL], w[UNROLL];
-      int r = 0;
-      const int full = n / UNROLL * UNROLL;
-      if (full) {
+// 4 floats of a row from column col on, of which the first n are real
+__device__ __forceinline__ float4 load4(const float* p, int n) {
+  if (n == 4) return __ldg(reinterpret_cast<const float4*>(p));
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (n > 0) v.x = __ldg(p);
+  if (n > 1) v.y = __ldg(p + 1);
+  if (n > 2) v.z = __ldg(p + 2);
+  return v;
+}
+
+// Columns [blk NCOL, (blk+1) NCOL) of m's deltas: each warp sums the rows
+// of its run of centers, in row order, 4 columns a lane.
+__device__ void accumulate_block(const Args& a, const Work& w, int m, int blk, int dm) {
+  const int K = a.K, B = a.B, D = a.D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int col = blk * NCOL + 4 * lane;
+  float* out = a.deltas + (size_t)m * K * D + col;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (blk * NCOL >= dm) {  // past the real columns: zeros, nothing to wait for
+    if (col < D)
+      for (int k = warp; k < K; k += NWARP)
+        *reinterpret_cast<float4*>(out + (size_t)k * D) = zero;
+    return;
+  }
+  if (tid == 0) {
+    while (*(volatile int*)(w.ready + m) == 0) __nanosleep(64);
+    __threadfence();
+  }
+  __syncthreads();
+  int* segs = (int*)smem;  // K+1
+  for (int k = tid; k <= K; k += NT) segs[k] = __ldcg(w.seg + m * (K + 1) + k);
+  __syncthreads();
+  // warp v owns the centers whose rows start in [v B / NWARP, (v+1) B / NWARP)
+  int klo = 0;
+  while (klo < K && min(NWARP - 1, segs[klo] * NWARP / B) < warp) ++klo;
+  int khi = klo;
+  while (khi < K && min(NWARP - 1, segs[khi] * NWARP / B) == warp) ++khi;
+  const int lo = segs[klo], hi = segs[khi];
+  const int* ord = w.order + (size_t)m * B;
+  const float* xm = a.batch + (size_t)m * B * D + col;
+  const int nreal = max(0, min(4, dm - col));
+  int k = klo;
+  int kend = k < khi ? segs[k + 1] : hi;
+  float4 acc = zero;
+  for (int base = lo; base < hi; base += 32) {
+    const int n = min(32, hi - base);
+    const int myr = lane < n ? __ldcg(ord + base + lane) : 0;
+    for (int u0 = 0; u0 < n; u0 += UA) {
+      float4 v[UA];
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) v[u] = __ldg(xm + (size_t)(r0 + u) * D);
+      for (int u = 0; u < UA; ++u) {
+        const int r = __shfl_sync(0xffffffffu, myr, (u0 + u) & 31);
+        v[u] = load4(xm + (size_t)r * D, u0 + u < n ? nreal : 0);
       }
-      for (; r < full; r += UNROLL) {
-        const bool more = r + UNROLL < full;
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u)
-          w[u] = more ? __ldg(xm + (size_t)(r0 + r + UNROLL + u) * D) : 0.f;
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) acc[sbest[r + u] * NC + tid] += v[u];
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) v[u] = w[u];
+      for (int u = 0; u < UA; ++u) {
+        if (u0 + u < n) {
+          while (base + u0 + u >= kend) {  // center k's rows are done
+            if (col < D) *reinterpret_cast<float4*>(out + (size_t)k * D) = acc;
+            acc = zero;
+            ++k;
+            kend = segs[k + 1];
+          }
+          acc.x += v[u].x; acc.y += v[u].y; acc.z += v[u].z; acc.w += v[u].w;
+        }
       }
-      for (; r < n; ++r) acc[sbest[r] * NC + tid] += __ldg(xm + (size_t)(r0 + r) * D);
     }
   }
-  if (d < D)
-    for (int k = 0; k < K; ++k) deltas[((size_t)m * K + k) * D + d] = acc[k * NC + tid];
-  if (blockIdx.x == 0) {
-    for (int k = tid; k < K; k += NC) {
-      float s = 0.f;
-      for (int t = 0; t < T; ++t) s += part_counts[((size_t)t * M + m) * K + k];
-      counts_add[m * K + k] = s;
-    }
-    if (tid == 0) {
-      float s = 0.f;
-      for (int t = 0; t < T; ++t) s += part_minsum[(size_t)t * M + m];
-      min_mean[m] = s / (float)B;
-    }
+  for (; k < khi; ++k) {
+    if (col < D) *reinterpret_cast<float4*>(out + (size_t)k * D) = acc;
+    acc = zero;
   }
 }
 
-// rows per assign tile (K centers are covered in passes of CG)
-extern "C" int kmeans_assign_update_tile(int K) { return TB; }
+// queue order: A(0); then A(g), C(g-1) for g = 1 .. M-1; then C(M-1)
+__device__ __forceinline__ bool decode(int item, int M, int T, int NB, int& m, int& idx) {
+  if (item < T) { m = 0; idx = item; return true; }
+  const int q = item - T, grp = q / (T + NB), rem = q % (T + NB);
+  if (grp < M - 1) {
+    if (rem < T) { m = grp + 1; idx = rem; return true; }
+    m = grp; idx = rem - T; return false;
+  }
+  m = M - 1; idx = q - (M - 1) * (T + NB);
+  return false;
+}
 
+__global__ void __launch_bounds__(NT, MINB) k1_kernel(Args a, Work w, Dims dims) {
+  __shared__ int item_s;
+  const int total = a.M * (a.T + a.NB);
+  for (;;) {
+    if (threadIdx.x == 0) item_s = atomicAdd(w.queue, 1);
+    __syncthreads();
+    const int item = item_s;
+    __syncthreads();  // everyone has read item_s before it is written again
+    if (item >= total) return;
+    int m, idx;
+    if (decode(item, a.M, a.T, a.NB, m, idx))
+      assign_tile(a, w, m, idx, dims.d[m]);
+    else
+      accumulate_block(a, w, m, idx, dims.d[m]);
+  }
+}
+
+// The workspace's layout; with base null, only its size in bytes.
+static size_t layout(int M, int K, int B, char* base, Work* w) {
+  const int T = (B + TB - 1) / TB;
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base ? base + off : nullptr;
+    off += (bytes + 255) / 256 * 256;
+    return p;
+  };
+  int* counters = (int*)take(COUNTER_BYTES);
+  int* part_cnt = (int*)take(sizeof(int) * (size_t)T * M * K);
+  float* part_minsum = (float*)take(sizeof(float) * (size_t)T * M);
+  int* rank = (int*)take(sizeof(int) * (size_t)M * B);
+  int* order = (int*)take(sizeof(int) * (size_t)M * B);
+  int* seg = (int*)take(sizeof(int) * (size_t)M * (K + 1));
+  if (w) *w = Work{counters, counters + 1, counters + 1 + MMAX, part_cnt, part_minsum,
+                   rank, order, seg};
+  return off;
+}
+
+extern "C" size_t kmeans_assign_update_workspace(int M, int K, int B) {
+  return layout(M, K, B, nullptr, nullptr);
+}
+
+// dims: host array of M widths, or null for D everywhere.
 extern "C" int kmeans_assign_update(
     const void* centers, const void* counts, const void* batch, float threshold,
-    int M, int K, int B, int D, void* best, void* part_counts, void* part_minsum,
+    int M, int K, int B, int D, const int* dims, void* work, void* best,
     void* counts_add, void* deltas, void* min_mean, void* stream) {
-  if (K < 1 || K > KMAX || D % 4) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int T = (B + TB - 1) / TB;
+  if (K < 1 || K > KMAX || M < 1 || M > MMAX || B < 1 || D < 4 || D % 4)
+    return (int)cudaErrorInvalidValue;
+  Dims dd;
+  for (int m = 0; m < M; ++m) {
+    dd.d[m] = dims ? dims[m] : D;
+    if (dd.d[m] < 1 || dd.d[m] > D) return (int)cudaErrorInvalidValue;
+  }
+  Args a{(const float*)centers, (const float*)counts, (const float*)batch, threshold,
+         M, K, B, D, (B + TB - 1) / TB, (D + NCOL - 1) / NCOL,
+         (int*)best, (float*)counts_add, (float*)deltas, (float*)min_mean};
+  Work w;
+  layout(M, K, B, (char*)work, &w);
   const size_t smem = sizeof(float) * ((size_t)STAGES * (TB + CG) * LDS + 2 * (TB + CG) +
                                        (size_t)TB * K + TB) + sizeof(int) * TB;
   cudaError_t err = cudaFuncSetAttribute(
-      assign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      k1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const float* x = (const float*)batch;
-  assign_kernel<<<dim3(T, M), NT, smem, s>>>(
-      (const float*)centers, (const float*)counts, x, threshold, K, B, D, (int*)best,
-      (float*)part_counts, (float*)part_minsum);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem2 = sizeof(float) * (size_t)K * NC + sizeof(int) * RB;
-  if (smem2 > 48 * 1024) {
-    err = cudaFuncSetAttribute(accumulate_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
-    if (err != cudaSuccess) return (int)err;
-  }
-  accumulate_kernel<<<dim3((D + NC - 1) / NC, M), NC, smem2, s>>>(
-      x, (const int*)best, (const float*)part_counts, (const float*)part_minsum, K, B,
-      D, T, (float*)deltas, (float*)counts_add, (float*)min_mean);
+  int dev, sms, per_sm;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k1_kernel, NT, smem)) !=
+      cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int items = M * (a.T + a.NB);
+  const int grid = min(items, min(per_sm, CTAS_PER_SM) * sms);
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((err = cudaMemsetAsync(work, 0, COUNTER_BYTES, s)) != cudaSuccess) return (int)err;
+  k1_kernel<<<grid, NT, smem, s>>>(a, w, dd);
   return (int)cudaGetLastError();
 }

@@ -47,6 +47,19 @@ class KMeansState:
     count: int  # total samples seen
     fallback: Tensor  # () i32 — steps in which the lr fallback triggered
     d_mask: Tensor  # (M, Dmax) f32 — 1 on real feature dims
+    # each clustering's real width, read off d_mask on the host (None: not
+    # known, or d_mask is not a prefix mask)
+    dims: Optional[Tuple[int, ...]] = None
+
+
+def mask_dims(d_mask: np.ndarray) -> Optional[Tuple[int, ...]]:
+    """The widths of a prefix mask (ones, then zeros in each row), else None."""
+    d_mask = np.asarray(d_mask)
+    dims = tuple(int(v) for v in (d_mask != 0).sum(-1))
+    prefix = np.arange(d_mask.shape[-1])[None, :] < np.array(dims)[:, None]
+    if min(dims, default=0) < 1 or not np.array_equal(d_mask != 0, prefix):
+        return None
+    return dims
 
 
 def init_state(
@@ -68,6 +81,7 @@ def init_state(
     d_mask = np.zeros((m, dmax), dtype=np.float32)
     for i, d in enumerate(dims):
         d_mask[i, :d] = 1.0
+    real = mask_dims(d_mask)
     d_mask = torch.as_tensor(d_mask, device=device)
     if centers is None:
         centers = torch.rand((m, k, dmax), generator=generator,
@@ -81,6 +95,7 @@ def init_state(
         count=0,
         fallback=torch.zeros((), dtype=torch.int32, device=device),
         d_mask=d_mask,
+        dims=real,
     )
 
 
@@ -155,12 +170,16 @@ def train_step(
     reinit: Tuple[float, float] = (0.7, 5.0),
     use_pallas: bool = True,
 ) -> Tuple[KMeansState, Tensor]:
-    """One mini-batch update. batch: (M, B, Dmax).
+    """One mini-batch update. batch: (M, B, Dmax), zero past each
+    clustering's width (as ``stack_batch`` pads it).
 
     ``use_pallas`` (the JAX package's key name) routes the post-warmup
     assign + accumulate through kernel K1 (``fused_assign_update``), which
-    takes its plain version on CPU tensors. Warmup steps always take the
-    random-assignment path. Returns (new_state, mean min-distance (M,))."""
+    takes its plain version on CPU tensors. It passes the widths of
+    ``state.dims``, so the kernel skips the padding: the centers are zero
+    there by ``d_mask`` and the batch by the contract above. Warmup steps
+    always take the random-assignment path. Returns (new_state, mean
+    min-distance (M,))."""
     m, k, _ = state.centers.shape
     b = batch.shape[1]
     warmup = state.count < initial_rounds * k
@@ -169,7 +188,7 @@ def train_step(
             raise ValueError("kernel K1 hardcodes the /5 underuse discount")
         threshold = _threshold(state.count, k, reinit[0])
         _, counts, deltas_raw, mean_dist = fused_assign_update(
-            state.centers, state.counts, batch, threshold)
+            state.centers, state.counts, batch, threshold, dims=state.dims)
     else:
         best, mean_dist = calc_best(state, batch, rand, generator,
                                     initial_rounds, reinit)
@@ -192,6 +211,7 @@ def train_step(
         count=state.count + b,
         fallback=fallback,
         d_mask=state.d_mask,
+        dims=state.dims,
     )
     return new_state, mean_dist
 
@@ -226,11 +246,13 @@ def get_attrs(state: KMeansState, lr=None, initial_rounds=10, reinit=(0.7, 5.0))
 
 
 def load_attrs(dt, device=None) -> KMeansState:
+    d_mask = np.array(dt["d_mask"], np.float32)
     return KMeansState(
         centers=torch.tensor(np.array(dt["centers"], np.float32), device=device),
         counts=torch.tensor(np.array(dt["counts"], np.float32), device=device),
         count=int(dt["count"]),
         fallback=torch.tensor(int(dt.get("fallback", 0)), dtype=torch.int32,
                               device=device),
-        d_mask=torch.tensor(np.array(dt["d_mask"], np.float32), device=device),
+        d_mask=torch.tensor(d_mask, device=device),
+        dims=mask_dims(d_mask),
     )

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from acav100m_torch import cli
-from acav100m_torch.ablate_k1 import COLD_SETS, k1_inputs
+from acav100m_torch.ablate_k1 import COLD_SETS, TAP_DIMS, k1_inputs
 from acav100m_torch.models import init_weights
 from acav100m_torch.models.slowfast import LayerSlowFast, ResBlock
 from acav100m_torch.ops import cuda_build
@@ -91,21 +91,26 @@ def counts():
 def check_k1(gen: torch.Generator) -> dict:
     """K1 at the shapes both main paths give it: path B's K=32, B=1024 (timed)
     and its ragged B=1000, and path A's K=4, B=4 (one tile, one partial);
-    rows and centers zero past each of the ten taps' widths."""
+    rows and centers zero past each of the ten taps' widths, which K1 is
+    told (``dims``), as ``train_step`` tells it."""
     result = {}
+    dims = TAP_DIMS
     # (k, b, samples seen): the threshold (seen / k)**0.7 past warmup, with
     # counts drawn below twice it, marks about half the centers underused
     for k, b, seen in ((32, 1024, 20000), (32, 1000, 20000), (4, 4, 48)):
-        args = k1_inputs(gen, k, b, seen=seen)
+        args = k1_inputs(gen, k, b, dims, seen=seen)
         centers, cnt, batch, threshold = args
         m, _, d = centers.shape
         underused = int((cnt < threshold).sum())
         check(0 < underused < m * k, f"K1 at K={k} B={b}: some centers underused")
-        best, c_add, deltas, mean = out = fused_assign_update(*args)
-        again = fused_assign_update(*args)
+        best, c_add, deltas, mean = out = fused_assign_update(*args, dims=dims)
+        again = fused_assign_update(*args, dims=dims)
+        padded = fused_assign_update(*args)
         torch.cuda.synchronize()
         check(all(torch.equal(u, v) for u, v in zip(out, again)),
               f"K1 at K={k} B={b}: two launches bitwise equal")
+        check(all(torch.equal(u, v) for u, v in zip(out, padded)),
+              f"K1 at K={k} B={b}: the same bytes with dims as on the padded input")
         best_p, _, _, mean_p = fused_assign_update_ref(*args)
         dist = discounted_distances(centers, cnt, batch, threshold)
         two = dist.topk(2, dim=-1, largest=False).values
@@ -121,27 +126,38 @@ def check_k1(gen: torch.Generator) -> dict:
         log(f"K1 K={k} B={b}: best differs on {flips} of {int(decisive.sum())} decisive "
             f"rows ({int((best != best_p).sum())} of {m * b} in all); counts rel err "
             f"{err_c:.2e}, deltas rel err {err_d:.2e}, mean min-dist rel err {err_m:.2e}; "
-            f"{underused} of {m * k} centers underused; two launches bitwise equal")
+            f"{underused} of {m * k} centers underused; two launches bitwise equal, and "
+            f"equal to the launch without dims")
         check(flips == 0, f"K1 argmin at K={k} B={b}")
         check(err_c <= 1e-4 and err_d <= 1e-4 and err_m <= 1e-4, f"K1 sums at K={k} B={b}")
         if (k, b) == (32, 1024):
-            sets = [args] + [k1_inputs(gen, k, b) for _ in range(COLD_SETS - 1)]
-            # each call a CUDA graph replay: a call's host work (0.06 ms)
-            # outlasts the kernel, so eager calls would time the host
-            warm = time_cold_ms(fused_assign_update, [args], graph=True)
-            cold = time_cold_ms(fused_assign_update, sets, graph=True)
-            eager = time_cold_ms(fused_assign_update, sets)
+            sets = [args] + [k1_inputs(gen, k, b, dims) for _ in range(COLD_SETS - 1)]
+            with_dims = [a + (dims,) for a in sets]
+            # each call a CUDA graph replay: a call's host work (about
+            # 0.06 ms) outlasts the kernel, so eager calls would time the host
+            warm = time_cold_ms(fused_assign_update, with_dims[:1], graph=True)
+            cold = time_cold_ms(fused_assign_update, with_dims, graph=True)
+            cold_padded = time_cold_ms(fused_assign_update, sets, graph=True)
+            eager = time_cold_ms(fused_assign_update, with_dims)
             plain = time_ms(lambda: fused_assign_update_ref(*args))
-            nbytes = 4 * (m * b * d + 2 * m * k * d + 2 * m * k + m * b + m)
-            flops = 2 * m * b * k * d + 2 * m * (b + k) * d + m * b * d
-            bound_ms, bound_by = bound(nbytes, flops)
+            real = sum(dims)
+            # rows and centers over the real columns, all of deltas, counts
+            # in and out, best, the means
+            nbytes = 4 * (b * real + k * real + m * k * d + 2 * m * k + m * b + m)
+            padded_bytes = 4 * (m * b * d + 2 * m * k * d + 2 * m * k + m * b + m)
+            # 3xTF32 issues three TF32 products for each fp32 one
+            bound_ms, bound_by = bound(nbytes, 3 * 2 * b * k * real, TF32_TENSOR_FLOPS)
+            padded_ms, _ = bound(padded_bytes, 3 * 2 * m * b * k * d, TF32_TENSOR_FLOPS)
             result = dict(max_abs_err=abs_d, ms=cold, plain_ms=plain, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=None)
-            log(f"K1 at M={m} K={k} D={d} B={b}: {cold:.4f} ms with a cold L2 (calls "
-                f"rotate over {COLD_SETS} input sets, {COLD_SETS * 4 * m * b * d / 1e6:.0f} MB "
-                f"of rows), {warm:.4f} ms warm (the same inputs each call), both as graph "
-                f"replays; {eager:.4f} ms cold as eager calls; plain {plain:.4f} ms; bound "
-                f"{bound_ms:.4f} ms ({bound_by}); no single library call computes it")
+            log(f"K1 at M={m} K={k} D={d} B={b}, real widths {real} of {m * d} columns: "
+                f"{cold:.4f} ms with a cold L2 (calls rotate over {COLD_SETS} input sets, "
+                f"{COLD_SETS * 4 * (b + k) * real / 1e6:.0f} MB of real columns), "
+                f"{warm:.4f} ms warm (the same inputs each call), {cold_padded:.4f} ms cold "
+                f"without dims, all as graph replays; {eager:.4f} ms cold as eager calls; "
+                f"plain {plain:.4f} ms; bound {bound_ms:.4f} ms over the real columns "
+                f"({bound_by}), {padded_ms:.4f} ms padded; no single library call "
+                f"computes it")
     return result
 
 
