@@ -11,32 +11,37 @@
 // dims (optional, M ints): clustering m's rows and centers are zero at and
 // past column dims[m]. The kernel then neither reads nor multiplies those
 // columns, and writes zeros to deltas there; the results are those of the
-// zero-padded input.
+// zero-padded input, bit for bit.
 //
 // Design. The TPU version walks a sequential grid and accumulates counts
 // and deltas in place across batch tiles. Hopper runs blocks in parallel
 // and in no order, and no float atomics are used here, so every sum has a
 // fixed order and two launches on the same inputs give the same bytes.
-// One persistent launch takes work items from one queue index, in the
-// order A(0), A(1) C(0), A(2) C(1), ..., C(M-1), where A(m) are the assign
-// tiles of clustering m and C(m) its accumulate column blocks:
-//   * assign tile (TB rows of m): rows and centers are staged chunk by
-//     chunk (DC features) through a cp.async ring; the distance product
-//     runs on the tensor cores (mma.sync m16n8k8 TF32, 3xTF32 below), the
-//     norms from the same staged chunks in fp32; then the discount, the
-//     first-index argmin, and per tile the count of each center, each
-//     row's rank among the tile's rows of its center, and the min-sum.
-//     The last tile of m to finish (a completion counter) sums the tiles'
-//     counts and min-sums in tile order, sorts m's rows by center (row
-//     order kept within a center: the tiles' counts and ranks give each
-//     row its place) and then releases m;
+// One persistent launch takes work items from one queue index. The
+// clusterings go widest first (g = 0, 1, ...), and the queue holds
+// A(0), A(1) C(0), A(2) C(1), ..., C(M-1), where A(g) are the assign items
+// of the g-th clustering and C(g) its accumulate column blocks:
+//   * assign item (TB rows of m, one split of SW columns): rows and centers
+//     are staged chunk by chunk (DC features) through a cp.async ring; the
+//     distance product runs on the tensor cores (mma.sync m16n8k8 TF32,
+//     3xTF32 below), the norms from the same staged chunks in fp32. The
+//     split's partial products and norms go to the workspace; the tile's
+//     last split to finish (a completion counter) adds the splits' partials
+//     in split order, applies the discount, takes the first-index argmin,
+//     and writes the tile's count of each center, each row's rank among
+//     the tile's rows of its center, and its min-sum. Splitting the columns
+//     keeps the widest clustering's tiles from being the critical path.
+//     The last tile of m to finish sums the tiles' counts and min-sums in
+//     tile order, sorts m's rows by center (row order kept within a
+//     center: the tiles' counts and ranks give each row its place) and
+//     then releases m;
 //   * accumulate block (NCOL columns of m): waits for m's release; each
 //     warp owns a run of centers whose rows are contiguous in the sorted
-//     order and sums each center's rows in row order into registers, 4
-//     columns a lane, the rows' loads UA deep in flight. Those are the
-//     deltas with the same additions in the same order as a walk over the
-//     rows. Because C(m) comes right after A(m+1) in the queue, its reads
-//     of m's rows mostly find them in the L2, where A(m) left them.
+//     order and sums each center's rows in row order into registers, 2
+//     columns a lane, UA rows' loads in flight. Those are the deltas with
+//     the same additions in the same order as a walk over the rows.
+//     Because C(g) comes right after A(g+1) in the queue, its reads of m's
+//     rows mostly find them in the L2, where A(g) left them.
 // An item waits only on items earlier in the queue, which running CTAs
 // hold and finish without waiting, so the grid cannot deadlock.
 //
@@ -70,32 +75,53 @@
 #define LDS (DC + 4)    // row stride of a staged chunk in floats: 4 (mod 32)
 #define STAGES 4        // chunks in the cp.async ring
 #define CG 32           // centers a pass covers: 4 n-tiles of 8
+#define SW 512          // columns an assign item covers (a multiple of DC)
 #define KMAX 256        // centers supported
 #define MMAX 64         // clusterings supported
-#define NCOL 128        // columns an accumulate block covers: 4 a lane
-#define UA 16           // rows in flight per accumulate lane
+#define NCOL 64         // columns an accumulate block covers: 2 a lane
+#define RS 256          // sorted rows an accumulate block stages at a time
+#define EPT 8           // tile-epilogue elements in flight per thread
 #define CTAS_PER_SM 2   // persistent grid, at most what can be resident
 #define MINB 2          // CTAs an SM must hold: caps registers at 128 a thread
 
 extern __shared__ float smem[];
 
-struct Dims {
-  int d[MMAX];
+// The queue, planned on the host.
+struct Plan {
+  int grp[MMAX];  // clustering of queue group g: widest first
+  int dm[MMAX];   // real width of clustering m
+  int a0[MMAX];   // queue index where A(g) starts
+  int c0[MMAX];   // queue index where C(g) starts
+  int total;      // items in the queue
 };
 
 // The workspace: counters, zero when a launch starts, then scratch.
 struct Work {
   int* queue;          // next work item
-  int* done;           // (MMAX) assign tiles finished, per clustering
-  int* ready;          // (MMAX) 1 once the clustering's rows are sorted
-  int* part_cnt;       // (T,M,K) rows of each center in each tile; then
-                       // where the tile's rows of the center start in order
+  int* done;           // (M) tiles finished, per clustering
+  int* ready;          // (M) 1 once the clustering's rows are sorted
+  int* splits_done;    // (M,T) splits finished, per tile
+  float* pdot;         // (M,T,SMAX,TB,K) each split's partial x.c
+  float* px2;          // (M,T,SMAX,TB) and |x|^2
+  float* pc2;          // (M,T,SMAX,K) and |c|^2
+  int* part_cnt;       // (T,M,K) rows of each center in each tile
   float* part_minsum;  // (T,M)
   int* rank;           // (M,B) a row's rank among its tile's rows of its center
   int* order;          // (M,B) rows sorted by center, row order within one
   int* seg;            // (M,K+1) where each center's rows start in order
 };
-#define COUNTER_BYTES (sizeof(int) * (1 + 2 * MMAX))
+
+struct Args {
+  const float* centers;  // (M,K,D)
+  const float* counts;   // (M,K)
+  const float* batch;    // (M,B,D)
+  float threshold;
+  int M, K, B, D, T, NB, SMAX;
+  int* best;             // (M,B)
+  float* counts_add;     // (M,K)
+  float* deltas;         // (M,K,D)
+  float* min_mean;       // (M)
+};
 
 __device__ __forceinline__ void cp16(float* dst, const float* src, int bytes) {
   // 16 bytes global -> shared: the first `bytes` from src, zeros after them
@@ -126,249 +152,226 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 
 // Issue the cp.async copies of features [d0, d0+DC) of the tile's rows and
 // of kn centers into one ring slot; rows and centers past the ends, and
-// features at or past dm, land as zeros without being read. Rows are D
+// features at or past dhi, land as zeros without being read. Rows are D
 // floats apart.
-__device__ __forceinline__ void stage_chunk(float* xs, float* cs, const float* xm,
-                                            const float* cm, int row0, int rows, int kn,
-                                            int D, int dm, int d0) {
+__device__ __forceinline__ void stage_chunk(float* slot, const float* xm, const float* cm,
+                                            int row0, int rows, int kn, int D, int dhi,
+                                            int d0) {
   for (int i = threadIdx.x; i < (TB + CG) * (DC / 4); i += NT) {
     const int r = i / (DC / 4), q = (i % (DC / 4)) * 4, d = d0 + q;
     const bool is_x = r < TB;
     const int rr = is_x ? r : r - TB;
-    const bool ok = (is_x ? rr < rows : rr < kn) && d < dm;
+    const bool ok = (is_x ? rr < rows : rr < kn) && d < dhi;
     const float* src = is_x ? xm + (size_t)(row0 + rr) * D + d : cm + (size_t)rr * D + d;
-    cp16((is_x ? xs : cs) + rr * LDS + q, ok ? src : xm, ok ? 4 * min(4, dm - d) : 0);
+    cp16(slot + r * LDS + q, ok ? src : xm, ok ? 4 * min(4, dhi - d) : 0);
   }
 }
 
-struct Args {
-  const float* centers;  // (M,K,D)
-  const float* counts;   // (M,K)
-  const float* batch;    // (M,B,D)
-  float threshold;
-  int M, K, B, D, T, NB;
-  int* best;             // (M,B)
-  float* counts_add;     // (M,K)
-  float* deltas;         // (M,K,D)
-  float* min_mean;       // (M)
-};
+// Columns [dlo, dhi) of the tile's x.c against NT8 n-tiles of centers into
+// tot, and this thread's shares of the rows' and centers' squared norms.
+template <int NT8>
+__device__ __forceinline__ void product(const float* xm, const float* cm, int row0,
+                                        int rows, int kn, int D, int dlo, int dhi,
+                                        float (&tot)[4][4], float& xq0, float& xq1,
+                                        float (&cq)[4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, rg = warp & 3, kh = warp >> 2;
+  const int nchunks = (dhi - dlo + DC - 1) / DC;
+  float* ring = smem;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nchunks)
+      stage_chunk(ring + s * (TB + CG) * LDS, xm, cm, row0, rows, kn, D, dhi, dlo + s * DC);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int c = 0; c < nchunks; ++c) {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(STAGES - 2) : "memory");
+    __syncthreads();  // chunk c landed; every warp is done with chunk c-1
+    if (c + STAGES - 1 < nchunks)
+      stage_chunk(ring + ((c + STAGES - 1) % STAGES) * (TB + CG) * LDS, xm, cm, row0, rows,
+                  kn, D, dhi, dlo + (c + STAGES - 1) * DC);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const float* xa = ring + (c % STAGES) * (TB + CG) * LDS + (16 * rg + g) * LDS;
+    const float* cb = ring + (c % STAGES) * (TB + CG) * LDS + (TB + g) * LDS;
+    // each chunk sums into a fresh accumulator, added to the total in
+    // fp32: the tensor cores' own sums round toward zero
+    float part[NT8][4] = {};
+#pragma unroll
+    for (int kk = kh * (DC / 2); kk < (kh + 1) * (DC / 2); kk += 8) {
+      const float a0 = xa[kk + t], a1 = xa[8 * LDS + kk + t];
+      const float a2 = xa[kk + t + 4], a3 = xa[8 * LDS + kk + t + 4];
+      xq0 = fmaf(a0, a0, xq0); xq0 = fmaf(a2, a2, xq0);
+      xq1 = fmaf(a1, a1, xq1); xq1 = fmaf(a3, a3, xq1);
+      uint32_t ab[4], as[4];
+      split(a0, ab[0], as[0]); split(a1, ab[1], as[1]);
+      split(a2, ab[2], as[2]); split(a3, ab[3], as[3]);
+      uint32_t bb[NT8][2], bs[NT8][2];
+#pragma unroll
+      for (int j = 0; j < NT8; ++j) {
+        const float b0 = cb[8 * j * LDS + kk + t], b1 = cb[8 * j * LDS + kk + t + 4];
+        cq[j] = fmaf(b0, b0, cq[j]); cq[j] = fmaf(b1, b1, cq[j]);
+        split(b0, bb[j][0], bs[j][0]); split(b1, bb[j][1], bs[j][1]);
+      }
+      // small.big, big.small, then big.big, each for every n-tile in a
+      // row, so that an MMA seldom waits on the one before it
+#pragma unroll
+      for (int j = 0; j < NT8; ++j) mma_tf32(part[j], as, bb[j]);
+#pragma unroll
+      for (int j = 0; j < NT8; ++j) mma_tf32(part[j], ab, bs[j]);
+#pragma unroll
+      for (int j = 0; j < NT8; ++j) mma_tf32(part[j], ab, bb[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < NT8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[j][e] += part[j][e];
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
 // The last assign tile of m: counts and min-sum summed in tile order, m's
 // rows sorted by center, then m released to its accumulate blocks.
 __device__ void finish(const Args& a, const Work& w, int m) {
   const int tid = threadIdx.x, K = a.K, M = a.M, T = a.T;
-  int* cnt = (int*)smem;  // K
-  int* segs = cnt + K;    // K+1
-  int* pc = w.part_cnt;
-  for (int k = tid; k < K; k += NT) {
-    int s = 0;
-    for (int t = 0; t < T; ++t) s += __ldcg(pc + ((size_t)t * M + m) * K + k);
-    cnt[k] = s;
-    a.counts_add[m * K + k] = (float)s;
-  }
+  int* base = (int*)smem;     // T x K: tile counts, then where the rows start
+  int* segs = base + T * K;   // K+1
+  float* msum = (float*)(segs + K + 1);  // T
+  for (int i = tid; i < T * K; i += NT)
+    base[i] = __ldcg(w.part_cnt + ((size_t)(i / K) * M + m) * K + i % K);
+  for (int t = tid; t < T; t += NT) msum[t] = __ldcg(w.part_minsum + (size_t)t * M + m);
+  __syncthreads();
   if (tid == 0) {
     float s = 0.f;
-    for (int t = 0; t < T; ++t) s += __ldcg(w.part_minsum + (size_t)t * M + m);
+    for (int t = 0; t < T; ++t) s += msum[t];
     a.min_mean[m] = s / (float)a.B;
+  }
+  for (int k = tid; k < K; k += NT) {
+    int s = 0;
+    for (int t = 0; t < T; ++t) s += base[t * K + k];
+    segs[k + 1] = s;
+    a.counts_add[m * K + k] = (float)s;
   }
   __syncthreads();
   if (tid == 0) {
     segs[0] = 0;
-    for (int k = 0; k < K; ++k) segs[k + 1] = segs[k] + cnt[k];
+    for (int k = 0; k < K; ++k) segs[k + 1] += segs[k];
   }
   __syncthreads();
   for (int k = tid; k <= K; k += NT) w.seg[m * (K + 1) + k] = segs[k];
-  for (int k = tid; k < K; k += NT) {  // tile counts -> where the tile's rows start
+  for (int k = tid; k < K; k += NT) {
     int run = segs[k];
     for (int t = 0; t < T; ++t) {
-      int* p = pc + ((size_t)t * M + m) * K + k;
-      const int c = __ldcg(p);
-      *p = run;
+      const int c = base[t * K + k];
+      base[t * K + k] = run;
       run += c;
     }
   }
   __syncthreads();
-  for (int r = tid; r < a.B; r += NT) {
-    const int k = __ldcg(a.best + (size_t)m * a.B + r);
-    const int pos = __ldcg(pc + ((size_t)(r / TB) * M + m) * K + k) +
-                    __ldcg(w.rank + (size_t)m * a.B + r);
-    w.order[(size_t)m * a.B + pos] = r;
+  for (int r0 = 0; r0 < a.B; r0 += 4 * NT) {  // 4 rows' loads in flight a thread
+    int kv[4], rv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = min(r0 + j * NT + tid, a.B - 1);
+      kv[j] = __ldcg(a.best + (size_t)m * a.B + r);
+      rv[j] = __ldcg(w.rank + (size_t)m * a.B + r);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = r0 + j * NT + tid;
+      if (r < a.B) w.order[(size_t)m * a.B + base[(r / TB) * K + kv[j]] + rv[j]] = r;
+    }
   }
   __threadfence();
   __syncthreads();
   if (tid == 0) atomicExch(w.ready + m, 1);
 }
 
-// One tile of TB rows of clustering m: distances to all K centers on the
-// tensor cores, discount, first-index argmin, the tile's counts, ranks and
-// min-sum. Warp w owns rows 16 (w & 3) .. +15 against the CG centers of a
-// pass, and half kh = w >> 2 of each chunk's features; the two halves'
-// sums are added in a fixed order at the end of the pass.
-__device__ void assign_tile(const Args& a, const Work& w, int m, int tile, int dm) {
-  const int K = a.K, B = a.B, D = a.D;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3, rg = warp & 3, kh = warp >> 2;
-  const int row0 = tile * TB;
-  const int rows = min(TB, B - row0);
-
-  float* ring = smem;                          // STAGES x (TB + CG) x LDS
-  float* x2 = ring + STAGES * (TB + CG) * LDS; // TB
-  float* c2 = x2 + TB;                         // CG, this pass's centers
-  float* xh = c2 + CG;                         // TB, half 1's share of x2
-  float* ch = xh + TB;                         // CG, half 1's share of c2
-  float* dist = ch + CG;                       // TB x K
-  float* mind = dist + TB * K;                 // TB
-  int* bst = (int*)(mind + TB);                // TB
-
-  const float* xm = a.batch + (size_t)m * B * D;
-  const int nchunks = (dm + DC - 1) / DC;
-  float xq0 = 0.f, xq1 = 0.f;  // this thread's share of |x|^2, rows g and g+8
-
-  for (int k0 = 0; k0 < K; k0 += CG) {
-    const int kn = min(CG, K - k0), nt8 = (kn + 7) / 8;
-    const float* cm = a.centers + ((size_t)m * K + k0) * D;
-    float tot[4][4] = {};
-    float cq[4] = {};  // row group 0's share of |c|^2
+// The last split of a tile: the splits' partials added in split order,
+// the discount, the first-index argmin, the tile's counts, ranks and
+// min-sum; then the clustering's completion count.
+__device__ void tile_epilogue(const Args& a, const Work& w, int m, int tile, int S) {
+  const int K = a.K, B = a.B, tid = threadIdx.x;
+  const int row0 = tile * TB, rows = min(TB, B - row0);
+  float* dist = smem;           // TB x K
+  float* mind = dist + TB * K;  // TB
+  int* bst = (int*)(mind + TB); // TB
+  const size_t p0 = ((size_t)m * a.T + tile) * a.SMAX;
+  for (int i0 = 0; i0 < rows * K; i0 += NT * EPT) {
+    float dot[EPT], x2[EPT], c2[EPT], cnt[EPT];
 #pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < nchunks) {
-        float* slot = ring + s * (TB + CG) * LDS;
-        stage_chunk(slot, slot + TB * LDS, xm, cm, row0, rows, kn, D, dm, s * DC);
+    for (int e = 0; e < EPT; ++e) {
+      const int i = min(i0 + e * NT + tid, rows * K - 1), r = i / K, k = i % K;
+      cnt[e] = __ldg(a.counts + m * K + k);
+      dot[e] = __ldcg(w.pdot + (p0 * TB + r) * K + k);
+      x2[e] = __ldcg(w.px2 + p0 * TB + r);
+      c2[e] = __ldcg(w.pc2 + p0 * K + k);
+    }
+    for (int s = 1; s < S; ++s) {
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) {
+        const int i = min(i0 + e * NT + tid, rows * K - 1), r = i / K, k = i % K;
+        dot[e] += __ldcg(w.pdot + ((p0 + s) * TB + r) * K + k);
+        x2[e] += __ldcg(w.px2 + (p0 + s) * TB + r);
+        c2[e] += __ldcg(w.pc2 + (p0 + s) * K + k);
       }
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
-    for (int c = 0; c < nchunks; ++c) {
-      asm volatile("cp.async.wait_group %0;\n" :: "n"(STAGES - 2) : "memory");
-      __syncthreads();  // chunk c landed; every warp is done with chunk c-1
-      if (c + STAGES - 1 < nchunks) {
-        float* slot = ring + ((c + STAGES - 1) % STAGES) * (TB + CG) * LDS;
-        stage_chunk(slot, slot + TB * LDS, xm, cm, row0, rows, kn, D, dm,
-                    (c + STAGES - 1) * DC);
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int i = i0 + e * NT + tid;
+      if (i < rows * K) {
+        float dv = -2.f * dot[e] + x2[e] + c2[e];
+        if (cnt[e] < a.threshold) dv = dv / 5.f;
+        dist[i] = dv;
       }
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
-      const float* xa = ring + (c % STAGES) * (TB + CG) * LDS + (16 * rg + g) * LDS;
-      const float* cb = ring + (c % STAGES) * (TB + CG) * LDS + (TB + g) * LDS;
-      // each chunk sums into a fresh accumulator, added to the total in
-      // fp32: the tensor cores' own sums round toward zero
-      float part[4][4] = {};
-#pragma unroll
-      for (int kk = kh * (DC / 2); kk < (kh + 1) * (DC / 2); kk += 8) {
-        const float a0 = xa[kk + t], a1 = xa[8 * LDS + kk + t];
-        const float a2 = xa[kk + t + 4], a3 = xa[8 * LDS + kk + t + 4];
-        if (k0 == 0) {
-          xq0 = fmaf(a0, a0, xq0); xq0 = fmaf(a2, a2, xq0);
-          xq1 = fmaf(a1, a1, xq1); xq1 = fmaf(a3, a3, xq1);
-        }
-        uint32_t ab[4], as[4];
-        split(a0, ab[0], as[0]); split(a1, ab[1], as[1]);
-        split(a2, ab[2], as[2]); split(a3, ab[3], as[3]);
-        uint32_t bb[4][2], bs[4][2];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (j < nt8) {
-            const float b0 = cb[8 * j * LDS + kk + t], b1 = cb[8 * j * LDS + kk + t + 4];
-            if (rg == 0) { cq[j] = fmaf(b0, b0, cq[j]); cq[j] = fmaf(b1, b1, cq[j]); }
-            split(b0, bb[j][0], bs[j][0]); split(b1, bb[j][1], bs[j][1]);
-          }
-        }
-        // small.big, big.small, then big.big, each for every n-tile in a
-        // row, so that an MMA seldom waits on the one before it
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (j < nt8) mma_tf32(part[j], as, bb[j]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (j < nt8) mma_tf32(part[j], ab, bs[j]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (j < nt8) mma_tf32(part[j], ab, bb[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) tot[j][e] += part[j][e];
     }
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    // the quad's four shares of each norm, in a fixed order
-    if (k0 == 0) {
-      xq0 += __shfl_xor_sync(0xffffffffu, xq0, 1); xq0 += __shfl_xor_sync(0xffffffffu, xq0, 2);
-      xq1 += __shfl_xor_sync(0xffffffffu, xq1, 1); xq1 += __shfl_xor_sync(0xffffffffu, xq1, 2);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      cq[j] += __shfl_xor_sync(0xffffffffu, cq[j], 1);
-      cq[j] += __shfl_xor_sync(0xffffffffu, cq[j], 2);
-    }
-    __syncthreads();  // every warp is done with the ring
-    // half 1 hands its sums to half 0 through shared memory
-    float* th = ring + (rg * 32 + lane) * 16;
-    if (kh == 1) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) th[4 * j + e] = tot[j][e];
-      if (t == 0 && k0 == 0) { xh[16 * rg + g] = xq0; xh[16 * rg + g + 8] = xq1; }
-      if (t == 0 && rg == 0)
-        for (int j = 0; j < 4; ++j) ch[8 * j + g] = cq[j];
-    }
-    __syncthreads();
-    if (kh == 0) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) tot[j][e] += th[4 * j + e];
-      if (t == 0 && k0 == 0) {
-        x2[16 * rg + g] = xq0 + xh[16 * rg + g];
-        x2[16 * rg + g + 8] = xq1 + xh[16 * rg + g + 8];
-      }
-      if (t == 0 && rg == 0)
-        for (int j = 0; j < 4; ++j) c2[8 * j + g] = cq[j] + ch[8 * j + g];
-    }
-    __syncthreads();
-    if (kh == 0) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = 16 * rg + g + 8 * (e >> 1), kl = 8 * j + 2 * t + (e & 1);
-          if (kl < kn) {
-            float dv = -2.f * tot[j][e] + x2[r] + c2[kl];
-            if (a.counts[m * K + k0 + kl] < a.threshold) dv = dv / 5.f;
-            dist[r * K + k0 + kl] = dv;
-          }
-        }
-    }
-    __syncthreads();  // the ring and c2 are free for the next pass
-  }
-
-  for (int r = tid; r < rows; r += NT) {
-    float bd = dist[r * K];
-    int bk = 0;
-    for (int k = 1; k < K; ++k) {
-      const float v = dist[r * K + k];
-      if (v < bd) { bd = v; bk = k; }  // strict: ties keep the first index
-    }
-    bst[r] = bk;
-    mind[r] = bd;
-    a.best[(size_t)m * B + row0 + r] = bk;
   }
   __syncthreads();
-  for (int r = tid; r < rows; r += NT) {
-    int c = 0;
-    for (int q = 0; q < r; ++q) c += bst[q] == bst[r];
-    w.rank[(size_t)m * B + row0 + r] = c;
+  {  // first-index argmin: 4 threads a row, each over every 4th center
+    const int r = tid >> 2, q = tid & 3;
+    float bd = q < K && r < rows ? dist[r * K + q] : INFINITY;
+    int bk = q < K ? q : K;
+    if (r < rows)
+      for (int k = q + 4; k < K; k += 4) {
+        const float v = dist[r * K + k];
+        if (v < bd) { bd = v; bk = k; }  // strict: ties keep the first index
+      }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {  // the smaller value, on ties the smaller index
+      const float ov = __shfl_xor_sync(0xffffffffu, bd, o);
+      const int ok = __shfl_xor_sync(0xffffffffu, bk, o);
+      if (ov < bd || (ov == bd && ok < bk)) { bd = ov; bk = ok; }
+    }
+    if (q == 0 && r < rows) {
+      bst[r] = bk;
+      mind[r] = bd;
+      a.best[(size_t)m * B + row0 + r] = bk;
+    }
   }
-  for (int k = tid; k < K; k += NT) {
-    int c = 0;
-    for (int r = 0; r < rows; ++r) c += bst[r] == k;
-    w.part_cnt[((size_t)tile * a.M + m) * K + k] = c;
+  int* cnt = bst + TB;  // 2 x K: each center's rows among rows 0-31 and 32-63
+  for (int i = tid; i < 2 * K; i += NT) cnt[i] = 0;
+  __syncthreads();
+  // a row's rank among the tile's rows of its center, from the rows of
+  // its own warp (match_any) and, for rows 32-63, the count in rows 0-31
+  int k = 0, rk = 0;
+  if (tid < TB) {
+    const bool has = tid < rows;
+    const unsigned act = __ballot_sync(0xffffffffu, has);
+    if (has) {
+      k = bst[tid];
+      const unsigned peers = __match_any_sync(act, k);
+      rk = __popc(peers & ((1u << (tid & 31)) - 1));
+      if (rk == 0) cnt[(tid >> 5) * K + k] = __popc(peers);
+    }
   }
-  if (tid == 0) {
-    float s = 0.f;
-    for (int r = 0; r < rows; ++r) s += mind[r];
-    w.part_minsum[(size_t)tile * a.M + m] = s;
+  __syncthreads();
+  if (tid < rows) w.rank[(size_t)m * B + row0 + tid] = rk + (tid >= 32 ? cnt[k] : 0);
+  for (int c = tid; c < K; c += NT) w.part_cnt[((size_t)tile * a.M + m) * K + c] = cnt[c] + cnt[K + c];
+  if (tid < 32) {  // the min-sum, in a fixed order
+    float v = (tid < rows ? mind[tid] : 0.f) + (tid + 32 < rows ? mind[tid + 32] : 0.f);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (tid == 0) w.part_minsum[(size_t)tile * a.M + m] = v;
   }
-  // completion: the tile's writes are visible before the count moves
   __shared__ int last;
   __threadfence();
   __syncthreads();
@@ -380,131 +383,243 @@ __device__ void assign_tile(const Args& a, const Work& w, int m, int tile, int d
   }
 }
 
-// 4 floats of a row from column col on, of which the first n are real
-__device__ __forceinline__ float4 load4(const float* p, int n) {
-  if (n == 4) return __ldg(reinterpret_cast<const float4*>(p));
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (n > 0) v.x = __ldg(p);
-  if (n > 1) v.y = __ldg(p + 1);
-  if (n > 2) v.z = __ldg(p + 2);
-  return v;
+// Split s (columns [s SW, (s+1) SW) below dm) of the tile of TB rows of
+// clustering m: partial products and norms into the workspace. Warp w owns
+// rows 16 (w & 3) .. +15 against the CG centers of a pass, and half
+// kh = w >> 2 of each chunk's features; the two halves' sums are added in a
+// fixed order at the end of the pass.
+__device__ void assign_split(const Args& a, const Work& w, int m, int tile, int s, int dm) {
+  const int K = a.K, B = a.B, D = a.D, S = (dm + SW - 1) / SW;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, rg = warp & 3, kh = warp >> 2;
+  const int row0 = tile * TB, rows = min(TB, B - row0);
+  const int dlo = s * SW, dhi = min(dm, dlo + SW);
+  const size_t p = ((size_t)m * a.T + tile) * a.SMAX + s;
+  float* xh = smem + STAGES * (TB + CG) * LDS;  // TB, half 1's share of |x|^2
+  float* ch = xh + TB;                           // CG, half 1's share of |c|^2
+  const float* xm = a.batch + (size_t)m * B * D;
+  for (int k0 = 0; k0 < K; k0 += CG) {
+    const int kn = min(CG, K - k0);
+    const float* cm = a.centers + ((size_t)m * K + k0) * D;
+    float tot[4][4] = {}, cq[4] = {}, xq0 = 0.f, xq1 = 0.f;
+    switch ((kn + 7) / 8) {
+      case 1: product<1>(xm, cm, row0, rows, kn, D, dlo, dhi, tot, xq0, xq1, cq); break;
+      case 2: product<2>(xm, cm, row0, rows, kn, D, dlo, dhi, tot, xq0, xq1, cq); break;
+      case 3: product<3>(xm, cm, row0, rows, kn, D, dlo, dhi, tot, xq0, xq1, cq); break;
+      default: product<4>(xm, cm, row0, rows, kn, D, dlo, dhi, tot, xq0, xq1, cq); break;
+    }
+    // the quad's four shares of each norm, in a fixed order
+    xq0 += __shfl_xor_sync(0xffffffffu, xq0, 1); xq0 += __shfl_xor_sync(0xffffffffu, xq0, 2);
+    xq1 += __shfl_xor_sync(0xffffffffu, xq1, 1); xq1 += __shfl_xor_sync(0xffffffffu, xq1, 2);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      cq[j] += __shfl_xor_sync(0xffffffffu, cq[j], 1);
+      cq[j] += __shfl_xor_sync(0xffffffffu, cq[j], 2);
+    }
+    __syncthreads();  // every warp is done with the ring
+    // half 1 hands its sums to half 0 through shared memory
+    float* th = smem + (rg * 32 + lane) * 16;
+    if (kh == 1) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) th[4 * j + e] = tot[j][e];
+      if (t == 0) { xh[16 * rg + g] = xq0; xh[16 * rg + g + 8] = xq1; }
+      if (t == 0 && rg == 0)
+        for (int j = 0; j < 4; ++j) ch[8 * j + g] = cq[j];
+    }
+    __syncthreads();
+    if (kh == 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 16 * rg + g + 8 * (e >> 1), kl = 8 * j + 2 * t + (e & 1);
+          if (kl < kn) w.pdot[(p * TB + r) * K + k0 + kl] = tot[j][e] + th[4 * j + e];
+        }
+      if (t == 0 && k0 == 0) {
+        w.px2[p * TB + 16 * rg + g] = xq0 + xh[16 * rg + g];
+        w.px2[p * TB + 16 * rg + g + 8] = xq1 + xh[16 * rg + g + 8];
+      }
+      if (t == 0 && rg == 0)
+        for (int j = 0; j < 4; ++j)
+          if (8 * j + g < kn) w.pc2[p * K + k0 + 8 * j + g] = cq[j] + ch[8 * j + g];
+    }
+    __syncthreads();  // shared memory is free for the next pass
+  }
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(w.splits_done + m * a.T + tile, 1) == S - 1;
+  __syncthreads();
+  if (last) {
+    __threadfence();
+    tile_epilogue(a, w, m, tile, S);
+  }
 }
 
-// Columns [blk NCOL, (blk+1) NCOL) of m's deltas: each warp sums the rows
-// of its run of centers, in row order, 4 columns a lane.
-__device__ void accumulate_block(const Args& a, const Work& w, int m, int blk, int dm) {
+// 2 floats of a row from column col on, of which the first n are real
+__device__ __forceinline__ float2 load2(const float* p, int n) {
+  if (n == 2) return __ldg(reinterpret_cast<const float2*>(p));
+  return make_float2(n > 0 ? __ldg(p) : 0.f, 0.f);
+}
+
+// Columns [blk NCOL, (blk+1) NCOL) of m's deltas, one of the nb blocks
+// that hold real columns. Rows are taken in their sorted order RS at a
+// time: the 8 warps stage them into shared memory together (every warp
+// loads RS / NWARP rows, whatever the centers' sizes), then each warp sums
+// the rows of its run of centers from there, in row order, 2 columns a
+// lane. While m is not yet released, the block writes the zeros of every
+// nb-th block past the real ones.
+__device__ void accumulate_block(const Args& a, const Work& w, int m, int blk, int nb,
+                                 int dm) {
   const int K = a.K, B = a.B, D = a.D;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int col = blk * NCOL + 4 * lane;
-  float* out = a.deltas + (size_t)m * K * D + col;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (blk * NCOL >= dm) {  // past the real columns: zeros, nothing to wait for
-    if (col < D)
+  const float2 zero = make_float2(0.f, 0.f);
+  for (int z = nb + blk; z < a.NB; z += nb) {
+    const int c = z * NCOL + 2 * lane;
+    if (c < D)
       for (int k = warp; k < K; k += NWARP)
-        *reinterpret_cast<float4*>(out + (size_t)k * D) = zero;
-    return;
+        *reinterpret_cast<float2*>(a.deltas + ((size_t)m * K + k) * D + c) = zero;
   }
+  const int col = blk * NCOL + 2 * lane;
+  float* out = a.deltas + (size_t)m * K * D + col;
   if (tid == 0) {
     while (*(volatile int*)(w.ready + m) == 0) __nanosleep(64);
     __threadfence();
   }
   __syncthreads();
-  int* segs = (int*)smem;  // K+1
+  int* segs = (int*)smem;                                  // K+1
+  float2* staged = (float2*)(smem + (K + 4) / 4 * 4);      // RS x 32
   for (int k = tid; k <= K; k += NT) segs[k] = __ldcg(w.seg + m * (K + 1) + k);
   __syncthreads();
-  // warp v owns the centers whose rows start in [v B / NWARP, (v+1) B / NWARP)
-  int klo = 0;
-  while (klo < K && min(NWARP - 1, segs[klo] * NWARP / B) < warp) ++klo;
-  int khi = klo;
-  while (khi < K && min(NWARP - 1, segs[khi] * NWARP / B) == warp) ++khi;
+  // warp v owns the centers whose rows start in [v B / NWARP, (v+1) B / NWARP):
+  // [klo, khi), counted over the centers 32 at a time
+  int klo = 0, khi = 0;
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    const int own = k0 + lane < K ? min(NWARP - 1, segs[k0 + lane] * NWARP / B) : NWARP;
+    klo += __popc(__ballot_sync(0xffffffffu, own < warp));
+    khi += __popc(__ballot_sync(0xffffffffu, own <= warp));
+  }
   const int lo = segs[klo], hi = segs[khi];
   const int* ord = w.order + (size_t)m * B;
   const float* xm = a.batch + (size_t)m * B * D + col;
-  const int nreal = max(0, min(4, dm - col));
+  const int nreal = max(0, min(2, dm - col));
+  const bool full = (blk + 1) * NCOL <= dm;  // every lane's 2 columns are real
   int k = klo;
   int kend = k < khi ? segs[k + 1] : hi;
-  float4 acc = zero;
-  for (int base = lo; base < hi; base += 32) {
-    const int n = min(32, hi - base);
-    const int myr = lane < n ? __ldcg(ord + base + lane) : 0;
-    for (int u0 = 0; u0 < n; u0 += UA) {
-      float4 v[UA];
+  float2 acc = zero;
+  // the chunk's rows are loaded into registers while the chunk before is
+  // summed; a clamped index reads a real row whose value goes unused (a
+  // select on a load's result would wait for it)
+  const int q = warp * (RS / NWARP);
+  int idx = __ldcg(ord + min(q + lane, B - 1));
+  float2 v[RS / NWARP];
+  auto load_rows = [&]() {
+    if (full) {
 #pragma unroll
-      for (int u = 0; u < UA; ++u) {
-        const int r = __shfl_sync(0xffffffffu, myr, (u0 + u) & 31);
-        v[u] = load4(xm + (size_t)r * D, u0 + u < n ? nreal : 0);
+      for (int u = 0; u < RS / NWARP; ++u) {
+        const int r = __shfl_sync(0xffffffffu, idx, u);
+        v[u] = __ldg(reinterpret_cast<const float2*>(xm + (size_t)r * D));
       }
+    } else {
 #pragma unroll
-      for (int u = 0; u < UA; ++u) {
-        if (u0 + u < n) {
-          while (base + u0 + u >= kend) {  // center k's rows are done
-            if (col < D) *reinterpret_cast<float4*>(out + (size_t)k * D) = acc;
-            acc = zero;
-            ++k;
-            kend = segs[k + 1];
-          }
-          acc.x += v[u].x; acc.y += v[u].y; acc.z += v[u].z; acc.w += v[u].w;
-        }
+      for (int u = 0; u < RS / NWARP; ++u) {
+        const int r = __shfl_sync(0xffffffffu, idx, u);
+        v[u] = load2(xm + (size_t)r * D, nreal);
+      }
+    }
+  };
+  load_rows();
+  idx = __ldcg(ord + min(RS + q + lane, B - 1));
+  for (int p0 = 0; p0 < B; p0 += RS) {
+    __syncthreads();  // every warp is done with the previous chunk
+#pragma unroll
+    for (int u = 0; u < RS / NWARP; ++u) staged[(q + u) * 32 + lane] = v[u];
+    __syncthreads();
+    if (p0 + RS < B) {
+      load_rows();
+      idx = __ldcg(ord + min(p0 + 2 * RS + q + lane, B - 1));
+    }
+    const int s1 = min(hi, p0 + RS);
+    for (int p = max(lo, p0); p < s1;) {
+      while (p >= kend) {  // center k's rows are done
+        if (col < D) *reinterpret_cast<float2*>(out + (size_t)k * D) = acc;
+        acc = zero;
+        ++k;
+        kend = segs[k + 1];
+      }
+      const int e = min(kend, s1);  // center k's rows in this chunk, in order
+#pragma unroll 8
+      for (; p < e; ++p) {
+        const float2 x = staged[(p - p0) * 32 + lane];
+        acc.x += x.x;
+        acc.y += x.y;
       }
     }
   }
   for (; k < khi; ++k) {
-    if (col < D) *reinterpret_cast<float4*>(out + (size_t)k * D) = acc;
+    if (col < D) *reinterpret_cast<float2*>(out + (size_t)k * D) = acc;
     acc = zero;
   }
 }
 
-// queue order: A(0); then A(g), C(g-1) for g = 1 .. M-1; then C(M-1)
-__device__ __forceinline__ bool decode(int item, int M, int T, int NB, int& m, int& idx) {
-  if (item < T) { m = 0; idx = item; return true; }
-  const int q = item - T, grp = q / (T + NB), rem = q % (T + NB);
-  if (grp < M - 1) {
-    if (rem < T) { m = grp + 1; idx = rem; return true; }
-    m = grp; idx = rem - T; return false;
+__device__ void run_item(const Args& a, const Work& w, const Plan& plan, int item) {
+  for (int g = 0; g < a.M; ++g) {
+    const int m = plan.grp[g], dm = plan.dm[m], S = (dm + SW - 1) / SW;
+    if (item >= plan.a0[g] && item < plan.a0[g] + a.T * S) {
+      const int i = item - plan.a0[g];
+      assign_split(a, w, m, i / S, i % S, dm);
+      return;
+    }
+    const int nb = (dm + NCOL - 1) / NCOL;
+    if (item >= plan.c0[g] && item < plan.c0[g] + nb) {
+      accumulate_block(a, w, m, item - plan.c0[g], nb, dm);
+      return;
+    }
   }
-  m = M - 1; idx = q - (M - 1) * (T + NB);
-  return false;
 }
 
-__global__ void __launch_bounds__(NT, MINB) k1_kernel(Args a, Work w, Dims dims) {
+__global__ void __launch_bounds__(NT, MINB) k1_kernel(Args a, Work w, Plan plan) {
   __shared__ int item_s;
-  const int total = a.M * (a.T + a.NB);
   for (;;) {
     if (threadIdx.x == 0) item_s = atomicAdd(w.queue, 1);
     __syncthreads();
     const int item = item_s;
     __syncthreads();  // everyone has read item_s before it is written again
-    if (item >= total) return;
-    int m, idx;
-    if (decode(item, a.M, a.T, a.NB, m, idx))
-      assign_tile(a, w, m, idx, dims.d[m]);
-    else
-      accumulate_block(a, w, m, idx, dims.d[m]);
+    if (item >= plan.total) return;
+    run_item(a, w, plan, item);
   }
 }
 
 // The workspace's layout; with base null, only its size in bytes.
-static size_t layout(int M, int K, int B, char* base, Work* w) {
-  const int T = (B + TB - 1) / TB;
+static size_t layout(int M, int K, int B, int D, char* base, Work* w, size_t* counter_bytes) {
+  const int T = (B + TB - 1) / TB, SMAX = (D + SW - 1) / SW;
   size_t off = 0;
   auto take = [&](size_t bytes) {
     char* p = base ? base + off : nullptr;
     off += (bytes + 255) / 256 * 256;
     return p;
   };
-  int* counters = (int*)take(COUNTER_BYTES);
+  int* counters = (int*)take(sizeof(int) * (1 + 2 * (size_t)M + (size_t)M * T));
+  if (counter_bytes) *counter_bytes = off;
+  const size_t parts = (size_t)M * T * SMAX;
+  float* pdot = (float*)take(sizeof(float) * parts * TB * K);
+  float* px2 = (float*)take(sizeof(float) * parts * TB);
+  float* pc2 = (float*)take(sizeof(float) * parts * K);
   int* part_cnt = (int*)take(sizeof(int) * (size_t)T * M * K);
   float* part_minsum = (float*)take(sizeof(float) * (size_t)T * M);
   int* rank = (int*)take(sizeof(int) * (size_t)M * B);
   int* order = (int*)take(sizeof(int) * (size_t)M * B);
   int* seg = (int*)take(sizeof(int) * (size_t)M * (K + 1));
-  if (w) *w = Work{counters, counters + 1, counters + 1 + MMAX, part_cnt, part_minsum,
-                   rank, order, seg};
+  if (w)
+    *w = Work{counters, counters + 1, counters + 1 + M, counters + 1 + 2 * M, pdot, px2,
+              pc2, part_cnt, part_minsum, rank, order, seg};
   return off;
 }
 
-extern "C" size_t kmeans_assign_update_workspace(int M, int K, int B) {
-  return layout(M, K, B, nullptr, nullptr);
+extern "C" size_t kmeans_assign_update_workspace(int M, int K, int B, int D) {
+  return layout(M, K, B, D, nullptr, nullptr, nullptr);
 }
 
 // dims: host array of M widths, or null for D everywhere.
@@ -512,20 +627,48 @@ extern "C" int kmeans_assign_update(
     const void* centers, const void* counts, const void* batch, float threshold,
     int M, int K, int B, int D, const int* dims, void* work, void* best,
     void* counts_add, void* deltas, void* min_mean, void* stream) {
-  if (K < 1 || K > KMAX || M < 1 || M > MMAX || B < 1 || D < 4 || D % 4)
+  const int T = (B + TB - 1) / TB;
+  // shared memory: an assign item's ring and tile, or an accumulate
+  // block's centers' starts and staged rows, whichever is more
+  const size_t smem_assign = sizeof(float) * ((size_t)STAGES * (TB + CG) * LDS + TB + CG) +
+                             sizeof(float) * ((size_t)TB * K + TB) + sizeof(int) * (TB + 2 * K);
+  const size_t smem_acc = sizeof(int) * (((size_t)K + 4) / 4 * 4) + sizeof(float2) * RS * 32;
+  const size_t smem = smem_assign > smem_acc ? smem_assign : smem_acc;
+  // the last tile's sort keeps every tile's counts in shared memory
+  if (K < 1 || K > KMAX || M < 1 || M > MMAX || B < 1 || D < 4 || D % 4 ||
+      sizeof(int) * ((size_t)T * K + K + 1 + T) > smem)
     return (int)cudaErrorInvalidValue;
-  Dims dd;
+  Plan plan;
   for (int m = 0; m < M; ++m) {
-    dd.d[m] = dims ? dims[m] : D;
-    if (dd.d[m] < 1 || dd.d[m] > D) return (int)cudaErrorInvalidValue;
+    plan.dm[m] = dims ? dims[m] : D;
+    if (plan.dm[m] < 1 || plan.dm[m] > D) return (int)cudaErrorInvalidValue;
+    plan.grp[m] = m;
   }
+  for (int g = 1; g < M; ++g)  // widest first; ties keep the clusterings' order
+    for (int h = g; h > 0 && plan.dm[plan.grp[h]] > plan.dm[plan.grp[h - 1]]; --h) {
+      const int x = plan.grp[h];
+      plan.grp[h] = plan.grp[h - 1];
+      plan.grp[h - 1] = x;
+    }
+  const int NB = (D + NCOL - 1) / NCOL;
+  // every assign item, widest clustering first, then the accumulate
+  // blocks, narrowest first: those are released first
+  int pos = 0;
+  for (int g = 0; g < M; ++g) {
+    plan.a0[g] = pos;
+    pos += T * ((plan.dm[plan.grp[g]] + SW - 1) / SW);
+  }
+  for (int g = M - 1; g >= 0; --g) {
+    plan.c0[g] = pos;
+    pos += (plan.dm[plan.grp[g]] + NCOL - 1) / NCOL;
+  }
+  plan.total = pos;
   Args a{(const float*)centers, (const float*)counts, (const float*)batch, threshold,
-         M, K, B, D, (B + TB - 1) / TB, (D + NCOL - 1) / NCOL,
+         M, K, B, D, T, NB, (D + SW - 1) / SW,
          (int*)best, (float*)counts_add, (float*)deltas, (float*)min_mean};
   Work w;
-  layout(M, K, B, (char*)work, &w);
-  const size_t smem = sizeof(float) * ((size_t)STAGES * (TB + CG) * LDS + 2 * (TB + CG) +
-                                       (size_t)TB * K + TB) + sizeof(int) * TB;
+  size_t counter_bytes;
+  layout(M, K, B, D, (char*)work, &w, &counter_bytes);
   cudaError_t err = cudaFuncSetAttribute(
       k1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -537,10 +680,9 @@ extern "C" int kmeans_assign_update(
       cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int items = M * (a.T + a.NB);
-  const int grid = min(items, min(per_sm, CTAS_PER_SM) * sms);
+  const int grid = min(plan.total, min(per_sm, CTAS_PER_SM) * sms);
   cudaStream_t s = (cudaStream_t)stream;
-  if ((err = cudaMemsetAsync(work, 0, COUNTER_BYTES, s)) != cudaSuccess) return (int)err;
-  k1_kernel<<<grid, NT, smem, s>>>(a, w, dd);
+  if ((err = cudaMemsetAsync(work, 0, counter_bytes, s)) != cudaSuccess) return (int)err;
+  k1_kernel<<<grid, NT, smem, s>>>(a, w, plan);
   return (int)cudaGetLastError();
 }

@@ -66,7 +66,7 @@ def bind(lib: ctypes.CDLL):
                    + [ctypes.c_void_p] * 7)
     fn.restype = ctypes.c_int
     workspace = lib.kmeans_assign_update_workspace
-    workspace.argtypes = [ctypes.c_int] * 3
+    workspace.argtypes = [ctypes.c_int] * 4
     workspace.restype = ctypes.c_size_t
     return fn, workspace
 
@@ -95,7 +95,7 @@ def launch(lib_fns, centers: Tensor, counts: Tensor, batch: Tensor, threshold: f
     counts_add = torch.empty((m, k), **f32)
     deltas = torch.empty((m, k, d), **f32)
     min_mean = torch.empty((m,), **f32)
-    work = torch.empty((workspace(m, k, b),), device=dev, dtype=torch.uint8)
+    work = torch.empty((workspace(m, k, b, d),), device=dev, dtype=torch.uint8)
     widths = None if dims is None else (ctypes.c_int * m)(*dims)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

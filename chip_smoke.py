@@ -354,7 +354,47 @@ def main_path_b() -> dict:
         f"(want {want}); launches {launches}")
     check(rows == want, f"output.csv rows {rows} != {want}")
     check(launches["kmeans_assign_update"] == 3, "K1 launched on steps 2-4")
+    cluster_step_breakdown(feats / "shard-000000.pkl")
     return launches
+
+
+def cluster_step_breakdown(shard: Path) -> None:
+    """Where one post-warmup cluster step of path B goes: the host's
+    ``stack_batch`` of 1024 rows into the padded (10, 1024, 2304) batch,
+    its copy to the card, K1 on it (eager calls, as ``train_step`` makes
+    them), and the whole ``train_step``; each the median of 5 runs."""
+    from acav100m_torch.ops import kmeans
+    from acav100m_torch.pipeline import clustering
+
+    rows = load_pickle(shard)[:1024]
+    types, dims = clustering.discover_types([shard])
+    dmax = max(dims)
+
+    def host_ms(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[reps // 2]
+
+    stacked = clustering.stack_batch(rows, types, dmax)
+    batch = torch.from_numpy(stacked).cuda()
+    state = kmeans.init_state(dims, 32, generator=torch.Generator().manual_seed(0),
+                              device=batch.device)
+    state.count = 10 * 32 * 2  # past warmup: the step goes through K1
+    threshold = (state.count / 32) ** 0.7
+    t_stack = host_ms(lambda: clustering.stack_batch(rows, types, dmax))
+    t_h2d = host_ms(lambda: torch.from_numpy(stacked).cuda())
+    t_k1 = time_ms(lambda: fused_assign_update(state.centers, state.counts, batch, threshold,
+                                               dims=state.dims))
+    t_step = host_ms(lambda: kmeans.train_step(state, batch, 0.01))
+    log(f"path B, one cluster step (B={len(rows)}, K=32, {len(dims)} clusterings, "
+        f"{stacked.nbytes / 1e6:.1f} MB padded batch): stack_batch on the host "
+        f"{t_stack:.3f} ms, H2D copy {t_h2d:.3f} ms, K1 {t_k1:.4f} ms, train_step "
+        f"{t_step:.3f} ms; {card()}")
 
 
 def main() -> int:

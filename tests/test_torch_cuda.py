@@ -24,7 +24,11 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("m,k,d,b", [(3, 8, 48, 100), (2, 4, 40, 64), (10, 32, 2304, 1000)])
+@pytest.mark.parametrize("m,k,d,b", [
+    (3, 8, 48, 100), (2, 4, 40, 64), (10, 32, 2304, 1000),
+    (2, 40, 36, 70),   # K over one pass of 32 centers
+    (3, 8, 30, 50),    # D not a multiple of 4: the wrapper pads it
+])
 def test_k1_matches_plain(card, m, k, d, b):
     gen = torch.Generator().manual_seed(b)
     batch = torch.randn((m, b, d), generator=gen).to(card)
@@ -40,6 +44,54 @@ def test_k1_matches_plain(card, m, k, d, b):
     assert torch.equal(c, c_p)
     torch.testing.assert_close(dl, dl_p, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(mean, mean_p, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dims,k,b", [
+    ((88, 352, 704, 1408, 2304, 64, 128, 256, 512, 128), 32, 1024),  # the main path
+    ((48, 30, 21), 4, 100),  # ragged widths, path A's K
+    ((700, 40), 40, 64),     # split columns, two passes of centers
+])
+def test_k1_dims_skips_padding_bit_for_bit(card, dims, k, b):
+    gen = torch.Generator().manual_seed(k + b)
+    m, d = len(dims), max(dims)
+    mask = (torch.arange(d)[None, :] < torch.tensor(dims)[:, None]).float()[:, None, :]
+    batch = (torch.randn((m, b, d), generator=gen) * mask).to(card)
+    centers = (torch.randn((m, k, d), generator=gen) * mask).to(card)
+    counts = torch.randint(0, 400, (m, k), generator=gen).float().to(card)
+    before = fused_assign_update.launches
+    out = fused_assign_update(centers, counts, batch, 147.0, dims=dims)
+    again = fused_assign_update(centers, counts, batch, 147.0, dims=dims)
+    padded = fused_assign_update(centers, counts, batch, 147.0)
+    assert fused_assign_update.launches == before + 3
+    for u, v, w in zip(out, again, padded):
+        assert torch.equal(u, v) and torch.equal(u, w)
+    best_p, c_p, dl_p, mean_p = fused_assign_update_ref(centers, counts, batch, 147.0)
+    assert torch.equal(out[0], best_p) and torch.equal(out[1], c_p)
+    torch.testing.assert_close(out[2], dl_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out[3], mean_p, rtol=1e-4, atol=1e-4)
+
+
+def test_k1_train_step_with_dims_matches_without(card):
+    from acav100m_torch.ops import kmeans as tk
+
+    dims, k, b = [352, 88, 40], 8, 256
+    gen = torch.Generator().manual_seed(5)
+    m, d = len(dims), max(dims)
+    mask = (torch.arange(d)[None, :] < torch.tensor(dims)[:, None]).float()[:, None, :]
+    batches = [(torch.randn((m, b, d), generator=gen) * mask).to(card) for _ in range(3)]
+    states = []
+    for known in (True, False):
+        state = tk.init_state(dims, k, generator=torch.Generator().manual_seed(1), device=card)
+        state.count = 10 * k
+        if not known:
+            state.dims = None
+        for x in batches:
+            state, mean = tk.train_step(state, x, 0.01)
+        states.append((state, mean))
+    (s1, m1), (s2, m2) = states
+    assert s1.dims == tuple(dims) and s2.dims is None
+    assert torch.equal(s1.centers, s2.centers) and torch.equal(s1.counts, s2.counts)
+    assert torch.equal(m1, m2)
 
 
 @pytest.mark.parametrize("n,hw,stride,cin,big", [
