@@ -145,14 +145,15 @@ VARIANTS = {
     "dc64": [_define("DC", 32, 64), _define("STAGES", 4, 3)],
     # the accumulate's loads of the rows replaced by a constant
     "acc_no_loads": [
-        ("        v[u] = __ldg(reinterpret_cast<const float2*>(xm + (size_t)r * D));",
-         "        v[u] = make_float2((float)r, 0.f);"),
-        ("        v[u] = load2(xm + (size_t)r * D, nreal);",
-         "        v[u] = make_float2((float)r, 0.f);")],
+        ("      v[u] = __ldg(reinterpret_cast<const float2*>(xm + (size_t)r * D));",
+         "      v[u] = make_float2((float)r, 0.f);"),
+        ("      v[u] = load2(xm + (size_t)r * D, nreal);",
+         "      v[u] = make_float2((float)r, 0.f);")],
     # sorted rows staged per accumulate chunk
     "rs128": [_define("RS", 256, 128)],
     "sw256": [_define("SW", 512, 256)],
     "stages3": [_define("STAGES", 4, 3)],
+    "stages6": [_define("STAGES", 4, 6)],
     "grid1": [_define("CTAS_PER_SM", 2, 1), _define("MINB", 2, 1)],
 }
 

@@ -17,10 +17,9 @@
 // and deltas in place across batch tiles. Hopper runs blocks in parallel
 // and in no order, and no float atomics are used here, so every sum has a
 // fixed order and two launches on the same inputs give the same bytes.
-// One persistent launch takes work items from one queue index. The
-// clusterings go widest first (g = 0, 1, ...), and the queue holds
-// A(0), A(1) C(0), A(2) C(1), ..., C(M-1), where A(g) are the assign items
-// of the g-th clustering and C(g) its accumulate column blocks:
+// One persistent launch takes work items from one queue index: first every
+// assign item, the widest clustering's first, then the accumulate blocks,
+// the narrowest clustering's first (its rows are sorted first):
 //   * assign item (TB rows of m, one split of SW columns): rows and centers
 //     are staged chunk by chunk (DC features) through a cp.async ring; the
 //     distance product runs on the tensor cores (mma.sync m16n8k8 TF32,
@@ -35,13 +34,14 @@
 //     tile order, sorts m's rows by center (row order kept within a
 //     center: the tiles' counts and ranks give each row its place) and
 //     then releases m;
-//   * accumulate block (NCOL columns of m): waits for m's release; each
-//     warp owns a run of centers whose rows are contiguous in the sorted
-//     order and sums each center's rows in row order into registers, 2
-//     columns a lane, UA rows' loads in flight. Those are the deltas with
-//     the same additions in the same order as a walk over the rows.
-//     Because C(g) comes right after A(g+1) in the queue, its reads of m's
-//     rows mostly find them in the L2, where A(g) left them.
+//   * accumulate block (NCOL columns of m): waits for m's release, then
+//     takes m's rows in sorted order RS at a time: all warps stage them
+//     into shared memory (the next RS in flight while these are summed),
+//     and each warp sums the rows of its run of centers from there in row
+//     order, 2 columns a lane. Those are the deltas with the same
+//     additions in the same order as a walk over the rows, whatever the
+//     centers' sizes. With the real columns of all clusterings (28 MB at
+//     the main path's shape) the L2 still holds m's rows from its assign.
 // An item waits only on items earlier in the queue, which running CTAs
 // hold and finish without waiting, so the grid cannot deadlock.
 //
@@ -458,10 +458,28 @@ __device__ void assign_split(const Args& a, const Work& w, int m, int tile, int 
   }
 }
 
-// 2 floats of a row from column col on, of which the first n are real
+// 2 floats of a row from p on, of which the first n are real
 __device__ __forceinline__ float2 load2(const float* p, int n) {
-  if (n == 2) return __ldg(reinterpret_cast<const float2*>(p));
-  return make_float2(n > 0 ? __ldg(p) : 0.f, 0.f);
+  return make_float2(n > 0 ? __ldg(p) : 0.f, n > 1 ? __ldg(p + 1) : 0.f);
+}
+
+// The rows whose indices lanes 0..RS/NWARP-1 hold in idx: 2 columns a lane
+// from xm on, of which nreal are real (all of them where full).
+__device__ __forceinline__ void load_rows(float2 (&v)[RS / NWARP], const float* xm, int idx,
+                                          int D, bool full, int nreal) {
+  if (full) {
+#pragma unroll
+    for (int u = 0; u < RS / NWARP; ++u) {
+      const int r = __shfl_sync(0xffffffffu, idx, u);
+      v[u] = __ldg(reinterpret_cast<const float2*>(xm + (size_t)r * D));
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < RS / NWARP; ++u) {
+      const int r = __shfl_sync(0xffffffffu, idx, u);
+      v[u] = load2(xm + (size_t)r * D, nreal);
+    }
+  }
 }
 
 // Columns [blk NCOL, (blk+1) NCOL) of m's deltas, one of the nb blocks
@@ -515,22 +533,7 @@ __device__ void accumulate_block(const Args& a, const Work& w, int m, int blk, i
   const int q = warp * (RS / NWARP);
   int idx = __ldcg(ord + min(q + lane, B - 1));
   float2 v[RS / NWARP];
-  auto load_rows = [&]() {
-    if (full) {
-#pragma unroll
-      for (int u = 0; u < RS / NWARP; ++u) {
-        const int r = __shfl_sync(0xffffffffu, idx, u);
-        v[u] = __ldg(reinterpret_cast<const float2*>(xm + (size_t)r * D));
-      }
-    } else {
-#pragma unroll
-      for (int u = 0; u < RS / NWARP; ++u) {
-        const int r = __shfl_sync(0xffffffffu, idx, u);
-        v[u] = load2(xm + (size_t)r * D, nreal);
-      }
-    }
-  };
-  load_rows();
+  load_rows(v, xm, idx, D, full, nreal);
   idx = __ldcg(ord + min(RS + q + lane, B - 1));
   for (int p0 = 0; p0 < B; p0 += RS) {
     __syncthreads();  // every warp is done with the previous chunk
@@ -538,7 +541,7 @@ __device__ void accumulate_block(const Args& a, const Work& w, int m, int blk, i
     for (int u = 0; u < RS / NWARP; ++u) staged[(q + u) * 32 + lane] = v[u];
     __syncthreads();
     if (p0 + RS < B) {
-      load_rows();
+      load_rows(v, xm, idx, D, full, nreal);
       idx = __ldcg(ord + min(p0 + 2 * RS + q + lane, B - 1));
     }
     const int s1 = min(hi, p0 + RS);
