@@ -118,7 +118,8 @@ VARIANTS = {
          "      k1_trace[item][2] = k1_mid[blockIdx.x];\n"
          "    }\n"),
         ("#define NT 256 ", f"#define TRACE_ITEMS {TRACE_ITEMS}\n#define NT 256 ")],
-    # the queue of the issue's design: A(0), A(1) C(0), A(2) C(1), ...
+    # the interleaved queue A(0), A(1) C(0), A(2) C(1), ...: each clustering's
+    # accumulate blocks right after the next one's assign items
     "interleaved": [("""  int pos = 0;
   for (int g = 0; g < M; ++g) {
     plan.a0[g] = pos;

@@ -8,7 +8,11 @@ first-index argmin, one-hot counts, per-center sums of the assigned rows
 
 ``fused_assign_update`` launches the CUDA kernel for CUDA tensors and runs
 ``fused_assign_update_ref``, the plain PyTorch version of the same
-function, for CPU tensors. It never falls back from one to the other.
+function, for CPU tensors. It never falls back from one to the other. The
+kernel computes the distances on the tensor cores in 3xTF32 (close to
+fp32) and every sum in a fixed order, so two launches on the same inputs
+give the same bytes. Given each clustering's real width (``dims``), it
+skips the zero padding past it.
 """
 
 from __future__ import annotations

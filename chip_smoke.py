@@ -49,7 +49,6 @@ from acav100m_torch.utils.io import dump_pickle, load_pickle, make_feature_row
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 TF32_TENSOR_FLOPS = 495e12  # dense TF32 on the tensor cores
 AUDIO_DIMS = [64, 128, 256, 512, 128]
 VIDEO_DIMS = [88, 352, 704, 1408, 2304]
@@ -70,7 +69,7 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def bound(nbytes: float, flops: float, rate: float = FP32_FLOPS):
+def bound(nbytes: float, flops: float, rate: float):
     """Least time in ms for the bytes at the memory rate and the operations
     at ``rate``, and which of the two bounds it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
