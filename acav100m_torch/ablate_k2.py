@@ -12,6 +12,10 @@ substitution must match the source, so an edit to the kernel that moves
 what a variant removes makes this script fail instead of timing the wrong
 thing. It also prints ``ptxas``'s register and spill count for each
 variant and the full kernel's most frequent SASS instructions.
+
+K2's bf16 form (``csrc/bottleneck_stage_bf16.cu``) is timed beside it in
+the same way, on bf16 inputs of the same shape, with its own variants; and
+the card's own rate of each form's ``mma.sync`` instruction is measured.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from .ops.bottleneck_kernel import _KEYS, _ptr, bind, fused_stage_ref
 from .profiling import card, time_ms
 
 SRC = cuda_build.CSRC / "bottleneck_stage.cu"
+SRC_BF16 = cuda_build.CSRC / "bottleneck_stage_bf16.cu"
 OUT = cuda_build.BUILD_DIR / "ablate_k2"
 
 # name -> [(text in the source, replacement)]
@@ -88,9 +93,29 @@ VARIANTS = {
 }
 
 
-# The card's own rate for the instruction K2 issues: mma.sync m16n8k8 TF32
-# from registers, 8 independent accumulators a warp, two CTAs of 8 warps
-# an SM, as K2 runs.
+# the bf16 form's variants, on the same plan
+VARIANTS_BF16 = {
+    "full": [],
+    # no tensor-core work: fragments are loaded by ldmatrix, then dropped
+    "no_mma": [(
+        '      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "\n'
+        '      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"\n',
+        '      ""\n')],
+    # product b's (the 3x3's) fragment loads and MMAs gone; staging stays
+    "skip_b": [("mma_chunk<2, 4, KC>(acc, ak", "if (false) mma_chunk<2, 4, KC>(acc, ak")],
+    # staging, barriers and epilogues alone
+    "no_products": [("mma_chunk<3, 4, KA>(", "if (false) mma_chunk<3, 4, KA>("),
+                    ("mma_chunk<2, 4, KC>(", "if (false) mma_chunk<2, 4, KC>(")],
+}
+
+
+# The card's own rate for the instruction each form issues: mma.sync
+# m16n8k8 TF32 and m16n8k16 bf16 from registers, 8 independent accumulators
+# a warp, two CTAs of 8 warps an SM, as K2 runs. (name, PTX, FLOP an MMA)
+MMA_SHAPES = {
+    "m16n8k8 TF32": ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32", 2 * 16 * 8 * 8),
+    "m16n8k16 bf16": ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32", 2 * 16 * 8 * 16),
+}
 MMA_RATE_SRC = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -103,7 +128,7 @@ __global__ void __launch_bounds__(256, 2) mma_rate(float* out, int iters) {
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       asm volatile(
-          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+          "MMA "
           "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
           : "+f"(acc[j][0]), "+f"(acc[j][1]), "+f"(acc[j][2]), "+f"(acc[j][3])
           : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
@@ -118,10 +143,12 @@ extern "C" int launch(void* out, int blocks, int iters, void* stream) {
 """
 
 
-def mma_rate_tflops(nvcc: str) -> float:
-    """TF32 TFLOP/s of mma.sync m16n8k8 alone on this card."""
-    src, lib = OUT / "mma_rate.cu", OUT / "mma_rate.so"
-    src.write_text(MMA_RATE_SRC)
+def mma_rate_tflops(nvcc: str, shape: str) -> float:
+    """TFLOP/s of the mma.sync ``shape`` (a key of MMA_SHAPES) alone on this card."""
+    ptx, flop = MMA_SHAPES[shape]
+    tag = shape.replace(" ", "_")
+    src, lib = OUT / f"mma_rate_{tag}.cu", OUT / f"mma_rate_{tag}.so"
+    src.write_text(MMA_RATE_SRC.replace("MMA", ptx))
     subprocess.run([nvcc, *cuda_build.NVCC_FLAGS, "-o", str(lib), str(src)], check=True)
     fn = ctypes.CDLL(str(lib)).launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -129,38 +156,45 @@ def mma_rate_tflops(nvcc: str) -> float:
     out = torch.empty(blocks * 256, device="cuda")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     ms = time_ms(lambda: cuda_build.check(fn(_ptr(out), blocks, iters, stream), "mma_rate"))
-    return blocks * 8 * iters * 8 * 2 * 16 * 8 * 8 / (ms * 1e-3) / 1e12
+    return blocks * 8 * iters * 8 * flop / (ms * 1e-3) / 1e12
 
 
-def variant_source(subs) -> str:
-    text = SRC.read_text()
+def variant_source(subs, src: Path = SRC) -> str:
+    text = src.read_text()
     for old, new in subs:
         n = text.count(old)
         if n == 0:
-            raise SystemExit(f"ablate_k2: substitution not found in {SRC.name}:\n{old}")
+            raise SystemExit(f"ablate_k2: substitution not found in {src.name}:\n{old}")
         text = text.replace(old, new)
     return text
 
 
+# (source, variants, C entry point, x's dtype) of each form
+FORMS = {"float32": (SRC, VARIANTS, "bottleneck_block", torch.float32),
+         "bf16": (SRC_BF16, VARIANTS_BF16, "bottleneck_block_bf16", torch.bfloat16)}
+
+
 def build_all():
-    """One nvcc per variant, all started together; returns {name: (lib, ptxas line)}."""
+    """One nvcc per variant of each form, all started together; returns
+    {(form, name): (lib, ptxas line)}."""
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = cuda_build.find_nvcc()
     procs = {}
-    for name, subs in VARIANTS.items():
-        src = OUT / f"{name}.cu"
-        src.write_text(variant_source(subs))
-        lib = OUT / f"{name}.so"
-        cmd = [nvcc, *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), lib)
+    for form, (base, variants, _, _) in FORMS.items():
+        for name, subs in variants.items():
+            src = OUT / f"{form}_{name}.cu"
+            src.write_text(variant_source(subs, base))
+            lib = OUT / f"{form}_{name}.so"
+            cmd = [nvcc, *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(src)]
+            procs[form, name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.STDOUT, text=True), lib)
     built = {}
-    for name, (proc, lib) in procs.items():
+    for key, (proc, lib) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise SystemExit(f"ablate_k2: nvcc failed for {name}:\n{log}")
+            raise SystemExit(f"ablate_k2: nvcc failed for {key}:\n{log}")
         regs = re.findall(r"(Used \d+ registers.*|\d+ bytes spill stores.*)", log)
-        built[name] = (lib, "; ".join(regs))
+        built[key] = (lib, "; ".join(regs))
     return built
 
 
@@ -212,22 +246,30 @@ def main() -> int:
             blk.update(pw=rnd(c_in, cout, scale=c_in ** -0.5), pb=rnd(cout, scale=0.1))
         blocks.append(blk)
     x = rnd(n, hw, hw, cin)
-    outs = [torch.empty((n, hw, hw, cout), device=dev) for _ in blocks]
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    ref = fused_stage_ref(x, blocks, 1)
-    full_ms = None
-    for name, (lib, regs) in built.items():
-        fn = bind(ctypes.CDLL(str(lib)))
-        y = run_stage(fn, x, blocks, outs, stream)
-        torch.cuda.synchronize()
-        err = float((y - ref).abs().max() / ref.abs().max())
-        ms = time_ms(lambda: run_stage(fn, x, blocks, outs, stream))
-        full_ms = ms if name == "full" else full_ms
-        print(f"{name:10s} {ms:.4f} ms ({ms - full_ms:+.4f} vs full); "
-              f"err {err:.2e} of max; {regs}")
-    print("full kernel SASS, most frequent:", sass_histogram(built["full"][0]))
-    print(f"mma.sync m16n8k8 TF32 alone: {mma_rate_tflops(cuda_build.find_nvcc()):.1f} "
-          f"TFLOP/s")
+    for form, (_, _, entry, dtype) in FORMS.items():
+        xf = x.to(dtype)
+        bf = [{k: v.to(dtype) if v.dim() > 1 else v for k, v in blk.items()}
+              for blk in blocks]
+        outs = [torch.empty((n, hw, hw, cout), device=dev, dtype=dtype) for _ in blocks]
+        ref = fused_stage_ref(xf, bf, 1).float()
+        full_ms = None
+        for (f, name), (lib, regs) in built.items():
+            if f != form:
+                continue
+            fn = bind(ctypes.CDLL(str(lib)), entry)
+            y = run_stage(fn, xf, bf, outs, stream)
+            torch.cuda.synchronize()
+            err = float((y.float() - ref).abs().max() / ref.abs().max())
+            ms = time_ms(lambda: run_stage(fn, xf, bf, outs, stream))
+            full_ms = ms if name == "full" else full_ms
+            print(f"{form:7s} {name:15s} {ms:.4f} ms ({ms - full_ms:+.4f} vs full); "
+                  f"err {err:.2e} of max; {regs}")
+        print(f"{form} full kernel SASS, most frequent:",
+              sass_histogram(built[form, "full"][0]))
+    for shape in MMA_SHAPES:
+        print(f"mma.sync {shape} alone: "
+              f"{mma_rate_tflops(cuda_build.find_nvcc(), shape):.1f} TFLOP/s")
     return 0
 
 

@@ -4,6 +4,12 @@ Same semantics as ``acav100m_tpu/models/__init__.py`` (reference
 ``feature_extraction/code/models/__init__.py:19-81``): models register
 under an underscored name and expose ``output_dims``, ``model_tag`` and
 ``media_type``; ``get_model(name)`` looks them up.
+
+The models compute in float32 or bfloat16 (``dtype``, the JAX package's
+``computation.dtype``) and keep their parameters in float32 either way, as
+flax keeps ``param_dtype`` float32: ``in_dtype`` applies a conv or linear
+layer in its input's dtype, casting the weights at the call, as flax's
+``nn.Conv(dtype=...)`` and ``nn.Dense(dtype=...)`` cast their kernels.
 """
 
 from __future__ import annotations
@@ -11,7 +17,10 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 _REGISTRY: Dict[str, type] = {}
 
@@ -40,6 +49,27 @@ def get_model(name: str):
 def model_names():
     _load_all()
     return sorted(_REGISTRY)
+
+
+def compute_dtype(dtype) -> torch.dtype:
+    """``"float32"``, ``"bfloat16"`` (or the torch dtypes) -> torch dtype;
+    raises on any other, which the port does not compute in."""
+    if isinstance(dtype, torch.dtype) and dtype in DTYPES.values():
+        return dtype
+    if dtype is None or isinstance(dtype, str) and dtype in DTYPES:
+        return DTYPES[dtype or "float32"]
+    raise NotImplementedError(f"dtype {dtype}: the port computes in "
+                              f"{' or '.join(DTYPES)}")
+
+
+def in_dtype(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``mod`` (a Conv2d, Conv3d or Linear) applied to ``x`` in x's dtype,
+    its float32 weight and bias cast to it."""
+    w = mod.weight.to(x.dtype)
+    b = None if mod.bias is None else mod.bias.to(x.dtype)
+    if isinstance(mod, nn.Linear):
+        return F.linear(x, w, b)
+    return mod._conv_forward(x, w, b)
 
 
 def _trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:

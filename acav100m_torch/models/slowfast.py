@@ -24,17 +24,31 @@ stage — ``s2`` on the slow pathway only, where ``slowfast.py:951-952``
 routes its Pallas stage — runs as kernel K2 (``ops.bottleneck_kernel``)
 with BN folded into the conv weights once in eval mode; on CPU tensors K2's
 plain version runs instead. Every other stage is the canonical graph.
+
+``dtype`` (float32 or bfloat16) is the compute dtype, as the JAX package's
+``LayerSlowFast(dtype=...)``: the frames are normalized in float32, then
+every conv, BN and ReLU runs in it and the taps come out in it. Parameters
+stay float32 (flax's ``param_dtype``); each conv casts its weight at the
+call (``models.in_dtype``) and BN computes in float32 on the input and
+rounds to the input's dtype, as flax's ``nn.BatchNorm(dtype=...)`` does. K2
+folds BN in float32 and takes its weight matrices in the compute dtype and
+its biases in float32, as the JAX ``PallasStage`` does.
+
+``fast_block`` is the JAX package's per-stage blocked-T schedule of the
+fast pathway: the same function in another layout (JAX
+``slowfast.py:298-316``), so the port validates it and runs the canonical
+graph for every schedule.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from . import register_model
+from . import compute_dtype, in_dtype, register_model
 from ..ops.bottleneck_kernel import fold_bn, fused_stage
 
 LAYER_DIMS = [88, 352, 704, 1408, 2304]
@@ -69,7 +83,7 @@ class ResNetBasicStem(nn.Module):
         self.pool_layer = nn.MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1))
 
     def forward(self, x):
-        return self.pool_layer(self.relu(self.bn(self.conv(x))))
+        return self.pool_layer(self.relu(self.bn(in_dtype(self.conv, x))))
 
 
 class VideoModelStem(nn.Module):
@@ -93,7 +107,7 @@ class FuseFastToSlow(nn.Module):
         self.relu = nn.ReLU(inplace=True)
 
     def forward(self, slow, fast):
-        f2s = self.relu(self.bn(self.conv_f2s(fast)))
+        f2s = self.relu(self.bn(in_dtype(self.conv_f2s, fast)))
         return torch.cat([slow, f2s], dim=1), fast
 
 
@@ -112,9 +126,9 @@ class BottleneckTransform(nn.Module):
         self.c_bn = _bn(dim_out)
 
     def forward(self, x):
-        x = torch.relu(self.a_bn(self.a(x)))
-        x = torch.relu(self.b_bn(self.b(x)))
-        return self.c_bn(self.c(x))
+        x = torch.relu(self.a_bn(in_dtype(self.a, x)))
+        x = torch.relu(self.b_bn(in_dtype(self.b, x)))
+        return self.c_bn(in_dtype(self.c, x))
 
 
 class ResBlock(nn.Module):
@@ -128,7 +142,8 @@ class ResBlock(nn.Module):
         self.branch2 = BottleneckTransform(dim_in, dim_out, dim_inner, kt, stride)
 
     def forward(self, x):
-        shortcut = self.branch1_bn(self.branch1(x)) if hasattr(self, "branch1") else x
+        shortcut = (self.branch1_bn(in_dtype(self.branch1, x)) if hasattr(self, "branch1")
+                    else x)
         return torch.relu(shortcut + self.branch2(x))
 
     def folded(self) -> Dict[str, torch.Tensor]:
@@ -177,16 +192,24 @@ class ResStage(nn.Module):
     def _blocks(self, p: int) -> List[ResBlock]:
         return [getattr(self, f"pathway{p}_res{i}") for i in range(self.num_blocks)]
 
-    def _folded(self) -> List[Dict[str, torch.Tensor]]:
-        """The slow blocks' BN-folded weights. In eval mode they are folded
-        once and kept until the weights are loaded, moved or cast, or the
-        module changes mode."""
+    def _fold(self, dtype: torch.dtype) -> List[Dict[str, torch.Tensor]]:
+        """BN folded in float32, then the weight matrices (not the biases)
+        cast to the compute dtype, as the JAX kernel's ``add_w`` casts them."""
+        return [{k: v.to(dtype) if v.dim() > 1 else v for k, v in blk.folded().items()}
+                for blk in self._blocks(0)]
+
+    def _folded(self, dtype: torch.dtype) -> List[Dict[str, torch.Tensor]]:
+        """The slow blocks' BN-folded weights for K2 in ``dtype``. In eval
+        mode they are folded once per dtype and kept until the weights are
+        loaded, moved or cast, or the module changes mode."""
         if self.training:
-            return [blk.folded() for blk in self._blocks(0)]
+            return self._fold(dtype)
         if self._folded_cache is None:
+            self._folded_cache = {}
+        if dtype not in self._folded_cache:
             with torch.inference_mode(False), torch.no_grad():
-                self._folded_cache = [blk.folded() for blk in self._blocks(0)]
-        return self._folded_cache
+                self._folded_cache[dtype] = self._fold(dtype)
+        return self._folded_cache[dtype]
 
     def train(self, mode: bool = True):
         self._folded_cache = None
@@ -204,7 +227,7 @@ class ResStage(nn.Module):
         """Kernel K2 on folded frames: (B,C,T,H,W) -> NHWC -> back."""
         b, c, t, h, w = x.shape
         frames = x.permute(0, 2, 3, 4, 1).reshape(b * t, h, w, c)
-        y = fused_stage(frames, self._folded(), stride=self.stride)
+        y = fused_stage(frames, self._folded(x.dtype), stride=self.stride)
         return y.reshape(b, t, *y.shape[1:]).permute(0, 4, 1, 2, 3)
 
     def forward(self, slow, fast):
@@ -219,15 +242,33 @@ class ResStage(nn.Module):
 
 
 def _pool_all(slow, fast):
-    """Global mean over (T,H,W), pathways concatenated."""
+    """Global mean over (T,H,W), pathways concatenated, in the compute
+    dtype (JAX ``slowfast.py:867``)."""
     return torch.cat([slow.mean(dim=(2, 3, 4)), fast.mean(dim=(2, 3, 4))], dim=-1)
 
 
-class SlowFastBackbone(nn.Module):
-    """Returns the 5 layer taps; inputs slow (B,3,T/4,H,W), fast (B,3,T,H,W)."""
+def check_fast_block(fast_block: Optional[Sequence[int]]) -> Tuple[int, ...]:
+    """The JAX package's ``fast_block`` (None, or 5 frame counts for s1..s5,
+    0 or 1 meaning the canonical layout) -> a tuple of 5; raises on anything
+    else. JAX takes the blocked layout where some count is above 1 and every
+    count divides T, and falls back to the canonical one otherwise; both are
+    the same function, which the port computes in the canonical layout."""
+    fb = tuple(fast_block or (0,) * 5)
+    if len(fb) != 5 or not all(isinstance(f, (int, np.integer)) and not isinstance(f, bool)
+                               and f >= 0 for f in fb):
+        raise ValueError(f"fast_block takes 5 frame counts >= 0 (s1..s5), got {fast_block!r}")
+    return tuple(int(f) for f in fb)
 
-    def __init__(self, pallas_stages: bool = True):
+
+class SlowFastBackbone(nn.Module):
+    """Returns the 5 layer taps in ``dtype``; inputs slow (B,3,T/4,H,W),
+    fast (B,3,T,H,W), cast to ``dtype`` on the way in."""
+
+    def __init__(self, pallas_stages: bool = True, dtype=torch.float32,
+                 fast_block: Optional[Sequence[int]] = None):
         super().__init__()
+        self.dtype = compute_dtype(dtype)
+        self.fast_block = check_fast_block(fast_block)
         w = 64
         self.s1 = VideoModelStem(w)
         self.s1_fuse = FuseFastToSlow(w // BETA_INV)
@@ -245,7 +286,7 @@ class SlowFastBackbone(nn.Module):
             fast_in = dim_out // BETA_INV
 
     def forward(self, slow, fast) -> List[torch.Tensor]:
-        slow, fast = self.s1(slow, fast)
+        slow, fast = self.s1(slow.to(self.dtype), fast.to(self.dtype))
         slow, fast = self.s1_fuse(slow, fast)
         taps = [_pool_all(slow, fast)]  # 88
         for si in range(4):
@@ -279,11 +320,13 @@ class LayerSlowFast(SlowFastBackbone):
     model_tag = {"name": "SLOWFAST_8x8_R50", "dataset": "kinetics-400"}
     media_type = "video"
 
-    def __init__(self, pallas_stages: bool = True):
-        super().__init__(pallas_stages=pallas_stages)
+    def __init__(self, pallas_stages: bool = True, dtype=torch.float32,
+                 fast_block: Optional[Sequence[int]] = None):
+        super().__init__(pallas_stages=pallas_stages, dtype=dtype, fast_block=fast_block)
         self.eval()
 
     def forward(self, frames: torch.Tensor) -> List[torch.Tensor]:
+        """uint8 frames (B,T,H,W,3) -> the 5 taps (B, dim) in ``dtype``."""
         slow, fast = pack_pathways(normalize_frames(frames))
         to_ncdhw = (0, 4, 1, 2, 3)
         return SlowFastBackbone.forward(

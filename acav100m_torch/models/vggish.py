@@ -12,6 +12,12 @@ names (``features.{0,3,6,8,11,13}``, ``embeddings.{0,2,4}``):
 ``LayerVggish`` taps each pool block (spatial mean -> [64,128,256,512])
 and the 128-d embedding, then takes masked means over the 0.96 s examples
 of each clip (``vggish.py:92-112``).
+
+``dtype`` (float32 or bfloat16) is the compute dtype of the conv stack and
+the embeddings, as the JAX ``VGGishBackbone.dtype`` (``vggish.py:42-66``):
+parameters stay float32 and each layer casts its weights at the call
+(``models.in_dtype``). The log-mel front end stays float32, and so do the
+masked example means, taken against a float32 mask as JAX takes them.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import register_model
+from . import compute_dtype, in_dtype, register_model
 from ..ops import melspec
 
 LAYER_DIMS = [64, 128, 256, 512, 128]
@@ -56,10 +62,12 @@ def _features() -> nn.Sequential:
 
 class VGGishBackbone(nn.Module):
     """features + embeddings; returns per-block spatial means and the
-    embedding. Input (N, 1, 96, 64) log-mel examples."""
+    embedding in ``dtype``. Input (N, 1, 96, 64) log-mel examples, cast to
+    ``dtype`` on the way in."""
 
-    def __init__(self):
+    def __init__(self, dtype=torch.float32):
         super().__init__()
+        self.dtype = compute_dtype(dtype)
         self.features = _features()
         self.embeddings = nn.Sequential(
             nn.Linear(512 * 4 * 6, 4096), nn.ReLU(inplace=True),
@@ -69,13 +77,16 @@ class VGGishBackbone(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         taps: List[torch.Tensor] = []
+        x = x.to(self.dtype)
         for layer in self.features:
-            x = layer(x)
+            x = in_dtype(layer, x) if isinstance(layer, nn.Conv2d) else layer(x)
             if isinstance(layer, nn.MaxPool2d):
                 taps.append(x.mean(dim=(2, 3)))
         # (H, W, C) flattening, as torchvggish (vggish.py:119-124)
-        flat = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        taps.append(self.embeddings(flat))
+        h = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        for layer in self.embeddings:
+            h = in_dtype(layer, h) if isinstance(layer, nn.Linear) else layer(h)
+        taps.append(h)
         return taps
 
 
@@ -90,8 +101,8 @@ class LayerVggish(VGGishBackbone):
     model_tag = {"name": "VGGish", "dataset": "YouTube-8M"}
     media_type = "audio"
 
-    def __init__(self):
-        super().__init__()
+    def __init__(self, dtype=torch.float32):
+        super().__init__(dtype=dtype)
         self.eval()
 
     def forward(self, audio: torch.Tensor,
@@ -100,8 +111,9 @@ class LayerVggish(VGGishBackbone):
         examples = melspec.vggish_examples(audio)  # (B, N, 96, 64)
         n = examples.shape[1]
         taps = VGGishBackbone.forward(self, examples.reshape(b * n, 1, 96, 64))
+        # the mask is in the examples' float32, so the means are float32
         if valid_samples is None:
-            mask = torch.ones((b, n, 1), dtype=audio.dtype, device=audio.device)
+            mask = torch.ones((b, n, 1), dtype=examples.dtype, device=audio.device)
         else:
             mask = melspec.example_valid_mask(valid_samples, s)[..., None]
         denom = torch.clamp(mask.sum(1), min=1.0)  # (B, 1)

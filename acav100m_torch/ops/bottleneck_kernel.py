@@ -1,5 +1,6 @@
 """Kernel K2: a kt=1 ResNet bottleneck stage on folded frames
-(``csrc/bottleneck_stage.cu``).
+(``csrc/bottleneck_stage.cu``, float32, and ``csrc/bottleneck_stage_bf16.cu``,
+bfloat16).
 
 The port of ``acav100m_tpu/ops/pallas/bottleneck_kernel.py::fused_stage``.
 Frames are folded into the batch (N = batch * time, NHWC). BN is folded
@@ -11,16 +12,29 @@ into the conv weights (``fold_bn``). Each block computes
 with a projection shortcut ``x[::s, ::s] . pw + pb`` where the block has
 ``pw`` (block 0) and the identity otherwise. The stride applies to block 0.
 
-``fused_stage`` launches the CUDA kernel once per block for CUDA tensors
-and runs ``fused_stage_ref``, the plain PyTorch version, for CPU tensors.
-The kernel runs the block's three products on the tensor cores
-(``mma.sync`` TF32) in 3xTF32: each fp32 operand is split into two TF32
-parts and each product issued three times, which keeps the result within
-a few 1e-6 of the fp32 plain version's max, where one TF32 product misses
-by about 4e-4 (TF32 off in the comparison). It takes float32 NHWC frames
-with input channels in multiples of 4, 32 or 64 inner channels and output
-channels in multiples of 32; each CTA owns an 8 x 16 output tile (4 x 8 at
-stride 2). It raises on anything else.
+The stage runs in the dtype of x, in one of two forms, as the TPU kernel
+does:
+
+* float32: everything in float32. The CUDA kernel runs the block's three
+  products on the tensor cores (``mma.sync`` TF32) in 3xTF32: each fp32
+  operand is split into two TF32 parts and each product issued three times,
+  which keeps the result within a few 1e-6 of the fp32 plain version's max,
+  where one TF32 product misses by about 4e-4 (TF32 off in the comparison).
+* bfloat16: x, the weight matrices (``aw``, ``bw``, ``cw``, ``pw``), ``a``,
+  ``b`` and the output in bf16; the biases in float32; every product and
+  the 3x3's nine taps summed in float32; the projection shortcut kept in
+  float32 after its bias and the identity shortcut widened to float32.
+  ``a`` and ``b`` are rounded to bf16 after bias and ReLU, the output after
+  the shortcut and ReLU (the TPU kernel's lines 91-101). The CUDA kernel
+  runs each product as bf16 ``mma.sync`` m16n8k16 with f32 sums.
+
+``fused_stage`` launches the form's CUDA kernel once per block for CUDA
+tensors and runs ``fused_stage_ref``, the plain PyTorch version, for CPU
+tensors. The kernels take NHWC frames with input channels in multiples of
+4 (float32) or 8 (bf16), 32 or 64 inner channels and output channels in
+multiples of 32; each CTA owns an 8 x 16 output tile (4 x 8 at stride 2).
+They raise on anything else. Each form counts its own launches:
+``fused_stage.launches`` (float32) and ``fused_stage_bf16.launches``.
 """
 
 from __future__ import annotations
@@ -45,20 +59,27 @@ def fold_bn(scale, bias, mean, var, eps: float = 1e-5):
 
 
 def _block_ref(h: Tensor, blk: Dict[str, Tensor], s: int) -> Tensor:
+    """One block in the dtype of h: float32 products and sums on widened
+    operands, rounded back to h's dtype where the TPU kernel rounds (a
+    no-op in float32)."""
+    dt = h.dtype
+    hf = h.float()
+    w = {k: v.float() for k, v in blk.items()}
     if "pw" in blk:
-        shortcut = h[:, ::s, ::s, :] @ blk["pw"] + blk["pb"]
+        shortcut = hf[:, ::s, ::s, :] @ w["pw"] + w["pb"]
     else:
-        shortcut = h
-    a = torch.relu(h @ blk["aw"] + blk["ab"])
-    b = F.conv2d(a.permute(0, 3, 1, 2), blk["bw"].permute(3, 2, 0, 1),
+        shortcut = hf
+    a = torch.relu(hf @ w["aw"] + w["ab"]).to(dt).float()
+    b = F.conv2d(a.permute(0, 3, 1, 2), w["bw"].permute(3, 2, 0, 1),
                  stride=s, padding=1).permute(0, 2, 3, 1)
-    b = torch.relu(b + blk["bb"])
-    return torch.relu(b @ blk["cw"] + blk["cb"] + shortcut)
+    b = torch.relu(b + w["bb"]).to(dt).float()
+    return torch.relu(b @ w["cw"] + w["cb"] + shortcut).to(dt)
 
 
 def fused_stage_ref(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
                     stride: int = 1) -> Tensor:
-    """Plain PyTorch version: (N, H, W, Cin) -> (N, H/s, W/s, Cout)."""
+    """Plain PyTorch version: (N, H, W, Cin) -> (N, H/s, W/s, Cout), in the
+    dtype of x (float32 or bfloat16)."""
     h = x
     for i, blk in enumerate(blocks):
         h = _block_ref(h, blk, stride if i == 0 else 1)
@@ -69,9 +90,15 @@ def _ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def bind(lib: ctypes.CDLL):
-    """``lib``'s C launcher ``bottleneck_block`` with its signature."""
-    fn = lib.bottleneck_block
+# the launcher of each form: its source in csrc/ and its C entry point
+_LAUNCHERS = {torch.float32: ("bottleneck_stage", "bottleneck_block"),
+              torch.bfloat16: ("bottleneck_stage_bf16", "bottleneck_block_bf16")}
+
+
+def bind(lib: ctypes.CDLL, entry: str = "bottleneck_block"):
+    """``lib``'s C launcher ``entry`` with its signature (both forms share
+    it)."""
+    fn = getattr(lib, entry)
     fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
@@ -79,11 +106,14 @@ def bind(lib: ctypes.CDLL):
 
 
 @functools.lru_cache(maxsize=None)
-def _bind():
-    return bind(cuda_build.load("bottleneck_stage"))
+def _bind(dtype: torch.dtype):
+    name, entry = _LAUNCHERS[dtype]
+    return bind(cuda_build.load(name), entry)
 
 
-def _check_block(blk: Dict[str, Tensor], cin: int, dev) -> None:
+def _check_block(blk: Dict[str, Tensor], cin: int, dev) -> torch.dtype:
+    """Raise unless the kernel takes this block; returns its form's dtype.
+    A block is all float32, or bf16 weight matrices with float32 biases."""
     inner = blk["aw"].shape[1]
     cout = blk["cw"].shape[1]
     shapes = {"aw": (cin, inner), "ab": (inner,), "bw": (3, 3, inner, inner),
@@ -92,34 +122,30 @@ def _check_block(blk: Dict[str, Tensor], cin: int, dev) -> None:
         shapes.update(pw=(cin, cout), pb=(cout,))
     elif cin != cout:
         raise ValueError(f"identity shortcut needs Cin == Cout, got {cin}, {cout}")
+    dtype = blk["aw"].dtype
+    if dtype not in _LAUNCHERS:
+        raise ValueError(f"the kernel takes float32 or bfloat16 weights, got {dtype}")
     for key, shape in shapes.items():
         t = blk[key]
         if tuple(t.shape) != shape:
             raise ValueError(f"{key} has shape {tuple(t.shape)}, expected {shape}")
-        if (t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
+        want = dtype if t.dim() > 1 else torch.float32
+        if (t.device != dev or t.dtype != want or not t.is_contiguous()
                 or t.data_ptr() % 16):
-            raise ValueError(f"{key} must be a contiguous, 16-byte aligned float32 "
-                             f"tensor on {dev}")
-    if cin % 4 or inner not in (32, 64) or cout % 32:
-        raise ValueError(f"the kernel takes input channels in multiples of 4, 32 or "
-                         f"64 inner channels and output channels in multiples of 32, "
-                         f"got {cin}, {inner}, {cout}")
+            raise ValueError(f"{key} must be a contiguous, 16-byte aligned {want} "
+                             f"tensor on {dev}, got {t.dtype} on {t.device}")
+    align = 8 if dtype == torch.bfloat16 else 4  # 16-byte cp.async rows of x
+    if cin % align or inner not in (32, 64) or cout % 32:
+        raise ValueError(f"the kernel takes input channels in multiples of {align}, "
+                         f"32 or 64 inner channels and output channels in multiples "
+                         f"of 32, got {cin}, {inner}, {cout}")
+    return dtype
 
 
-def fused_stage(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
-                stride: int = 1) -> Tensor:
-    """Run a kt=1 bottleneck stage over folded frames x (N, H, W, Cin).
-    CUDA tensors launch K2 once per block; CPU tensors take the plain
-    version."""
-    if x.dim() != 4:
-        raise ValueError(f"x must be (N, H, W, C), got {tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return fused_stage_ref(x, blocks, stride)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"kernel K2 takes float32, got {x.dtype}")
-    fn = _bind()
+def _launch(x: Tensor, blocks: Sequence[Dict[str, Tensor]], stride: int, counter) -> Tensor:
+    """Launch the kernel of x's form once per block; ``counter.launches``
+    counts them."""
+    fn = _bind(x.dtype)
     h = x.contiguous()
     if h.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
@@ -130,19 +156,56 @@ def fused_stage(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
             n, hh, ww, cin = h.shape
             if hh % s or ww % s:
                 raise ValueError(f"frame {hh}x{ww} not divisible by stride {s}")
-            _check_block(blk, cin, x.device)
+            if _check_block(blk, cin, x.device) != x.dtype:
+                raise ValueError(f"{x.dtype} frames need {x.dtype} weight matrices, "
+                                 f"got {blk['aw'].dtype}")
             inner, cout = blk["aw"].shape[1], blk["cw"].shape[1]
             th, tw = (8, 16) if s == 1 else (4, 8)  # output tile; pixels a multiple of 32
-            out = torch.empty((n, hh // s, ww // s, cout), device=x.device,
-                              dtype=torch.float32)
+            out = torch.empty((n, hh // s, ww // s, cout), device=x.device, dtype=x.dtype)
             err = fn(_ptr(h), n, hh, ww, cin,
                      *(_ptr(blk[k]) for k in _KEYS),
                      _ptr(blk.get("pw")), _ptr(blk.get("pb")),
                      inner, cout, s, th, tw, _ptr(out), stream)
-            cuda_build.check(err, "bottleneck_block")
-            fused_stage.launches += 1
+            cuda_build.check(err, _LAUNCHERS[x.dtype][1])
+            counter.launches += 1
             h, s = out, 1
     return h
 
 
+def _device(x: Tensor) -> str:
+    if x.dim() != 4:
+        raise ValueError(f"x must be (N, H, W, C), got {tuple(x.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type
+
+
+def fused_stage(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
+                stride: int = 1) -> Tensor:
+    """Run a kt=1 bottleneck stage over folded frames x (N, H, W, Cin) in
+    x's dtype. CUDA tensors launch K2's form for that dtype once per block
+    (bfloat16 through ``fused_stage_bf16``); CPU tensors take the plain
+    version."""
+    if _device(x) == "cpu":
+        return fused_stage_ref(x, blocks, stride)
+    if x.dtype == torch.bfloat16:
+        return fused_stage_bf16(x, blocks, stride)
+    if x.dtype != torch.float32:
+        raise ValueError(f"kernel K2 takes float32 or bfloat16, got {x.dtype}")
+    return _launch(x, blocks, stride, fused_stage)
+
+
+def fused_stage_bf16(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
+                     stride: int = 1) -> Tensor:
+    """K2's bfloat16 form: bf16 frames, bf16 weight matrices, float32
+    biases. CUDA tensors launch ``csrc/bottleneck_stage_bf16.cu`` once per
+    block; CPU tensors take the plain version."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"K2's bf16 form takes bfloat16 frames, got {x.dtype}")
+    if _device(x) == "cpu":
+        return fused_stage_ref(x, blocks, stride)
+    return _launch(x, blocks, stride, fused_stage_bf16)
+
+
 fused_stage.launches = 0
+fused_stage_bf16.launches = 0

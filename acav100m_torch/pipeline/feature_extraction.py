@@ -12,7 +12,14 @@ Each batch runs every model on ``computation.device`` under
 slow ``s2`` stage through kernel K2 when ``computation.pallas_stages``,
 default True here), and log-mel -> VGGish taps. The prefetch thread
 decodes the next batch and stages it to the card on a side stream.
-Extraction runs in float32.
+
+``computation.dtype`` is float32 (the default) or bfloat16, in which the
+conv stacks of both models run (K2 in its bf16 form), with float32 weights
+as in the JAX package; the taps are written as float32 either way.
+``computation.fast_block`` (the JAX package's blocked-T fast pathway, a
+layout of the same function) is validated and runs the canonical graph.
+``computation.quant`` and ``equalize_length`` across processes are not
+ported and raise.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from ..data.meta import load_metadata
 from ..data.tar_dataset import Prefetcher, make_loader
 from ..data.video import get_decoder, prepare_clip
 from ..device import resolve_device
-from ..models import get_model, init_weights
+from ..models import compute_dtype, get_model, init_weights
 from ..models import slowfast as slowfast_mod
 from ..models import vggish as vggish_mod
 from ..utils.io import (
@@ -60,7 +67,7 @@ DEFAULTS = {
         "index": 0,
         "total": 1,
         "discard_shards": False,
-        "dtype": "float32",  # only float32 is ported
+        "dtype": "float32",  # 'bfloat16' runs the conv stacks in bf16
         "num_workers": 0,  # decode worker processes (0 = in-process)
         "equalize_length": False,
         "fast_block": None,
@@ -101,12 +108,10 @@ def load_flax_npz(path) -> Dict:
 
 def _check_supported(cfg) -> None:
     c = cfg.computation
-    if (c.dtype or "float32") != "float32":
-        raise NotImplementedError(f"computation.dtype={c.dtype}: only float32 "
-                                  "extraction is ported")
-    if c.fast_block or (c.quant or "none") != "none":
-        raise NotImplementedError("computation.fast_block and computation.quant "
-                                  "are not ported")
+    compute_dtype(c.dtype or "float32")
+    slowfast_mod.check_fast_block(c.fast_block)
+    if (c.quant or "none") != "none":
+        raise NotImplementedError(f"computation.quant={c.quant} is not ported")
     if c.equalize_length and (c.total or 1) > 1:
         raise NotImplementedError("computation.equalize_length is not ported")
 
@@ -115,15 +120,20 @@ def build_models(cfg, device=None):
     """Instantiate the models on ``device``: weights from converted flax
     ``.npz`` trees when ``weights.*_file`` is set, else a seeded init that
     mirrors flax's (lecun-normal kernels, zero biases, BN scale 1, bias 0,
-    mean 0, var 1, every block's final BN scale 0)."""
+    mean 0, var 1, every block's final BN scale 0). The weights are float32
+    whatever ``computation.dtype`` (the JAX package's float32 twin), which
+    the models compute in."""
     _check_supported(cfg)
-    device = resolve_device(cfg.computation.device) if device is None else device
-    seed = cfg.computation.random_seed or 0
+    c = cfg.computation
+    device = resolve_device(c.device) if device is None else device
+    seed = c.random_seed or 0
+    dtype = compute_dtype(c.dtype or "float32")
     models = OrderedDict()
     for name in cfg.models:
         cls = get_model(name)
         video = cls.media_type == "video"
-        model = cls(pallas_stages=bool(cfg.computation.pallas_stages)) if video else cls()
+        model = (cls(pallas_stages=bool(c.pallas_stages), dtype=dtype,
+                     fast_block=c.fast_block) if video else cls(dtype=dtype))
         wfile = cfg.weights.slowfast_file if video else cfg.weights.vggish_file
         if wfile and Path(wfile).is_file():
             if Path(wfile).suffix != ".npz":

@@ -1,17 +1,23 @@
 """Device-time profile of one extract batch on one GPU.
 
-    python -m acav100m_torch.profiling
+    python -m acav100m_torch.profiling [--dtype bfloat16] [--by-shape]
 
 Runs one warm extract batch of 4 synthetic clips through both full-width
-models (32 frames of 256x256, float32, seeded weights, PyTorch's default
-TF32 for cuDNN convolutions) under ``torch.profiler`` (CUDA activity). It
+models (32 frames of 256x256, seeded weights, in float32 with PyTorch's
+default TF32 for cuDNN convolutions, or in bfloat16 as
+``computation.dtype=bfloat16`` runs them) under ``torch.profiler`` (CUDA
+activity). It
 prints the device time by kernel name, the summed device time and the wall
-time, so the device's busy share is their ratio. The kernels' own times at
-the main paths' shapes come from ``chip_smoke.py``.
+time, so the device's busy share is their ratio. With ``--by-shape`` it
+also records input shapes and prints the convolutions' device time by
+input and weight shape (recording shapes adds host time to the wall time).
+The kernels' own times at the main paths' shapes come from
+``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
+import argparse
 import functools
 import itertools
 import statistics
@@ -79,17 +85,23 @@ def time_cold_ms(fn, sets, iters: int = 20, warmup: int = 3, graph: bool = False
     return time_ms(lambda: next(rotation)(), iters, warmup)
 
 
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
+def _device_us(evt, names=("self_device_time_total", "self_cuda_time_total")) -> float:
+    for name in names:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
 
 
-def run(label: str, fn, iters: int = 3, top: int = 16) -> None:
+def _total_device_us(evt) -> float:
+    """Device time of an operator row, the kernels it launched included."""
+    return _device_us(evt, ("device_time_total", "cuda_time_total"))
+
+
+def run(label: str, fn, iters: int = 3, top: int = 16, by_shape: bool = False) -> None:
     fn()  # warm: builds kernels, picks cuDNN algorithms
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=by_shape) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -107,16 +119,30 @@ def run(label: str, fn, iters: int = 3, top: int = 16) -> None:
           f"({100 * busy_us / wall_us:.1f}%)")
     for e in events[:top]:
         print(f"   {_device_us(e) / iters:10.1f} us  x{e.count // iters:<4d} {e.key[:90]}")
+    if by_shape:
+        convs = [e for e in prof.key_averages(group_by_input_shape=True)
+                 if e.key == "aten::convolution"]
+        convs.sort(key=_total_device_us, reverse=True)
+        print("   convolutions by (input, weight) shape:")
+        for e in convs[:top]:
+            print(f"   {_total_device_us(e) / iters:10.1f} us  x{e.count // iters:<4d} "
+                  f"{e.input_shapes[:2]}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="device time of one warm extract batch")
+    ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
+                    help="the models' compute dtype (computation.dtype)")
+    ap.add_argument("--by-shape", action="store_true",
+                    help="also print the convolutions' device time by shape")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     print(card())
     with torch.inference_mode():
-        sf, vg = LayerSlowFast(), LayerVggish()
+        sf, vg = LayerSlowFast(dtype=args.dtype), LayerVggish(dtype=args.dtype)
         init_weights(sf, gen)
         init_weights(vg, gen)
         sf.to(dev).eval()
@@ -125,8 +151,8 @@ def main() -> int:
                                dtype=torch.uint8).to(dev)
         audio = (0.1 * torch.randn((4, 160000), generator=gen)).to(dev)
         valid = torch.full((4,), 160000, device=dev)
-        run("extract batch (4 clips, SlowFast + VGGish)",
-            lambda: (sf(frames), vg(audio, valid)))
+        run(f"extract batch (4 clips, SlowFast + VGGish, {args.dtype})",
+            lambda: (sf(frames), vg(audio, valid)), by_shape=args.by_shape)
     return 0
 
 

@@ -8,10 +8,15 @@ Phases, each printing its own lines:
    per source, started together) and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version at the main paths'
    shapes (TF32 off), and time kernel, plain version and library yardstick
-   with CUDA events around back-to-back calls;
+   with CUDA events around back-to-back calls; K2 in both forms, float32
+   and bfloat16;
 3. main path A through the port's CLI: ``fixtures`` (2 shards x 8 clips,
    32 frames of 256x256) -> ``extract`` (SlowFast 8x8 R50 + VGGish at full
    width, float32, seeded random weights) -> ``cluster`` -> ``select``;
+   then path A-bf16 on the same clips, in the JAX package's headline
+   configuration (``computation.dtype=bfloat16
+   computation.fast_block=[4,4,4,4,4]``): ``extract`` -> ``cluster`` ->
+   ``select``, its taps held against path A's;
 4. main path B at production widths: ``cluster`` (K=32, B=1024) ->
    ``select`` on 2 shards x 1024 synthetic feature rows.
 
@@ -22,6 +27,7 @@ device it exits at once and prints no result.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import shutil
@@ -37,7 +43,7 @@ from acav100m_torch.ablate_k1 import COLD_SETS, TAP_DIMS, k1_inputs
 from acav100m_torch.models import init_weights
 from acav100m_torch.models.slowfast import LayerSlowFast, ResBlock
 from acav100m_torch.ops import cuda_build
-from acav100m_torch.ops.bottleneck_kernel import fused_stage, fused_stage_ref
+from acav100m_torch.ops.bottleneck_kernel import fused_stage, fused_stage_bf16, fused_stage_ref
 from acav100m_torch.ops.kmeans_kernel import (
     discounted_distances,
     fused_assign_update,
@@ -50,6 +56,7 @@ ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 TF32_TENSOR_FLOPS = 495e12  # dense TF32 on the tensor cores
+BF16_TENSOR_FLOPS = 989e12  # dense bf16 on the tensor cores
 AUDIO_DIMS = [64, 128, 256, 512, 128]
 VIDEO_DIMS = [88, 352, 704, 1408, 2304]
 KERNELS = [
@@ -57,7 +64,10 @@ KERNELS = [
      "acav100m_tpu/ops/pallas/kmeans_kernel.py:85"),
     ("bottleneck_stage", fused_stage,
      "acav100m_tpu/ops/pallas/bottleneck_kernel.py:116"),
+    ("bottleneck_stage_bf16", fused_stage_bf16,
+     "acav100m_tpu/ops/pallas/bottleneck_kernel.py:116"),
 ]
+HEADLINE = ["computation.dtype=bfloat16", "computation.fast_block=[4,4,4,4,4]"]
 
 
 def log(msg: str) -> None:
@@ -225,6 +235,75 @@ def check_k2(gen: torch.Generator) -> dict:
     return result
 
 
+def to_bf16(blocks):
+    """K2's bf16 form of float32 folded blocks: weight matrices in bf16,
+    biases float32, as the model's ``ResStage`` hands them over."""
+    return [{k: v.to(torch.bfloat16) if v.dim() > 1 else v for k, v in blk.items()}
+            for blk in blocks]
+
+
+def check_k2_bf16(gen: torch.Generator) -> dict:
+    """K2's bf16 form at the path's shape and at stride 2, against its bf16
+    plain version on the same inputs, and against the float32 form on the
+    same bf16-representable inputs."""
+    result = {}
+    for clips, t, hw, stride in ((4, 8, 64, 1), (2, 2, 10, 2)):
+        n, cin = clips * t, 80
+        blocks = random_blocks(cin, stride, gen)
+        with torch.no_grad():
+            folded = to_bf16([blk.folded() for blk in blocks])
+            x = torch.randn((n, hw, hw, cin), generator=gen).cuda().to(torch.bfloat16)
+            out = fused_stage_bf16(x, folded, stride)
+            again = fused_stage_bf16(x, folded, stride)
+            torch.cuda.synchronize()
+            ref = fused_stage_ref(x, folded, stride)
+            # the float32 form on the same values, widened
+            f32 = fused_stage(x.float(), [{k: v.float() for k, v in blk.items()}
+                                          for blk in folded], stride)
+            lib_blocks = [copy.deepcopy(blk).to(torch.bfloat16) for blk in blocks]
+            xc = x.reshape(clips, t, hw, hw, cin).permute(0, 4, 1, 2, 3).contiguous()
+
+            def canonical():
+                h = xc
+                for blk in lib_blocks:
+                    h = blk(h)
+                return h
+
+            can = canonical().permute(0, 2, 3, 4, 1).reshape(out.shape)
+            scale = float(ref.float().abs().max())
+            diff = (out.float() - ref.float()).abs()
+            err, mean = float(diff.max()) / scale, float(diff.mean()) / scale
+            err_f32 = float((out.float() - f32).abs().max()) / scale
+            err_can = float((out.float() - can.float()).abs().max()) / scale
+            same = torch.equal(out, again)
+            log(f"K2-bf16 {n} frames {hw}x{hw} stride {stride}: max err {err:.2e}, mean err "
+                f"{mean:.2e} vs bf16 plain; {err_f32:.2e} vs the float32 form; {err_can:.2e} "
+                f"vs canonical cuDNN stage in bf16 (relative to max |y| {scale:.3f}); two "
+                f"launches bitwise equal: {same}")
+            check(err <= 1.6e-2 and mean <= 1e-3, f"K2-bf16 at {hw}x{hw} stride {stride}")
+            check(same, f"K2-bf16 at {hw}x{hw} stride {stride}: two launches bitwise equal")
+            check(err_f32 <= 3e-2, f"K2-bf16 vs float32 K2 at {hw}x{hw} stride {stride}")
+            check(err_can <= 5e-2, f"K2-bf16 vs canonical bf16 stage at {hw}x{hw}")
+            if stride == 1:
+                ms = time_ms(lambda: fused_stage_bf16(x, folded, stride))
+                plain = time_ms(lambda: fused_stage_ref(x, folded, stride))
+                library = time_ms(canonical)
+                px = n * hw * hw
+                flops = sum(2 * px * v.numel() for blk in folded
+                            for key, v in blk.items() if key.endswith("w"))
+                nbytes = (2 * (x.numel() + out.numel())
+                          + sum(v.numel() * v.element_size()
+                                for blk in folded for v in blk.values()))
+                bound_ms, bound_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+                result = dict(max_abs_err=float(diff.max()), ms=ms, plain_ms=plain,
+                              bound_ms=bound_ms, bound_by=bound_by, library_ms=library)
+                log(f"K2-bf16 s2_slow at {n} frames (4 clips) 64x64, 80->256: {ms:.4f} ms, "
+                    f"plain {plain:.4f} ms, canonical cuDNN stage in bf16 {library:.4f} ms, "
+                    f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, "
+                    f"{nbytes / 1e6:.1f} MB)")
+    return result
+
+
 # -- phases 3 and 4: the main path -------------------------------------------------
 
 def run_stage(verb, *args) -> float:
@@ -234,15 +313,22 @@ def run_stage(verb, *args) -> float:
     return time.time() - t0
 
 
-def check_features(feats: Path, n_rows: int) -> None:
+def check_features(feats: Path, n_rows: int) -> dict:
+    """Checks the feature pkls (row count, tap dims, float32, finite);
+    returns {(filename, side, layer): array}."""
     rows = [r for p in sorted(feats.glob("shard-*.pkl")) for r in load_pickle(p)]
     check(len(rows) == n_rows, f"{n_rows} feature rows, got {len(rows)}")
+    taps = {}
     for row in rows:
         for side, dims in (("audio_features", AUDIO_DIMS), ("video_features", VIDEO_DIMS)):
             arrs = row[side][0]["array"]
             got = [arrs[f"layer_{i}"].shape[-1] for i in range(5)]
             check(got == dims, f"{side} dims {got}")
+            check(all(a.dtype == np.float32 for a in arrs.values()), f"{side} float32")
             check(all(np.isfinite(a).all() for a in arrs.values()), f"{side} finite")
+            for layer, a in arrs.items():
+                taps[row["filename"], side, layer] = a
+    return taps
 
 
 def csv_rows(path: Path) -> int:
@@ -284,7 +370,8 @@ def check_model_paths(clips: Path, gen: torch.Generator) -> None:
     check(max(errs) <= 1e-3, "SlowFast K2 route vs canonical route")
 
 
-def main_path_a(gen: torch.Generator) -> dict:
+def main_path_a(gen: torch.Generator):
+    """Path A in float32; returns its launches and its taps."""
     clips, feats = WORK / "a" / "clips", WORK / "a" / "features"
     clus, out_csv = WORK / "a" / "clusters", WORK / "a" / "output.csv"
     n_clips = 16
@@ -297,7 +384,7 @@ def main_path_a(gen: torch.Generator) -> dict:
     t_ext = run_stage("extract", f"data.media.path={clips}/{spec}.tar",
                       f"data.output.path={feats}", "data.batch_size=4")
     after_extract = counts()
-    check_features(feats, n_clips)
+    taps = check_features(feats, n_clips)
     # 16 clips in batches of 4 give 4 steps an epoch, 16 steps over 4 epochs.
     # Warmup is initial_rounds * k = 10 * 4 = 40 samples, so steps 1-10
     # assign at random and K1 runs from step 11 on.
@@ -315,8 +402,53 @@ def main_path_a(gen: torch.Generator) -> dict:
         f"{rows} csv rows (want {want}); launches {launches}")
     check(rows == want, f"output.csv rows {rows} != {want}")
     check(after_extract["bottleneck_stage"] > 0, "K2 launched by extract")
+    check(after_extract["bottleneck_stage_bf16"] == 0, "K2-bf16 not launched in float32")
     check(after_cluster["kmeans_assign_update"] > 0, "K1 launched by cluster")
     check_model_paths(clips, gen)
+    return launches, taps
+
+
+def main_path_a_bf16(f32_taps: dict) -> dict:
+    """Path A-bf16: path A's clips through extract in the JAX package's
+    headline configuration (bf16, fast_block [4,4,4,4,4]; the same seeded
+    float32 weights), then cluster and select on its float32 pkls. Each bf16
+    tap is held against path A's float32 tap of the same clips within 5e-2 of
+    the tap's max over the clips (the CPU tests measure 1.6e-3 to 7.6e-3 at
+    their small size; path A's convs run in TF32)."""
+    clips, feats = WORK / "a" / "clips", WORK / "a_bf16" / "features"
+    clus, out_csv = WORK / "a_bf16" / "clusters", WORK / "a_bf16" / "output.csv"
+    n_clips = 16
+    spec = "shard-{000000..000001}"
+    reset_counts()
+    t_ext = run_stage("extract", f"data.media.path={clips}/{spec}.tar",
+                      f"data.output.path={feats}", "data.batch_size=4", *HEADLINE)
+    after_extract = counts()
+    taps = check_features(feats, n_clips)
+    t_clu = run_stage("cluster", f"data.path={feats}/{spec}.pkl",
+                      f"data.output.path={clus}", "data.batch_size=4",
+                      "clustering.ncentroids=4", "clustering.epochs=4")
+    t_sel = run_stage("select", f"data.path={clus}/{spec}.pkl",
+                      f"data.output.path={out_csv}", f"data.meta.path={clips}")
+    launches = counts()
+    rows, want = csv_rows(out_csv), round(0.2 * n_clips)
+    check(set(taps) == set(f32_taps), "path A-bf16 rows and taps as path A's")
+    errs = {}
+    for side in ("audio_features", "video_features"):
+        for i in range(5):
+            keys = [k for k in taps if k[1:] == (side, f"layer_{i}")]
+            got = np.stack([taps[k] for k in keys])
+            want_f32 = np.stack([f32_taps[k] for k in keys])
+            errs[side.split("_")[0], i] = float(np.abs(got - want_f32).max()
+                                                / np.abs(want_f32).max())
+    log(f"path A-bf16 ({' '.join(HEADLINE)}): extract {t_ext:.2f} s "
+        f"({n_clips / t_ext:.2f} clips/s); cluster {t_clu:.2f} s; select {t_sel:.2f} s; "
+        f"{rows} csv rows (want {want}); launches {launches}")
+    log("path A-bf16 taps vs path A's float32 taps, max err over the tap's max: "
+        + ", ".join(f"{side}[{i}] {e:.2e}" for (side, i), e in errs.items()))
+    check(rows == want, f"path A-bf16 output.csv rows {rows} != {want}")
+    check(after_extract["bottleneck_stage_bf16"] > 0, "K2-bf16 launched by bf16 extract")
+    check(after_extract["bottleneck_stage"] == 0, "float32 K2 not launched by bf16 extract")
+    check(max(errs.values()) <= 5e-2, "path A-bf16 taps within 5e-2 of path A's")
     return launches
 
 
@@ -413,12 +545,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
-    results = {"kmeans_assign_update": check_k1(gen), "bottleneck_stage": check_k2(gen)}
+    results = {"kmeans_assign_update": check_k1(gen), "bottleneck_stage": check_k2(gen),
+               "bottleneck_stage_bf16": check_k2_bf16(gen)}
     # phase 3: the default precision again (cuDNN convs in TF32)
     torch.backends.cudnn.allow_tf32 = True
     t0 = time.time()
-    launches = main_path_a(gen)
+    launches, f32_taps = main_path_a(gen)
     log(f"path A total {time.time() - t0:.1f} s")
+    t0 = time.time()
+    launches["bottleneck_stage_bf16"] = main_path_a_bf16(f32_taps)["bottleneck_stage_bf16"]
+    log(f"path A-bf16 total {time.time() - t0:.1f} s")
     main_path_b()
     shutil.rmtree(WORK, ignore_errors=True)
     kernels = []

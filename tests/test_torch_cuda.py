@@ -9,7 +9,7 @@ carry the ``cuda`` marker and skip elsewhere. On a machine with the card:
 import pytest
 import torch
 
-from acav100m_torch.ops.bottleneck_kernel import fused_stage, fused_stage_ref
+from acav100m_torch.ops.bottleneck_kernel import fused_stage, fused_stage_bf16, fused_stage_ref
 from acav100m_torch.ops.kmeans_kernel import fused_assign_update, fused_assign_update_ref
 
 pytestmark = pytest.mark.cuda
@@ -94,6 +94,21 @@ def test_k1_train_step_with_dims_matches_without(card):
     assert torch.equal(m1, m2)
 
 
+def _random_blocks(rnd, cin, stride, dtype=torch.float32):
+    """Three BN-folded blocks, 64 inner and 256 output channels; the weight
+    matrices in ``dtype``, the biases float32."""
+    blocks = []
+    for i in range(3):
+        c_in = cin if i == 0 else 256
+        blk = {"aw": rnd(c_in, 64, scale=c_in ** -0.5), "ab": rnd(64, scale=0.1),
+               "bw": rnd(3, 3, 64, 64, scale=(9 * 64) ** -0.5), "bb": rnd(64, scale=0.1),
+               "cw": rnd(64, 256, scale=0.125), "cb": rnd(256, scale=0.1)}
+        if i == 0 and (cin != 256 or stride != 1):
+            blk.update(pw=rnd(c_in, 256, scale=c_in ** -0.5), pb=rnd(256, scale=0.1))
+        blocks.append({k: v.to(dtype) if v.dim() > 1 else v for k, v in blk.items()})
+    return blocks
+
+
 @pytest.mark.parametrize("n,hw,stride,cin,big", [
     (2, 8, 1, 80, 1.0), (2, 6, 2, 80, 1.0), (3, 13, 1, 256, 1.0),
     (2, 18, 1, 80, 1.0),  # the path's width; 18 is cut by neither tile side
@@ -105,15 +120,7 @@ def test_k2_matches_plain(card, n, hw, stride, cin, big):
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(card)
 
-    blocks = []
-    for i in range(3):
-        c_in = cin if i == 0 else 256
-        blk = {"aw": rnd(c_in, 64, scale=c_in ** -0.5), "ab": rnd(64, scale=0.1),
-               "bw": rnd(3, 3, 64, 64, scale=(9 * 64) ** -0.5), "bb": rnd(64, scale=0.1),
-               "cw": rnd(64, 256, scale=0.125), "cb": rnd(256, scale=0.1)}
-        if i == 0 and (cin != 256 or stride != 1):
-            blk.update(pw=rnd(c_in, 256, scale=c_in ** -0.5), pb=rnd(256, scale=0.1))
-        blocks.append(blk)
+    blocks = _random_blocks(rnd, cin, stride)
     x = rnd(n, hw, hw, cin)
     x[..., :4] *= big
     before = fused_stage.launches
@@ -123,3 +130,44 @@ def test_k2_matches_plain(card, n, hw, stride, cin, big):
     assert out.shape == ref.shape
     # 3xTF32 keeps the products near fp32; one TF32 product would miss this
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("n,hw,stride,cin", [
+    (32, 64, 1, 80),  # the main path: s2 slow at 256^2 input, 4 clips of 8 frames
+    (4, 10, 2, 80),   # stride 2, a frame neither tile side cuts
+    (3, 13, 1, 256),  # identity shortcut in block 0, ragged edges
+])
+def test_k2_bf16_matches_plain(card, n, hw, stride, cin):
+    gen = torch.Generator().manual_seed(hw + stride)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(card)
+
+    blocks = _random_blocks(rnd, cin, stride, torch.bfloat16)
+    x = rnd(n, hw, hw, cin).to(torch.bfloat16)
+    before = fused_stage.launches, fused_stage_bf16.launches
+    out = fused_stage(x, blocks, stride)
+    again = fused_stage_bf16(x, blocks, stride)
+    assert (fused_stage.launches, fused_stage_bf16.launches) == (before[0], before[1] + 6)
+    ref = fused_stage_ref(x, blocks, stride)
+    assert out.dtype == ref.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert torch.equal(out, again)
+    diff, scale = (out.float() - ref.float()).abs(), ref.float().abs().max()
+    # 2 bf16 ulps of the output's max: a and b round after f32 sums taken
+    # in another order than the plain version's
+    assert diff.max() <= 1.6e-2 * scale
+    assert diff.mean() <= 1e-3 * scale
+
+
+def test_k2_bf16_refuses_what_it_cannot_take(card):
+    gen = torch.Generator().manual_seed(0)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(card)
+
+    x = rnd(2, 8, 8, 80).to(torch.bfloat16)
+    with pytest.raises(ValueError):  # float32 weight matrices for bf16 frames
+        fused_stage(x, _random_blocks(rnd, 80, 1))
+    with pytest.raises(ValueError):  # input channels not a multiple of 8
+        fused_stage(rnd(2, 8, 8, 84).to(torch.bfloat16),
+                    _random_blocks(rnd, 84, 1, torch.bfloat16))

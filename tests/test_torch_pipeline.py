@@ -117,7 +117,7 @@ def test_build_models_loads_flax_npz(clips, variables, tmp_path):
     assert sd["s2.pathway0_res0.branch2.b_bn.weight"].eq(1).all()
     with pytest.raises(NotImplementedError):
         tfe.build_models(_extract_cfg(tfe, clips, tmp_path, **{
-            "computation.device": "cpu", "computation.dtype": "bfloat16"}))
+            "computation.device": "cpu", "computation.quant": "int8"}))
 
 
 def test_port_cli_end_to_end(extracted):
