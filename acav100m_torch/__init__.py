@@ -13,10 +13,14 @@ Subpackages
 config      nested config with dotted-key overrides (copy)
 device      resolves ``computation.device`` (default ``cuda``)
 utils       braceexpand, shard planning, run manifests, IO schemas (copies)
-data        npz clip decoding, tar shard streaming, prefetch
+data        clip decoders (npz; mp4 through FFmpeg's libraries, the ffmpeg
+            binary or OpenCV), the native tar index, tar shard streaming,
+            pooled spawned decode workers over shared memory, prefetch
 ops         k-means, MI measures, log-mel front end, and the two hand-written
             CUDA kernels (``kmeans_kernel``, ``bottleneck_kernel``)
-models      SlowFast 8x8 R50 and VGGish with PySlowFast/torchvggish names
+models      SlowFast 8x8 R50 and VGGish with PySlowFast/torchvggish names;
+            ``zoo``: PySlowFast, caffe2 and torchvggish checkpoints to the
+            flax npz format (the ``convert`` verb)
 pipeline    stage drivers: extract (4), cluster (5), select (6)
 """
 

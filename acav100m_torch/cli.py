@@ -5,6 +5,7 @@ positional arguments and dotted-key overrides:
     python -m acav100m_torch extract data.media.path=... data.output.path=...
     python -m acav100m_torch cluster data.path=... data.output.path=...
     python -m acav100m_torch select data.path=... data.output.path=...
+    python -m acav100m_torch convert {slowfast,vggish} in_path out_path [--format ...]
 
 Every stage runs on ``computation.device`` (default ``cuda``; pass
 ``computation.device=cpu`` to run on the CPU).
@@ -46,6 +47,15 @@ def cmd_select(args):
 
     out_path, count = run(get_config(_overrides(args.overrides)))
     print(f"Saved Results: added {count} lines to {out_path}")
+
+
+def cmd_convert(args):
+    """torch/caffe2 checkpoint -> flax .npz + sha256 manifest."""
+    from .models.zoo import convert_checkpoint
+
+    manifest = convert_checkpoint(args.model, args.in_path, args.out_path,
+                                  fmt=args.format)
+    print(json.dumps(manifest, indent=1))
 
 
 def write_fixtures(out_dir, num_shards=2, clips_per_shard=4, size=64, seed=0):
@@ -107,6 +117,13 @@ def main(argv=None):
     p.add_argument("--size", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=cmd_fixtures)
+
+    p = sub.add_parser("convert", help="convert a torch/caffe2 checkpoint to flax npz")
+    p.add_argument("model", choices=["slowfast", "vggish"])
+    p.add_argument("in_path")
+    p.add_argument("out_path")
+    p.add_argument("--format", default=None, choices=["pyslowfast", "caffe2", "vggish"])
+    p.set_defaults(fn=cmd_convert)
 
     args = parser.parse_args(argv)
     return args.fn(args)

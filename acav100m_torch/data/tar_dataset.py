@@ -1,16 +1,23 @@
 """Streaming tar shard dataset and batched feed.
 
-The in-process parts of ``acav100m_tpu/data/tar_dataset.py``, copied (the
-port imports nothing of the JAX package):
+A copy of ``acav100m_tpu/data/tar_dataset.py`` (the port imports nothing of
+the JAX package):
 
-* stream tar members shard by shard, join shard metadata, honor per-shard
-  skip lists (resume);
+* stream tar members shard by shard (the native header walk of
+  ``native_tar`` where it builds, else ``tarfile``), join shard metadata,
+  honor per-shard skip lists (resume);
 * decode + prepare each clip (errors skip and continue, the reference's
   ``warn_and_continue``);
+* with ``num_workers`` > 0, decode in spawned worker processes that hand
+  samples over through shared memory, requeuing a dead worker's unfinished
+  shards;
 * assemble static-shape batches (pad the tail batch and mask) behind a
   background prefetch thread.
 
-Pooled decode workers and lock-step padding are not ported.
+Nothing here imports torch: a spawned worker starts from a fresh import of
+this module and must never touch the parent's CUDA context. Lock-step
+padding across processes (``empty_batch``, ``pad_to_length``) is not
+ported.
 """
 
 from __future__ import annotations
@@ -48,6 +55,17 @@ class TarShardDataset:
 
     @staticmethod
     def _iter_members(shard_path):
+        """(filename, bytes) pairs; the native header walk where
+        ``libtario`` builds, else Python tarfile."""
+        from . import native_tar
+
+        index = native_tar.index_tar(shard_path) if native_tar.available() else None
+        if index is not None:
+            for name, offset, size in index:
+                data = native_tar.read_member(shard_path, offset, size)
+                if data is not None:
+                    yield name, data
+            return
         with tarfile.open(shard_path) as tf:
             for member in tf:
                 if member.isfile():
@@ -151,6 +169,203 @@ class Prefetcher:
             yield item
 
 
+def _sample_to_shm(sample: Dict) -> Dict:
+    """Move a decoded sample's arrays into a SharedMemory segment; return a
+    small picklable descriptor.
+
+    A worker hard-killed mid-write could tear a multi-MB pickled sample in
+    the queue's pipe, and the consumer would then block forever on the
+    missing bytes. Pipe writes up to PIPE_BUF are atomic, so the queue
+    carries only this sub-KB descriptor and the ~6 MB of frames and audio
+    ride shared memory.
+    """
+    from multiprocessing import shared_memory
+
+    arrays = {k: np.asarray(v) for k, v in sample.items()
+              if isinstance(v, np.ndarray) or k in ("frames", "audio", "valid_samples")}
+    total = sum(int(a.nbytes) for a in arrays.values())
+    meta = {k: v for k, v in sample.items() if k not in arrays}
+    if total == 0:
+        return {"meta": meta, "shm": None, "layout": []}
+    shm = shared_memory.SharedMemory(create=True, size=total)
+    layout = []
+    offset = 0
+    for key, arr in arrays.items():
+        view = np.ndarray(arr.shape, arr.dtype, buffer=shm.buf, offset=offset)
+        view[...] = arr
+        layout.append((key, str(arr.dtype), arr.shape, offset))
+        offset += int(arr.nbytes)
+    name = shm.name
+    shm.close()
+    return {"meta": meta, "shm": name, "layout": layout}
+
+
+def _sample_from_shm(payload: Dict) -> Dict:
+    """Rebuild a sample from its descriptor; copies out and unlinks."""
+    from multiprocessing import shared_memory
+
+    sample = dict(payload["meta"])
+    if payload["shm"] is None:
+        return sample
+    shm = shared_memory.SharedMemory(name=payload["shm"])
+    try:
+        for key, dtype, shape, offset in payload["layout"]:
+            view = np.ndarray(shape, np.dtype(dtype), buffer=shm.buf, offset=offset)
+            sample[key] = np.array(view)  # own the memory past unlink
+    finally:
+        shm.close()
+        shm.unlink()
+    return sample
+
+
+def _stream_worker(wid, shard_paths, metas, skip_lists, decoder, prepare, q):
+    """Persistent decode worker (a spawned process): streams its shards
+    sample by sample onto the shared bounded queue, with ``shard_done``
+    after each completed shard so the consumer can requeue only the
+    unfinished rest on failure."""
+    try:
+        for shard_path in shard_paths:
+            ds = TarShardDataset([shard_path], metas, skip_lists, decoder, prepare)
+            for sample in ds:
+                q.put(("sample", _sample_to_shm(sample)))
+            q.put(("shard_done", (wid, Path(shard_path).stem)))
+    except Exception as e:  # reported to the consumer, which requeues
+        q.put(("error", (wid, f"{type(e).__name__}: {e}")))
+    finally:
+        q.put(("done", wid))
+
+
+def _pooled_stream(
+    shard_paths: Sequence,
+    metas: Dict,
+    skip_lists: Optional[Dict],
+    decoder: Callable,
+    prepare: Callable,
+    num_workers: int,
+    buffer_samples: int,
+    shard_retries: int = 2,
+    poll_interval: float = 1.0,
+) -> Iterator[Dict]:
+    """Stream samples from ``num_workers`` persistent decode processes.
+
+    At most ``buffer_samples`` decoded clips wait in the queue (each a
+    shared-memory segment, ~6.3 MB at production shapes), whatever the
+    shard size. Arrival is unordered across workers, as with the
+    reference's DataLoader workers.
+
+    When a worker reports an error, or dies without a word (found by
+    polling its liveness), its unfinished shards are requeued onto a new
+    worker, the partly streamed shard resumed exactly once through a skip
+    list of the filenames already delivered. A shard that fails
+    ``shard_retries`` workers in a row is dropped with a warning.
+    """
+    import multiprocessing as mp
+    import queue as queue_mod
+    from collections import defaultdict
+
+    from ..utils.shards import worker_selection
+
+    # spawn, never fork: the parent holds a CUDA context and threads
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue(maxsize=max(buffer_samples, 1))
+    workers: Dict[int, Dict] = {}
+    yielded: Dict[str, set] = defaultdict(set)
+    retry_counts: Dict[str, int] = defaultdict(int)
+    next_wid = 0
+
+    def launch(sub_paths):
+        nonlocal next_wid
+        wid = next_wid
+        next_wid += 1
+        skips = {
+            name: list(set(skip_lists.get(name, []) if skip_lists else [])
+                       | yielded[name])
+            for name in {Path(p).stem for p in sub_paths}
+        }
+        p = ctx.Process(
+            target=_stream_worker,
+            args=(wid, list(sub_paths), metas, skips, decoder, prepare, q),
+            daemon=True,
+        )
+        p.start()
+        workers[wid] = {"proc": p, "shards": list(sub_paths),
+                        "completed": set(), "done": False}
+
+    def handle_failure(wid, reason):
+        st = workers[wid]
+        if st["done"]:
+            return
+        st["done"] = True
+        unfinished = [
+            p for p in st["shards"] if Path(p).stem not in st["completed"]
+        ]
+        requeue = []
+        for p in unfinished:
+            retry_counts[Path(p).stem] += 1
+            if retry_counts[Path(p).stem] > shard_retries:
+                warnings.warn(
+                    f"shard {Path(p).stem} dropped after {shard_retries} "
+                    f"failed decode workers (poison shard?)"
+                )
+            else:
+                requeue.append(p)
+        warnings.warn(
+            f"decode worker {wid} failed ({reason}); requeuing "
+            f"{len(requeue)} unfinished shard(s)"
+        )
+        if requeue:
+            launch(requeue)
+
+    for w in range(num_workers):
+        launch(worker_selection(list(shard_paths), w, num_workers))
+
+    try:
+        while any(not st["done"] for st in workers.values()):
+            try:
+                kind, payload = q.get(timeout=poll_interval)
+            except queue_mod.Empty:
+                for wid, st in list(workers.items()):
+                    if not st["done"] and not st["proc"].is_alive():
+                        handle_failure(wid, "process died without reporting")
+                continue
+            if kind == "sample":
+                sample = _sample_from_shm(payload)
+                yielded[sample["shard_name"]].add(sample["filename"])
+                yield sample
+            elif kind == "shard_done":
+                wid, shard_name = payload
+                workers[wid]["completed"].add(shard_name)
+            elif kind == "error":
+                wid, msg = payload
+                handle_failure(wid, msg)
+            else:  # done
+                workers[payload]["done"] = True
+    finally:
+        for st in workers.values():
+            p = st["proc"]
+            if p.is_alive():
+                p.terminate()
+            p.join(timeout=5)
+        # unlink the segments of samples never delivered (the consumer left
+        # early); those of killed workers are reclaimed by multiprocessing's
+        # resource tracker when the process ends
+        from multiprocessing import shared_memory
+
+        try:
+            while True:
+                kind, payload = q.get_nowait()
+                if kind == "sample" and payload.get("shm"):
+                    try:
+                        seg = shared_memory.SharedMemory(name=payload["shm"])
+                        seg.close()
+                        seg.unlink()
+                    except FileNotFoundError:
+                        pass
+        except queue_mod.Empty:
+            pass
+        q.close()
+
+
 def make_loader(
     shard_paths: Sequence,
     metas: Dict,
@@ -160,14 +375,26 @@ def make_loader(
     prepare: Callable = prepare_clip,
     prefetch: int = 2,
     num_workers: int = 0,
+    buffer_samples: int = 32,
 ) -> Iterable[Dict]:
-    """Batched clip loader, decoded in-process (``num_workers=0``) behind a
-    prefetch thread."""
-    if num_workers:
-        raise NotImplementedError("pooled decode workers are not ported; "
-                                  "use computation.num_workers=0")
-    batches = batched(TarShardDataset(shard_paths, metas, skip_lists, decoder,
-                                      prepare), batch_size)
+    """Batched clip loader.
+
+    ``num_workers`` > 0 decodes the shards in that many spawned worker
+    processes (at most one per shard; shards split round-robin as in the
+    reference's ``worker_urls``), which stream samples through a queue of
+    at most ``buffer_samples`` clips. ``decoder`` and ``prepare`` must then
+    pickle: a decoder instance or module-level function, a
+    ``functools.partial`` of ``prepare_clip``. With 0 workers or a single
+    shard, decoding runs in-process. Either way a background thread keeps
+    ``prefetch`` batches ahead.
+    """
+    if num_workers > 0 and len(shard_paths) > 1:
+        num_workers = min(num_workers, len(shard_paths))
+        source = _pooled_stream(shard_paths, metas, skip_lists, decoder, prepare,
+                                num_workers, buffer_samples)
+    else:
+        source = TarShardDataset(shard_paths, metas, skip_lists, decoder, prepare)
+    batches = batched(source, batch_size)
     if prefetch:
         return Prefetcher(batches, depth=prefetch)
     return batches

@@ -414,3 +414,33 @@ def state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
         put(f"{tkey}.running_var", st["var"])
         sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd
+
+
+def _put(tree: Dict, path, leaf) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = leaf
+
+
+def convert_pyslowfast_state_dict(sd: Dict[str, np.ndarray]) -> Dict:
+    """A PySlowFast state dict (numpy arrays, caffe2 names already
+    translated) -> the JAX package's flax ``{params, batch_stats}`` tree, as
+    ``acav100m_tpu.models.slowfast.convert_pyslowfast_state_dict`` makes it:
+    conv kernels OIDHW -> DHWIO, BN weight/bias/running_mean/running_var ->
+    scale/bias/mean/var. Keys the taps do not use (the head,
+    ``num_batches_tracked``) are ignored; a projection shortcut is taken
+    where the checkpoint has one."""
+    params: Dict = {}
+    stats: Dict = {}
+    for tkey, path, is_conv in _flax_pairs():
+        block = tkey.rsplit(".", 1)[0]
+        if tkey.endswith(("branch1", "branch1_bn")) and f"{block}.branch1.weight" not in sd:
+            continue
+        if is_conv:
+            _put(params, path, {"kernel": np.asarray(sd[f"{tkey}.weight"]).transpose(2, 3, 4, 1, 0)})
+            continue
+        _put(params, path, {"scale": np.asarray(sd[f"{tkey}.weight"]),
+                            "bias": np.asarray(sd[f"{tkey}.bias"])})
+        _put(stats, path, {"mean": np.asarray(sd[f"{tkey}.running_mean"]),
+                           "var": np.asarray(sd[f"{tkey}.running_var"])})
+    return {"params": params, "batch_stats": stats}

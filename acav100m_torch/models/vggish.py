@@ -147,3 +147,17 @@ def state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
         sd[f"{tk}.weight"] = torch.from_numpy(np.ascontiguousarray(w.T))
         sd[f"{tk}.bias"] = torch.from_numpy(np.asarray(params[fk]["bias"]))
     return sd
+
+
+def convert_torch_state_dict(sd: Dict[str, np.ndarray]) -> Dict:
+    """A torch.hub VGGish state dict (numpy arrays) -> the JAX package's flax
+    ``{params}`` tree, as ``acav100m_tpu.models.vggish.convert_torch_state_dict``
+    makes it: conv kernels OIHW -> HWIO, dense kernels (out, in) -> (in, out)."""
+    params = {}
+    for tk, fk in _CONV_KEYS:
+        params[fk] = {"kernel": np.asarray(sd[f"{tk}.weight"]).transpose(2, 3, 1, 0),
+                      "bias": np.asarray(sd[f"{tk}.bias"])}
+    for tk, fk in _FC_KEYS:
+        params[fk] = {"kernel": np.asarray(sd[f"{tk}.weight"]).T,
+                      "bias": np.asarray(sd[f"{tk}.bias"])}
+    return {"params": params}

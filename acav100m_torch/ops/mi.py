@@ -27,7 +27,8 @@ import torch
 Tensor = torch.Tensor
 EPS = float(np.finfo("float64").eps)
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "bfloat16": torch.bfloat16}
 
 
 def resolve_dtype(dtype) -> torch.dtype:
@@ -241,7 +242,7 @@ class BatchGreedySelector:
                 torch.as_tensor(batch_dev, device=self.device),
                 torch.as_tensor(valid_mask, device=self.device))
             top_idx = top_idx.cpu().numpy()
-            top_scores = top_scores.cpu().numpy()
+            top_scores = top_scores.double().cpu().numpy()  # numpy has no bf16
             if b < self.B:
                 keep = top_idx < b
                 top_idx, top_scores = top_idx[keep], top_scores[keep]

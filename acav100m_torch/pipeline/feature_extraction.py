@@ -18,8 +18,14 @@ conv stacks of both models run (K2 in its bf16 form), with float32 weights
 as in the JAX package; the taps are written as float32 either way.
 ``computation.fast_block`` (the JAX package's blocked-T fast pathway, a
 layout of the same function) is validated and runs the canonical graph.
-``computation.quant`` and ``equalize_length`` across processes are not
-ported and raise.
+``data.decoder`` picks the clip decoder (``npz``, ``native`` for mp4 through
+FFmpeg's libraries, ``ffmpeg``, ``opencv`` or ``auto``) and
+``computation.num_workers`` > 0 decodes in that many spawned processes.
+``weights.*_file`` takes a converted flax ``.npz`` or the published
+checkpoints (PySlowFast ``.pyth``/``.pt``/``.pth``, caffe2 ``.pkl``,
+torchvggish ``.pth``), each loaded through its flax tree
+(``models.zoo``). ``computation.quant`` and ``equalize_length`` across
+processes are not ported and raise.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ from ..data.meta import load_metadata
 from ..data.tar_dataset import Prefetcher, make_loader
 from ..data.video import get_decoder, prepare_clip
 from ..device import resolve_device
-from ..models import compute_dtype, get_model, init_weights
+from ..models import compute_dtype, get_model, init_weights, zoo
 from ..models import slowfast as slowfast_mod
 from ..models import vggish as vggish_mod
 from ..utils.io import (
@@ -92,18 +98,21 @@ def get_config(overrides: Optional[Dict] = None) -> Config:
     return build_config(DEFAULTS, overrides, strict=True)
 
 
-def load_flax_npz(path) -> Dict:
-    """A converted flax tree saved as ``.npz`` ('/'-joined keys) -> nested
-    numpy dicts (the JAX package's ``zoo.save_flax_npz`` format)."""
-    tree: Dict = {}
-    with np.load(path) as z:
-        for key in z.files:
-            node = tree
-            parts = key.split("/")
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = z[key]
-    return tree
+def _load_weights_file(wfile, model: str) -> Dict:
+    """A weights file -> the JAX package's flax tree for ``model``
+    (``slowfast`` or ``vggish``): converted ``.npz`` trees load directly,
+    torch and caffe2 checkpoints convert on the fly, as ``convert`` would.
+    Keys the taps do not use (heads, optimizer state, ``num_batches_tracked``)
+    are left behind."""
+    wfile = Path(wfile)
+    if wfile.suffix == ".npz":
+        return zoo.load_flax_npz(wfile)
+    sd = zoo.load_torch_checkpoint(wfile)
+    if model == "slowfast":
+        if zoo.is_caffe2(sd):
+            sd = zoo.caffe2_to_pyslowfast(sd)
+        return slowfast_mod.convert_pyslowfast_state_dict(sd)
+    return vggish_mod.convert_torch_state_dict(sd)
 
 
 def _check_supported(cfg) -> None:
@@ -117,8 +126,8 @@ def _check_supported(cfg) -> None:
 
 
 def build_models(cfg, device=None):
-    """Instantiate the models on ``device``: weights from converted flax
-    ``.npz`` trees when ``weights.*_file`` is set, else a seeded init that
+    """Instantiate the models on ``device``: weights from ``weights.*_file``
+    when set (``_load_weights_file``), else a seeded init that
     mirrors flax's (lecun-normal kernels, zero biases, BN scale 1, bias 0,
     mean 0, var 1, every block's final BN scale 0). The weights are float32
     whatever ``computation.dtype`` (the JAX package's float32 twin), which
@@ -136,12 +145,9 @@ def build_models(cfg, device=None):
                      fast_block=c.fast_block) if video else cls(dtype=dtype))
         wfile = cfg.weights.slowfast_file if video else cfg.weights.vggish_file
         if wfile and Path(wfile).is_file():
-            if Path(wfile).suffix != ".npz":
-                raise NotImplementedError(
-                    f"{wfile}: torch/caffe2 checkpoints are not loaded yet; "
-                    "convert to a flax .npz with the JAX package")
             conv = slowfast_mod if video else vggish_mod
-            model.load_state_dict(conv.state_dict_from_flax(load_flax_npz(wfile)))
+            tree = _load_weights_file(wfile, "slowfast" if video else "vggish")
+            model.load_state_dict(conv.state_dict_from_flax(tree))
         else:
             init_weights(model, torch.Generator().manual_seed(seed + (0 if video else 1)))
             if video:
@@ -211,8 +217,18 @@ def run_extraction(cfg, decoder=None, models=None):
     extract_fn = make_extract_fn(models)
 
     if decoder is None:
-        decoder = get_decoder(cfg.data.decoder or "npz")
+        name = cfg.data.decoder or "npz"
+        kwargs = {}
+        if name != "npz":
+            kwargs["size"] = cfg.data.media.size or 256
+            kwargs["sample_rate"] = 16000
+        if name in ("native", "auto"):
+            # sampled in C: the frames temporal_sampling would keep, but the
+            # others skip scaling and storage
+            kwargs["sample_frames"] = cfg.data.media.num_frames or 32
+        decoder = get_decoder(name, **kwargs)
     duration = cfg.acav.duration or 10
+    # a partial of a module-level function pickles for the decode workers
     prepare = functools.partial(
         prepare_clip,
         num_frames=cfg.data.media.num_frames or 32,

@@ -12,7 +12,8 @@ with the same config keys, defaults and ``output.csv``:
 * csv rows ``shard_name,filename,id,segment`` joined from the shard jsons.
 
 ``computation.dtype`` ``float64`` runs the contingency cache and the scores
-in float64, the reference's own precision. Only the production measure
+in float64, the reference's own precision; ``bfloat16`` runs them in bf16,
+rounded at every op, as the JAX package does. Only the production measure
 ``batch_mi`` is ported; chunk mode (``chunk_size``) is not.
 """
 

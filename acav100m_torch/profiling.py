@@ -97,6 +97,33 @@ def _total_device_us(evt) -> float:
     return _device_us(evt, ("device_time_total", "cuda_time_total"))
 
 
+def _device_events(prof):
+    """The profile's device rows (kernels and copies); the operator rows
+    (aten::...) repeat their kernels' time."""
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA and _device_us(e) > 0]
+    if not events:
+        events = [e for e in prof.key_averages()
+                  if _device_us(e) > 0 and not e.key.startswith("aten::")]
+    return events
+
+
+def device_busy(fn):
+    """``fn()`` once under ``torch.profiler`` (device activity only) ->
+    (wall seconds, seconds of kernels, seconds of copies). Host threads
+    and other processes are not traced, so tracing costs the host little."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = _device_events(prof)
+    copies = sum(_device_us(e) for e in events if e.key.startswith("Memcpy"))
+    kernels = sum(_device_us(e) for e in events) - copies
+    return wall, kernels / 1e6, copies / 1e6
+
+
 def run(label: str, fn, iters: int = 3, top: int = 16, by_shape: bool = False) -> None:
     fn()  # warm: builds kernels, picks cuDNN algorithms
     torch.cuda.synchronize()
@@ -107,12 +134,7 @@ def run(label: str, fn, iters: int = 3, top: int = 16, by_shape: bool = False) -
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6 / iters
-    # kernels only: the operator rows (aten::...) repeat their kernels' time
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == DeviceType.CUDA and _device_us(e) > 0]
-    if not events:
-        events = [e for e in prof.key_averages()
-                  if _device_us(e) > 0 and not e.key.startswith("aten::")]
+    events = _device_events(prof)
     events.sort(key=_device_us, reverse=True)
     busy_us = sum(_device_us(e) for e in events) / iters
     print(f"== {label}: wall {wall_us:.1f} us/iter, device busy {busy_us:.1f} us/iter "

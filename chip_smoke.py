@@ -17,7 +17,21 @@ Phases, each printing its own lines:
    configuration (``computation.dtype=bfloat16
    computation.fast_block=[4,4,4,4,4]``): ``extract`` -> ``cluster`` ->
    ``select``, its taps held against path A's;
-4. main path B at production widths: ``cluster`` (K=32, B=1024) ->
+4. main path C, stage 4 on published checkpoints with pooled decode
+   workers: SlowFast 8x8 R50 written as a caffe2 ``.pkl`` (the published
+   SLOWFAST_8x8_R50 form) and VGGish as a torchvggish ``.pth``, both through
+   ``convert`` (its npz loads to the same state dicts); ``extract`` of
+   2 shards x 8 clips with ``computation.num_workers=2``, then with 0
+   (taps within 1e-4 clip by clip), then ``cluster`` -> ``select``; the
+   host's decode time per clip, a batch's staging copies, the loader's and
+   extract's clips/s with 0 and 2 workers and the card's busy share of
+   extract. The card's machine has no
+   FFmpeg development libraries, so ``native/avio.cc`` does not build there
+   and path C's clips are npz (32 frames of 256x256, 10 s of 44.1 kHz audio
+   that the workers resample); the mp4 decoders are held against the JAX
+   package by the CPU tests. OpenCV's decode time of a 10 s 640x360 mp4 is
+   printed beside them where ``cv2`` imports;
+5. main path B at production widths: ``cluster`` (K=32, B=1024) ->
    ``select`` on 2 shards x 1024 synthetic feature rows.
 
 Then one JSON line of per-kernel results and, last, the device JSON line.
@@ -28,10 +42,15 @@ device it exits at once and prints no result.
 from __future__ import annotations
 
 import copy
+import functools
+import io
 import json
 import math
+import pickle
 import shutil
+import subprocess
 import sys
+import tarfile
 import time
 from pathlib import Path
 
@@ -40,8 +59,9 @@ import torch
 
 from acav100m_torch import cli
 from acav100m_torch.ablate_k1 import COLD_SETS, TAP_DIMS, k1_inputs
-from acav100m_torch.models import init_weights
+from acav100m_torch.models import init_weights, zoo
 from acav100m_torch.models.slowfast import LayerSlowFast, ResBlock
+from acav100m_torch.models.vggish import LayerVggish
 from acav100m_torch.ops import cuda_build
 from acav100m_torch.ops.bottleneck_kernel import fused_stage, fused_stage_bf16, fused_stage_ref
 from acav100m_torch.ops.kmeans_kernel import (
@@ -49,7 +69,8 @@ from acav100m_torch.ops.kmeans_kernel import (
     fused_assign_update,
     fused_assign_update_ref,
 )
-from acav100m_torch.profiling import card, time_cold_ms, time_ms
+from acav100m_torch.pipeline import feature_extraction as fe
+from acav100m_torch.profiling import card, device_busy, time_cold_ms, time_ms
 from acav100m_torch.utils.io import dump_pickle, load_pickle, make_feature_row
 
 ROOT = Path(__file__).resolve().parent
@@ -452,6 +473,300 @@ def main_path_a_bf16(f32_taps: dict) -> dict:
     return launches
 
 
+def write_npz_shards(root: Path, n_shards: int = 2, per_shard: int = 8) -> int:
+    """Path C's clips: npz in the form a decoder hands over for a 10 s clip
+    (32 frames of 256x256, 3.2 fps) with 10 s of 44.1 kHz audio, a tone of
+    its own a clip, which ``prepare_clip`` resamples to 16 kHz."""
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(1)
+    t = np.arange(441000) / 44100.0
+    for si in range(n_shards):
+        meta = []
+        with tarfile.open(root / f"shard-{si:06d}.tar", "w") as tf:
+            for ci in range(per_shard):
+                k = si * per_shard + ci
+                frames = rng.randint(0, 60, (32, 256, 256, 3)).astype(np.uint8)
+                frames[..., k % 3] += np.uint8(100 + 8 * k)
+                audio = (0.4 * np.sin(2 * np.pi * (200.0 + 40 * k) * t)
+                         + 0.02 * rng.randn(t.size)).astype(np.float32)
+                buf = io.BytesIO()
+                np.savez(buf, frames=frames, audio=audio, sample_rate=44100, video_fps=3.2)
+                fname = f"clip_{si:03d}_{ci:03d}.npz"
+                info = tarfile.TarInfo(fname)
+                info.size = buf.getbuffer().nbytes
+                buf.seek(0)
+                tf.addfile(info, buf)
+                meta.append({"filename": fname, "id": f"vid{k:06d}",
+                             "segment": [float(ci), float(ci) + 10.0]})
+        (root / f"shard-{si:06d}.json").write_text(json.dumps(meta))
+    return n_shards * per_shard
+
+
+def write_checkpoints(root: Path, gen: torch.Generator):
+    """Seeded full-width weights in the published checkpoint forms: SlowFast
+    as a caffe2 ``.pkl`` (latin1 pickle of ``{'blobs': ...}``, non-zero BN
+    gammas), VGGish as a torchvggish ``.pth``. Returns the two paths and
+    the state dicts written."""
+    sf, vg = LayerSlowFast(), LayerVggish()
+    init_weights(sf, gen)
+    init_weights(vg, gen)
+    with torch.no_grad():
+        for mod in sf.modules():
+            if isinstance(mod, torch.nn.BatchNorm3d):
+                c = mod.num_features
+                mod.weight.copy_(torch.rand(c, generator=gen) + 0.5)
+                mod.bias.copy_(0.1 * torch.randn(c, generator=gen))
+                mod.running_mean.copy_(0.1 * torch.randn(c, generator=gen))
+                mod.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
+        for name, p in vg.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.01 * torch.randn(p.shape, generator=gen))
+    sf_sd, vg_sd = sf.state_dict(), vg.state_dict()
+    blobs = {zoo.pyslowfast_to_caffe2_name(k): v.numpy() for k, v in sf_sd.items()
+             if not k.endswith("num_batches_tracked")}
+    check(None not in blobs, "every SlowFast parameter has a caffe2 name")
+    root.mkdir(parents=True, exist_ok=True)
+    pkl, pth = root / "SLOWFAST_8x8_R50.pkl", root / "vggish.pth"
+    with open(pkl, "wb") as f:
+        pickle.dump({"blobs": blobs}, f, protocol=2)
+    torch.save(vg_sd, pth)
+    return pkl, pth, sf_sd, vg_sd
+
+
+def check_converted_weights(pkl: Path, pth: Path, sf_sd: dict, vg_sd: dict) -> None:
+    """``convert`` on both checkpoints; the npz it writes, the checkpoint
+    itself and the weights written load to bit-equal state dicts."""
+    npz = {"slowfast": pkl.with_suffix(".npz"), "vggish": pth.with_suffix(".npz")}
+    cli.main(["convert", "slowfast", str(pkl), str(npz["slowfast"])])
+    cli.main(["convert", "vggish", str(pth), str(npz["vggish"])])
+
+    def loaded(sf_file, vg_file):
+        cfg = fe.get_config({"computation.device": "cpu", "data.media.path": "-",
+                             "weights.slowfast_file": str(sf_file),
+                             "weights.vggish_file": str(vg_file)})
+        models = fe.build_models(cfg)
+        return models["layer_slowfast"].state_dict(), models["layer_vggish"].state_dict()
+
+    t0 = time.time()
+    from_ckpt = loaded(pkl, pth)
+    t_load = time.time() - t0
+    from_npz = loaded(npz["slowfast"], npz["vggish"])
+    for got, again, want in zip(from_ckpt, from_npz, (sf_sd, vg_sd)):
+        check(got.keys() == want.keys() == again.keys(), "checkpoint keys")
+        check(all(torch.equal(got[k], want[k]) and torch.equal(again[k], want[k])
+                  for k in want), "checkpoint, its npz and the weights written bit-equal")
+    log(f"path C weights: caffe2 .pkl ({pkl.stat().st_size / 1e6:.1f} MB, {len(sf_sd)} "
+        f"SlowFast tensors) and torchvggish .pth ({pth.stat().st_size / 1e6:.1f} MB) load "
+        f"in {t_load:.2f} s on the host; convert's npz, the checkpoints and the weights "
+        f"written give bit-equal state dicts")
+
+
+def decode_ms_per_clip(shard: Path) -> None:
+    """The host's decode and ``prepare_clip`` time per clip, in-process on
+    one core, over one shard's clips; and OpenCV's decode of a 10 s 640x360
+    25 fps mp4 (its bundled FFmpeg, video only) where ``cv2`` imports."""
+    from acav100m_torch.data.tar_dataset import TarShardDataset
+    from acav100m_torch.data.video import OpenCVVideoDecoder, decode_npz, prepare_clip
+
+    members = list(TarShardDataset._iter_members(shard))
+    t_dec, t_prep = [], []
+    for _, data in members:
+        t0 = time.perf_counter()
+        dec = decode_npz(data)
+        t1 = time.perf_counter()
+        prepare_clip(dec, num_frames=32, duration=10.0, skip_shorter_seconds=2.5)
+        t_prep.append((time.perf_counter() - t1) * 1e3)
+        t_dec.append((t1 - t0) * 1e3)
+    log(f"path C host decode, in-process, one core, {len(members)} clips: npz decode "
+        f"{np.median(t_dec):.2f} ms and prepare_clip (32 of 32 frames; 44.1 -> 16 kHz "
+        f"resample) {np.median(t_prep):.2f} ms per clip (medians)")
+    try:
+        import cv2
+    except ImportError:
+        log("OpenCV decode of a 640x360 mp4: not measured (no cv2)")
+        return
+    path = shard.parent / "opencv_640x360.mp4"
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 25.0, (640, 360))
+    # a smooth texture panning one pixel a frame, so the bit rate is a
+    # video's, not noise's
+    y, x = np.mgrid[0:360, 0:640 + 250]
+    base = np.stack([127 + 100 * np.sin(2 * np.pi * (x / 97 + c * y / 131)) for c in (1, 2, 3)],
+                    axis=-1).astype(np.uint8)
+    for i in range(250):
+        writer.write(np.ascontiguousarray(base[:, i:i + 640]))
+    writer.release()
+    dec = OpenCVVideoDecoder(size=256)
+    data = path.read_bytes()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = dec(data)
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(out is not None and out["frames"].shape == (250, 256, 256, 3), "OpenCV decode")
+    log(f"path C host decode, OpenCV {cv2.__version__}, one 10 s 640x360 25 fps mpeg4 clip "
+        f"({len(data) / 1e6:.2f} MB) to 250 frames of 256x256: {np.median(times):.1f} ms "
+        f"(median of 3; every frame scaled; no audio)")
+
+
+def staging_ms(shard: Path) -> dict:
+    """A batch's host copies between a worker's decode and the card, each
+    the median of 5: into shared memory (in the worker), out of it (in the
+    loader), the stack into a batch, and ``_stage``'s pin and copy to the
+    card (to its event)."""
+    from acav100m_torch.data.meta import load_metadata
+    from acav100m_torch.data.tar_dataset import (
+        TarShardDataset, _sample_from_shm, _sample_to_shm, collate)
+    from acav100m_torch.data.video import prepare_clip
+
+    metas, _ = load_metadata([shard])
+    prepare = functools.partial(prepare_clip, num_frames=32, duration=10.0,
+                                skip_shorter_seconds=2.5)
+    samples = []
+    for sample in TarShardDataset([shard], metas, prepare=prepare):
+        samples.append(sample)
+        if len(samples) == 4:
+            break
+    stream = torch.cuda.Stream()
+    device = torch.device("cuda")
+
+    def med(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    def stage():
+        fe._stage(batch, device, stream)["_dev"][1].synchronize()
+
+    made = []
+    t_to = med(lambda: made.append([_sample_to_shm(s) for s in samples]))
+    t_from = med(lambda: [_sample_from_shm(p) for p in made.pop()])
+    t_stack = med(lambda: collate(samples, 4))
+    batch = collate(samples, 4)
+    t_stage = med(stage)
+    mb = sum(v.nbytes for v in batch.values() if isinstance(v, np.ndarray)) / 1e6
+    log(f"path C staging of one batch of 4 clips ({mb:.1f} MB), medians of 5: into shared "
+        f"memory {t_to:.2f} ms (in the workers), out of it {t_from:.2f} ms, stack "
+        f"{t_stack:.2f} ms, pin and copy to the card {t_stage:.2f} ms")
+    return batch
+
+
+def slot_dependence(models: dict, batch: dict) -> float:
+    """The largest change of a clip's taps, relative to the tap's max, when
+    its batch of 4 is reversed: how much a clip's slot in the batch moves
+    its taps on the card (pooled workers deliver clips in another order)."""
+    extract = fe.make_extract_fn(models)
+    dev = [torch.from_numpy(batch[k]).cuda() for k in ("frames", "audio", "valid_samples")]
+    fwd, rev = extract(*dev), extract(*[t.flip(0) for t in dev])
+    return max(float((a - b.flip(0)).abs().max() / a.abs().max())
+               for name in fwd for a, b in zip(fwd[name], rev[name]))
+
+
+# run as ``python -c``: a spawned worker then imports no main script, as
+# under ``python -m acav100m_torch``; one started from a script imports the
+# script again (here: torch and the whole port) before it decodes
+LOADER_RATE = r"""
+import functools, json, sys, time
+from pathlib import Path
+import scipy.signal  # imported before the clock starts, as by any earlier clip
+from acav100m_torch.data.meta import load_metadata
+from acav100m_torch.data.tar_dataset import make_loader
+from acav100m_torch.data.video import decode_npz, prepare_clip
+
+shards = sorted(Path(sys.argv[1]).glob("shard-*.tar"))
+metas, _ = load_metadata(shards)
+prepare = functools.partial(prepare_clip, num_frames=32, duration=10.0, skip_shorter_seconds=2.5)
+out = {}
+for workers in (0, 2):
+    t0 = time.time()
+    n, first = 0, None
+    for batch in make_loader(shards, metas, 4, decoder=decode_npz, prepare=prepare,
+                             num_workers=workers):
+        first = time.time() - t0 if first is None else first
+        n += int(batch["batch_mask"].sum())
+    out[workers] = [n, time.time() - t0, first]
+print(json.dumps(out))
+"""
+
+
+def loader_rates(clips: Path) -> dict:
+    """The loader alone (no model, no torch) over path C's shards, with 0
+    and 2 workers: {workers: (clips, seconds, seconds to the first batch)}."""
+    out = subprocess.run([sys.executable, "-c", LOADER_RATE, str(clips)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"loader rate: {out.stderr[-2000:]}")
+    return {int(k): v for k, v in json.loads(out.stdout.strip().splitlines()[-1]).items()}
+
+
+def main_path_c(gen: torch.Generator) -> dict:
+    """Path C; returns its launches."""
+    root = WORK / "c"
+    clips, out_csv = root / "clips", root / "output.csv"
+    n_clips = write_npz_shards(clips)
+    pkl, pth, sf_sd, vg_sd = write_checkpoints(root / "weights", gen)
+    check_converted_weights(pkl, pth, sf_sd, vg_sd)
+    decode_ms_per_clip(clips / "shard-000000.tar")
+    batch = staging_ms(clips / "shard-000000.tar")
+    spec = "shard-{000000..000001}"
+    common = [f"data.media.path={clips}/{spec}.tar", "data.batch_size=4", "data.decoder=npz",
+              f"weights.slowfast_file={pkl}", f"weights.vggish_file={pth}"]
+    t0 = time.time()
+    models = fe.build_models(fe.get_config({"data.media.path": "-", **dict(
+        a.split("=", 1) for a in common if a.startswith("weights."))}))
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    err_slot = slot_dependence(models, batch)
+    del models
+    reset_counts()
+    t_pool = run_stage("extract", *common, f"data.output.path={root}/pooled",
+                       "computation.num_workers=2")
+    after_extract = counts()
+    t_serial, kernels, copies = device_busy(lambda: cli.main(
+        ["extract", *common, f"data.output.path={root}/serial", "computation.num_workers=0"]))
+    run_stage("extract", *common, f"data.output.path={root}/serial2", "computation.num_workers=0")
+    pooled = check_features(root / "pooled", n_clips)
+    serial = check_features(root / "serial", n_clips)
+    serial2 = check_features(root / "serial2", n_clips)
+    check(set(pooled) == set(serial), "path C: the same clips and taps with 0 and 2 workers")
+
+    def max_err(got, want):
+        return max(float(np.abs(got[k] - want[k]).max() / max(np.abs(want[k]).max(), 1e-30))
+                   for k in want)
+
+    err, err_repeat = max_err(pooled, serial), max_err(serial2, serial)
+    load = loader_rates(clips)
+    reset_counts()
+    t_clu = run_stage("cluster", f"data.path={root}/pooled/{spec}.pkl",
+                      f"data.output.path={root}/clusters", "data.batch_size=4",
+                      "clustering.ncentroids=4", "clustering.epochs=4")
+    after_cluster = counts()
+    t_sel = run_stage("select", f"data.path={root}/clusters/{spec}.pkl",
+                      f"data.output.path={out_csv}", f"data.meta.path={clips}")
+    rows, want = csv_rows(out_csv), round(0.2 * n_clips)
+    log(f"path C: extract {t_pool:.2f} s with 2 workers ({n_clips / t_pool:.2f} clips/s; the "
+        f"workers import this script again), {t_serial:.2f} s with 0 ({n_clips / t_serial:.2f} "
+        f"clips/s), each with model build and checkpoint loading ({t_build:.2f} s on the "
+        f"card alone); taps with 2 workers differ from those with 0 by at most {err:.2e} of "
+        f"the tap's max, two runs with 0 workers by {err_repeat:.2e}, a batch and its "
+        f"reversal by {err_slot:.2e}; "
+        f"cluster {t_clu:.2f} s; select {t_sel:.2f} s; {rows} csv rows (want {want}); "
+        f"launches: extract {after_extract}, cluster {after_cluster}")
+    log("path C, the loader alone in a python -c process (no model, no torch): "
+        + "; ".join(f"{w} workers {n / t:.2f} clips/s ({n} clips in {t:.2f} s, first batch "
+                    f"after {first:.2f} s)" for w, (n, t, first) in sorted(load.items())))
+    log(f"path C, the extract with 0 workers under torch.profiler (device activity): kernels "
+        f"{kernels:.3f} s, copies {copies:.3f} s: the card busy {100 * kernels / t_serial:.1f}% "
+        f"of its {t_serial:.2f} s wall, {100 * kernels / t_pool:.1f}% of the 2-worker run's "
+        f"{t_pool:.2f} s; {card()}")
+    check(err <= 1e-4, "path C taps with 2 workers within 1e-4 of those with 0")
+    check(rows == want, f"path C output.csv rows {rows} != {want}")
+    check(after_extract["bottleneck_stage"] > 0, "K2 launched by path C's extract")
+    check(after_cluster["kmeans_assign_update"] > 0, "K1 launched by path C's cluster")
+    return {name: after_extract[name] + after_cluster[name] for name in after_extract}
+
+
 def main_path_b() -> dict:
     feats, clus = WORK / "b" / "features", WORK / "b" / "clusters"
     out_csv = WORK / "b" / "output.csv"
@@ -555,6 +870,10 @@ def main() -> int:
     t0 = time.time()
     launches["bottleneck_stage_bf16"] = main_path_a_bf16(f32_taps)["bottleneck_stage_bf16"]
     log(f"path A-bf16 total {time.time() - t0:.1f} s")
+    t0 = time.time()
+    for name, n in main_path_c(gen).items():
+        launches[name] += n
+    log(f"path C total {time.time() - t0:.1f} s")
     main_path_b()
     shutil.rmtree(WORK, ignore_errors=True)
     kernels = []

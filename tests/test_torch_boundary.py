@@ -1,6 +1,8 @@
 """The port's import boundary and device rule: ``acav100m_torch`` and
 ``chip_smoke`` load no jax/flax/optax/acav100m_tpu module, and an entry
-point left on its default device (cuda) raises when no CUDA device exists."""
+point left on its default device (cuda) raises when no CUDA device exists;
+``acav100m_torch.data``, which spawned decode workers import, loads no
+torch."""
 
 import json
 import os
@@ -41,6 +43,18 @@ def test_port_imports_no_jax():
                 "acav100m_torch.ops.kmeans_kernel",
                 "acav100m_torch.ops.bottleneck_kernel", "acav100m_torch.cli"):
         assert mod in res["modules"]
+
+
+def test_data_imports_no_torch():
+    probe = ("import importlib, json, pkgutil, sys\n"
+             "import acav100m_torch.data as d\n"
+             "for m in pkgutil.walk_packages(d.__path__, 'acav100m_torch.data.'):\n"
+             "    importlib.import_module(m.name)\n"
+             "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] == 'torch')))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 @pytest.mark.parametrize("verb", ["extract", "cluster", "select"])

@@ -1,0 +1,132 @@
+"""The port's pooled decode workers: ``make_loader(num_workers=2)`` delivers
+the clips that the JAX package's in-process loader delivers, bit for bit,
+over npz and mp4 shards; a worker hard-killed mid-shard has its shards
+requeued and every clip arrives exactly once; skip lists hold in the
+workers. Each test runs under its own time limit, so a hung worker fails
+the test instead of stalling the run."""
+
+import functools
+import io
+import json
+import signal
+import tarfile
+import warnings
+
+import numpy as np
+import pytest
+
+from acav100m_tpu.data import tar_dataset as jtd
+from acav100m_tpu.data import video as jvideo
+from acav100m_torch import cli as tcli
+from acav100m_torch.data import native_av as tav
+from acav100m_torch.data import tar_dataset as ttd
+from acav100m_torch.data import video as tvideo
+from acav100m_torch.data.meta import load_metadata
+
+from .torch_workers import crash_once_decoder
+
+LIMIT_S = 120
+
+
+@pytest.fixture(autouse=True)
+def time_limit():
+    def expire(signum, frame):
+        raise TimeoutError(f"pooled loader test ran past {LIMIT_S} s")
+
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(LIMIT_S)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+
+
+def write_mp4_shards(root, num_shards=2, clips_per_shard=3, size=32):
+    rng = np.random.RandomState(0)
+    for si in range(num_shards):
+        meta = []
+        with tarfile.open(root / f"shard-{si:06d}.tar", "w") as tf:
+            for ci in range(clips_per_shard):
+                frames = rng.randint(0, 255, (24, size, size, 3)).astype(np.uint8)
+                t = np.arange(3 * 16000) / 16000
+                audio = (0.3 * np.sin(2 * np.pi * (200 + 50 * ci) * t)).astype(np.float32)
+                path = root / "clip.mp4"
+                assert tav.encode_mp4(path, frames, fps=8.0, audio=audio, sample_rate=16000)
+                data = path.read_bytes()
+                fname = f"clip_{si:03d}_{ci:03d}.mp4"
+                info = tarfile.TarInfo(fname)
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+                meta.append({"filename": fname, "id": f"v{si}{ci}", "segment": [0.0, 3.0]})
+        (root / f"shard-{si:06d}.json").write_text(json.dumps(meta))
+
+
+def by_name(loader):
+    out = {}
+    for batch in loader:
+        for i, real in enumerate(batch["batch_mask"]):
+            if real:
+                name = batch["filename"][i]
+                assert name not in out, f"{name} delivered twice"
+                out[name] = {k: batch[k][i] for k in ("frames", "audio", "valid_samples",
+                                                      "shard_name", "shard_size")}
+    return out
+
+
+@pytest.mark.parametrize("kind", ["npz", "mp4"])
+def test_pooled_matches_in_process(kind, tmp_path):
+    if kind == "npz":
+        tcli.write_fixtures(tmp_path, num_shards=3, clips_per_shard=3, size=16)
+        decoders = (tvideo.decode_npz, jvideo.decode_npz)
+    else:
+        if not tav.available():
+            pytest.skip("FFmpeg's libraries or g++ are missing")
+        write_mp4_shards(tmp_path)
+        kw = dict(size=16, sample_rate=16000, sample_frames=8)
+        decoders = (tvideo.get_decoder("native", **kw), jvideo.get_decoder("native", **kw))
+    shards = sorted(tmp_path.glob("shard-*.tar"))
+    metas, _ = load_metadata(shards)
+    prepare = [functools.partial(mod.prepare_clip, num_frames=8, duration=3.0)
+               for mod in (tvideo, jvideo)]
+    want = by_name(jtd.make_loader(shards, metas, 2, decoder=decoders[1], prepare=prepare[1]))
+    serial = by_name(ttd.make_loader(shards, metas, 2, decoder=decoders[0], prepare=prepare[0]))
+    pooled = by_name(ttd.make_loader(shards, metas, 2, decoder=decoders[0], prepare=prepare[0],
+                                     num_workers=2, buffer_samples=4))
+    assert len(want) == sum(len(m) for m in metas.values())
+    for got in (serial, pooled):
+        assert set(got) == set(want)
+        for name, sample in want.items():
+            for key, val in sample.items():
+                np.testing.assert_array_equal(got[name][key], val, err_msg=f"{name} {key}")
+
+
+def test_killed_worker_shards_are_requeued(tmp_path):
+    tcli.write_fixtures(tmp_path, num_shards=4, clips_per_shard=6, size=16)
+    shards = sorted(tmp_path.glob("shard-*.tar"))
+    metas, _ = load_metadata(shards)
+    expected = {row["filename"] for m in metas.values() for row in m.values()}
+    assert len(expected) == 24
+    decoder = functools.partial(crash_once_decoder, marker_path=str(tmp_path / "crashed"),
+                                crash_after=3)
+    loader = ttd.make_loader(shards, metas, batch_size=4, decoder=decoder, prefetch=0,
+                             num_workers=2, buffer_samples=8)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        seen = [fn for batch in loader
+                for fn, real in zip(batch["filename"], batch["batch_mask"]) if real]
+    assert (tmp_path / "crashed").exists(), "the crash never happened"
+    assert sorted(seen) == sorted(expected), "clips lost or delivered twice"
+    assert any("requeuing" in str(w.message) for w in caught)
+
+
+def test_skip_lists_hold_in_workers(tmp_path):
+    tcli.write_fixtures(tmp_path, num_shards=2, clips_per_shard=4, size=16)
+    shards = sorted(tmp_path.glob("shard-*.tar"))
+    metas, _ = load_metadata(shards)
+    skip = {"shard-000000": ["clip_000_001.npz", "clip_000_003.npz"],
+            "shard-000001": ["clip_001_000.npz"]}
+    got = by_name(ttd.make_loader(shards, metas, 3, skip_lists=skip, num_workers=2))
+    want = by_name(jtd.make_loader(shards, metas, 3, skip_lists=skip))
+    assert set(got) == set(want) and len(got) == 5
+    assert not set(got) & {f for names in skip.values() for f in names}

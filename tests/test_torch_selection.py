@@ -1,13 +1,14 @@
 """Stage 6 driver: ``select`` of the port against the JAX package's on the
 same JAX-written assignment pkls, run manifest and shard jsons gives a
-byte-identical ``output.csv``, in float64 and in float32.
+byte-identical ``output.csv``, in float64, float32 and bfloat16.
 
 The assignments come from a seeded latent-class model (each clip a class,
 each of the ten clusterings a noisy function of it), like real stage-5
 output. A cache that holds only the start singleton makes many distinct
 candidates tie mathematically, and rounding then picks among them in each
 framework; the fixture's seed is one whose decisions both frameworks make
-alike (see tests/test_torch_mi.py)."""
+alike (see tests/test_torch_mi.py), in bfloat16 too, where the cache and
+the scores round per op and many scores tie."""
 
 import json
 
@@ -60,7 +61,7 @@ def assignments(tmp_path_factory):
     return root
 
 
-@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
 def test_output_csv_byte_identical(assignments, dtype):
     outs = {}
     for name, mod, extra in (("jax", jss, {}), ("torch", tss, {"computation.device": "cpu"})):
