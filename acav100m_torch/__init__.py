@@ -21,7 +21,8 @@ ops         k-means, MI measures, log-mel front end, and the two hand-written
 models      SlowFast 8x8 R50 and VGGish with PySlowFast/torchvggish names;
             ``zoo``: PySlowFast, caffe2 and torchvggish checkpoints to the
             flax npz format (the ``convert`` verb)
-pipeline    stage drivers: extract (4), cluster (5), select (6)
+pipeline    stage drivers: extract (4), cluster (5), select (6, with chunk
+            mode and every measure), and contrastive selection
 """
 
 __version__ = "0.1.0"

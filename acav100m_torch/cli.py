@@ -5,9 +5,12 @@ positional arguments and dotted-key overrides:
     python -m acav100m_torch extract data.media.path=... data.output.path=...
     python -m acav100m_torch cluster data.path=... data.output.path=...
     python -m acav100m_torch select data.path=... data.output.path=...
+    python -m acav100m_torch reduce out.csv cache1.csv [cache2.csv ...]
     python -m acav100m_torch convert {slowfast,vggish} in_path out_path [--format ...]
 
-Every stage runs on ``computation.device`` (default ``cuda``; pass
+``reduce`` appends the chunk caches that ``select chunk_size=N`` writes
+(``caches/cache_*``) to ``out.csv``, in sorted order. Every stage runs on
+``computation.device`` (default ``cuda``; pass
 ``computation.device=cpu`` to run on the CPU).
 """
 
@@ -47,6 +50,13 @@ def cmd_select(args):
 
     out_path, count = run(get_config(_overrides(args.overrides)))
     print(f"Saved Results: added {count} lines to {out_path}")
+
+
+def cmd_reduce(args):
+    from .utils.io import merge_csvs
+
+    count = merge_csvs(args.caches, args.out_path)
+    print(f"merged {count} lines into {args.out_path}")
 
 
 def cmd_convert(args):
@@ -109,6 +119,11 @@ def main(argv=None):
         p = sub.add_parser(verb, help=help_)
         p.add_argument("overrides", nargs="*", help="dotted key=value overrides")
         p.set_defaults(fn=fn)
+
+    p = sub.add_parser("reduce", help="merge chunk cache csvs")
+    p.add_argument("out_path")
+    p.add_argument("caches", nargs="+")
+    p.set_defaults(fn=cmd_reduce)
 
     p = sub.add_parser("fixtures", help="generate synthetic clip shards")
     p.add_argument("out_dir")

@@ -9,17 +9,28 @@ with the same config keys, defaults and ``output.csv``:
 * per partition: the assignment matrix (V x D, clustering types sorted),
   the cluster pairing (default ``combination`` = C(D,2)), batched greedy MI
   maximization (B=20, k=4, keep_unselected) down to ``subset.ratio``=0.2;
-* csv rows ``shard_name,filename,id,segment`` joined from the shard jsons.
+* csv rows ``shard_name,filename,id,segment`` joined from the shard jsons;
+* ``measure_name``: ``batch_mi`` (the default), or ``mi``, ``ami``, ``nmi``
+  and ``mem_mi`` through the whole-pool ``GreedySelector`` (full-table
+  scores; ``mem_mi`` is MI scored incrementally);
+* chunk mode: shards split into chunks of ``chunk_size``, each selected
+  independently with per-chunk subset size ``ceil(size/num_chunks)``,
+  per-chunk cache csvs in ``caches/``, merged into ``data.output.path``
+  (and by the ``reduce`` verb).
 
 ``computation.dtype`` ``float64`` runs the contingency cache and the scores
 in float64, the reference's own precision; ``bfloat16`` runs them in bf16,
-rounded at every op, as the JAX package does. Only the production measure
-``batch_mi`` is ported; chunk mode (``chunk_size``) is not.
+rounded at every op, as the JAX package does. ``compare_measures`` and
+``compare_dtypes`` cross-check two measures and the two precisions.
 """
 
 from __future__ import annotations
 
+import math
+import os
+import time
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -27,10 +38,10 @@ import numpy as np
 
 from ..config import Config, build_config
 from ..device import resolve_device
-from ..ops.mi import BatchGreedySelector
+from ..ops.mi import BatchGreedySelector, GreedySelector
 from ..ops.pairing import get_cluster_pairing
 from ..utils.braceexpand import braceexpand
-from ..utils.io import load_json, load_pickle, save_output_csv
+from ..utils.io import load_json, load_pickle, merge_csvs, save_output_csv
 from ..utils.manifests import read_run_manifests
 
 DEFAULTS = {
@@ -136,10 +147,6 @@ def load_metas(meta_path, shard_paths: Sequence[Path]) -> Dict[str, Dict]:
 def run_greedy_partition(cfg, rows: Sequence[Dict], device=None) -> List[Dict]:
     """Select from one partition; returns [{filename, shard_name}] sorted by
     index (``run_greedy.py:9-74``)."""
-    measure_name = cfg.measure_name or "batch_mi"
-    if measure_name != "batch_mi":
-        raise NotImplementedError(
-            f"measure {measure_name!r}: only batch_mi is ported")
     assignments, shard_names, filenames, types = format_rows(rows)
     ncentroids = int(assignments.max()) + 1
     v = assignments.shape[0]
@@ -157,20 +164,34 @@ def run_greedy_partition(cfg, rows: Sequence[Dict], device=None) -> List[Dict]:
         rng.shuffle(candidates)
     start_indices = [int(candidates[0])]
 
-    selector = BatchGreedySelector(
-        assignments,
-        combinations,
-        ncentroids=ncentroids,
-        batch_size=batch_size,
-        selection_size=selection_size,
-        keep_unselected=bool(cfg.batch.keep_unselected),
-        rng=rng,
-        dtype=cfg.computation.dtype or "float32",
-        device=device,
-    )
-    # batch_mi excludes the start singleton from the output: it only seeds
-    # the cache (reference batch.py:206-207)
-    selected, _, _, _ = selector.run_greedy(subset_size, start_indices)
+    measure_name = cfg.measure_name or "batch_mi"
+    dtype = cfg.computation.dtype or "float32"
+    if measure_name == "batch_mi":
+        selector = BatchGreedySelector(
+            assignments,
+            combinations,
+            ncentroids=ncentroids,
+            batch_size=batch_size,
+            selection_size=selection_size,
+            keep_unselected=bool(cfg.batch.keep_unselected),
+            rng=rng,
+            dtype=dtype,
+            device=device,
+        )
+        # batch_mi excludes the start singleton from the output: it only
+        # seeds the cache (reference batch.py:206-207)
+        selected, _, _, _ = selector.run_greedy(subset_size, start_indices)
+    elif measure_name in ("mi", "ami", "nmi", "mem_mi"):
+        kind = "mi" if measure_name == "mem_mi" else measure_name
+        scorer = "mem" if measure_name == "mem_mi" else "full"
+        selector = GreedySelector(assignments, combinations, ncentroids=ncentroids,
+                                  kind=kind, scorer=scorer, dtype=dtype, device=device)
+        # stage 6's pool greedy never folds the start singleton into the
+        # cache (reference mi.py:150-173): it only takes an output slot
+        selected, _, _, _ = selector.run_greedy(subset_size, start_indices,
+                                                fold_start=False)
+    else:
+        raise ValueError(f"unknown measure {measure_name!r}")
     selected = sorted(set(int(s) for s in selected))[:subset_size]
     return [
         {"filename": filenames[s], "shard_name": shard_names[s]} for s in selected
@@ -191,7 +212,146 @@ def run_single(cfg) -> Tuple[Optional[Path], int]:
     return out_path, counts
 
 
+def get_chunks(paths: Sequence, chunk_size: int):
+    for i in range(0, len(paths), chunk_size):
+        yield list(paths[i : i + chunk_size])
+
+
+def run_chunks(cfg, _trace: Optional[list] = None) -> Tuple[Path, int]:
+    """Chunk mode (``chunk.py:21-140``): independent selection per chunk of
+    shards into ``caches/cache_{pid}_0_{i}_{name}``, skipping chunks whose
+    cache csv exists, then a merge into ``data.output.path``.
+
+    The next chunk's pkls load on a background thread while the current
+    chunk selects (the reference's ThreadPoolExecutor overlap,
+    ``chunk.py:196-226``). ``_trace`` collects (event, chunk_index, t)
+    tuples: when each chunk's load and selection started and ended.
+    """
+    device = resolve_device(cfg.computation.device)
+    shard_paths = expand_shard_paths(cfg.data.path)
+    chunks = list(get_chunks(shard_paths, int(cfg.chunk_size)))
+    num_chunks = len(chunks)
+    out_path = Path(cfg.data.output.path)
+    cache_dir = out_path.parent / "caches"
+    cache_dir.mkdir(parents=True, exist_ok=True)
+    pid = os.getpid()
+
+    chunk_cfg = cfg.copy()
+    if isinstance(cfg.subset.size, int):
+        chunk_cfg.subset.size = math.ceil(cfg.subset.size / num_chunks)
+
+    def trace(event, i):
+        if _trace is not None:
+            _trace.append((event, i, time.time()))
+
+    def load_chunk(i, chunk):
+        trace("load_start", i)
+        partitions = load_partitions_data(chunk)
+        metas = load_metas(cfg.data.meta.path, chunk)
+        trace("load_done", i)
+        return partitions, metas
+
+    cache_csvs = [
+        cache_dir / f"cache_{pid}_0_{i}_{out_path.name}" for i in range(num_chunks)
+    ]
+    pending = [i for i in range(num_chunks) if not cache_csvs[i].is_file()]
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        nxt = pool.submit(load_chunk, pending[0], chunks[pending[0]]) if pending else None
+        for j, i in enumerate(pending):
+            partitions, metas = nxt.result()
+            if j + 1 < len(pending):  # prefetch while this chunk selects
+                n = pending[j + 1]
+                nxt = pool.submit(load_chunk, n, chunks[n])
+            trace("select_start", i)
+            for k in sorted(partitions):
+                samples = run_greedy_partition(chunk_cfg, partitions[k], device=device)
+                save_output_csv(samples, metas, cache_csvs[i])
+            trace("select_done", i)
+    count = merge_csvs(cache_csvs, out_path)
+    return out_path, count
+
+
 def run(cfg) -> Tuple[Optional[Path], int]:
     if cfg.chunk_size:
-        raise NotImplementedError("chunk mode (chunk_size) is not ported yet")
+        return run_chunks(cfg)
     return run_single(cfg)
+
+
+def compare_measures(cfg, measures: Sequence[str] = ("mi", "mem_mi")) -> Dict:
+    """Run two measures' greedy selectors on the same partitions (port of
+    ``subset_selection/code/tests.py:10-46``) on ``computation.device`` and
+    report per-element selection equality and gain deltas.
+
+    The selectors fold a start sample (``fold_start=True``): from an empty
+    cache every candidate's first score ties in exact arithmetic and two
+    correct implementations would diverge on rounding alone."""
+    device = resolve_device(cfg.computation.device)
+    partitions = load_partitions_data(expand_shard_paths(cfg.data.path))
+    report: Dict = {"partitions": {}}
+    for pid in sorted(partitions):
+        assignments, _, _, types = format_rows(partitions[pid])
+        ncentroids = int(assignments.max()) + 1
+        v = assignments.shape[0]
+        subset_size = cfg.subset.size or round((cfg.subset.ratio or 0.2) * v)
+        combos = get_cluster_pairing(types, cfg.clustering.pairing or "combination")
+        results = {}
+        for name in measures:
+            kind = "mi" if name == "mem_mi" else name
+            scorer = "mem" if name == "mem_mi" else "full"
+            sel = GreedySelector(assignments, combos, ncentroids=ncentroids,
+                                 kind=kind, scorer=scorer, device=device)
+            s, gains, _, _ = sel.run_greedy(subset_size + 1, [0])
+            results[name] = (s[:subset_size], gains[:subset_size])
+        (s_a, g_a), (s_b, g_b) = results[measures[0]], results[measures[1]]
+        same = [x == y for x, y in zip(s_a, s_b)]
+        gain_diff = [abs(x - y) for x, y in zip(g_a, g_b)]
+        report["partitions"][pid] = {
+            "selection_equal_ratio": float(np.mean(same)) if same else 1.0,
+            "max_gain_diff": float(max(gain_diff)) if gain_diff else 0.0,
+            "subset_size": subset_size,
+        }
+    return report
+
+
+def compare_dtypes(
+    assignments: np.ndarray,
+    combinations,
+    ncentroids: int,
+    subset_size: int,
+    batch_size: int = 20,
+    selection_size: int = 4,
+    keep_unselected: bool = True,
+    seed: int = 0,
+    device="cuda",
+) -> Dict:
+    """float32 against float64 selection drift: the production batch greedy
+    twice on the same candidate order, reporting the rounds whose winner
+    sets differ (flips), the final subset overlap and the gains' largest
+    difference."""
+    device = resolve_device(device)
+    runs = {}
+    for dtype in ("float32", "float64"):
+        sel = BatchGreedySelector(
+            assignments, combinations, ncentroids=ncentroids,
+            batch_size=batch_size, selection_size=selection_size,
+            keep_unselected=keep_unselected,
+            rng=np.random.RandomState(seed), dtype=dtype, device=device,
+        )
+        selected, gains, _, _ = sel.run_greedy(subset_size, [0])
+        runs[dtype] = (selected, gains)
+    (s32, g32), (s64, g64) = runs["float32"], runs["float64"]
+    n = min(len(s32), len(s64))
+    rounds32 = [set(s32[i : i + selection_size]) for i in range(0, n, selection_size)]
+    rounds64 = [set(s64[i : i + selection_size]) for i in range(0, n, selection_size)]
+    flips = sum(a != b for a, b in zip(rounds32, rounds64))
+    overlap = len(set(s32) & set(s64)) / max(1, len(set(s64)))
+    gdiff = [abs(a - b) for a, b in zip(g32, g64)]
+    return {
+        "rounds": len(rounds64),
+        "flip_rounds": int(flips),
+        "flip_rate": flips / max(1, len(rounds64)),
+        "subset_overlap": float(overlap),
+        "positionwise_equal": float(np.mean([a == b for a, b in zip(s32, s64)])),
+        "max_gain_diff": float(max(gdiff)) if gdiff else 0.0,
+        "subset_size": subset_size,
+    }

@@ -32,7 +32,17 @@ Phases, each printing its own lines:
    package by the CPU tests. OpenCV's decode time of a 10 s 640x360 mp4 is
    printed beside them where ``cv2`` imports;
 5. main path B at production widths: ``cluster`` (K=32, B=1024) ->
-   ``select`` on 2 shards x 1024 synthetic feature rows.
+   ``select`` on 2 shards x 1024 synthetic feature rows;
+6. path D, the rest of stage 6 on path B's outputs (V=2048 clips, 10
+   clusterings of K=32, so P=45 cluster pairs): D1 chunk mode
+   (``chunk_size=1``) and ``reduce`` of its cache csvs; D2 ``select`` with
+   ``measure_name`` mem_mi, mi, ami and nmi in float32 (ms per greedy step,
+   peak device memory); D3 every full-table scorer in float64 on the card
+   against the same code on the CPU, and full MI against the incremental
+   score; D4 ``compare_measures`` and ``compare_dtypes``; D5 contrastive
+   selection on path B's feature pkls, its scores on the card against the
+   CPU's (TF32 off), and ``merge_contrastive_csvs``. Stage 6 has no
+   hand-written kernel: path D launches none.
 
 Then one JSON line of per-kernel results and, last, the device JSON line.
 Any failed check raises, so the script exits non-zero. Without a CUDA
@@ -69,7 +79,10 @@ from acav100m_torch.ops.kmeans_kernel import (
     fused_assign_update,
     fused_assign_update_ref,
 )
+from acav100m_torch.ops import mi
+from acav100m_torch.pipeline import contrastive_selection as cs
 from acav100m_torch.pipeline import feature_extraction as fe
+from acav100m_torch.pipeline import subset_selection as ss
 from acav100m_torch.profiling import card, device_busy, time_cold_ms, time_ms
 from acav100m_torch.utils.io import dump_pickle, load_pickle, make_feature_row
 
@@ -89,6 +102,7 @@ KERNELS = [
      "acav100m_tpu/ops/pallas/bottleneck_kernel.py:116"),
 ]
 HEADLINE = ["computation.dtype=bfloat16", "computation.fast_block=[4,4,4,4,4]"]
+N_PER_SHARD = 1024  # path B's feature rows a shard; path D selects from them
 
 
 def log(msg: str) -> None:
@@ -771,7 +785,7 @@ def main_path_b() -> dict:
     feats, clus = WORK / "b" / "features", WORK / "b" / "clusters"
     out_csv = WORK / "b" / "output.csv"
     rng = np.random.RandomState(0)
-    n_per_shard, n_shards = 1024, 2
+    n_per_shard, n_shards = N_PER_SHARD, 2
     for si in range(n_shards):
         rows = []
         for ci in range(n_per_shard):
@@ -843,6 +857,202 @@ def cluster_step_breakdown(shard: Path) -> None:
         f"{t_step:.3f} ms; {card()}")
 
 
+# -- phase 6: path D, the rest of stage 6 --------------------------------------
+
+SPEC = "shard-{000000..000001}"
+GREEDY_MEASURES = ("mem_mi", "mi", "ami", "nmi")
+
+
+def path_b_partition():
+    """Path B's one partition of assignments: (V x D matrix, filenames,
+    pairs, C, the start index ``select`` draws)."""
+    partitions = ss.load_partitions_data(ss.expand_shard_paths(
+        f"{WORK}/b/clusters/{SPEC}.pkl"))
+    check(len(partitions) == 1, "path B's assignments are one partition")
+    (rows,) = partitions.values()
+    a, _, filenames, types = ss.format_rows(rows)
+    combos = ss.get_cluster_pairing(types, "combination")
+    candidates = np.arange(len(a))
+    np.random.RandomState(0).shuffle(candidates)
+    return a, filenames, combos, int(a.max()) + 1, int(candidates[0])
+
+
+def path_d1_chunks(root: Path) -> None:
+    """Chunk mode, one shard a chunk, then ``reduce`` of its caches."""
+    out = root / "chunks" / "output.csv"
+    cfg = ss.get_config({"data.path": f"{WORK}/b/clusters/{SPEC}.pkl",
+                         "data.output.path": str(out), "chunk_size": 1})
+    trace = []
+    t0 = time.time()
+    _, count = ss.run_chunks(cfg, _trace=trace)
+    t_all = time.time() - t0
+    caches = sorted((root / "chunks" / "caches").glob("cache_*"))
+    reduced = root / "chunks" / "reduced.csv"
+    run_stage("reduce", str(reduced), *map(str, caches))
+    events = {(e, i): t for e, i, t in trace}
+    per_chunk = [events["select_done", i] - events["select_start", i] for i in range(2)]
+    log(f"path D1, select chunk_size=1 (2 chunks of {N_PER_SHARD} clips, batch_mi): {t_all:.2f} s, "
+        f"select per chunk {per_chunk[0]:.3f} / {per_chunk[1]:.3f} s; {len(caches)} cache "
+        f"csvs, {count} rows; reduce's merge byte-equal to output.csv: "
+        f"{reduced.read_bytes() == out.read_bytes()}")
+    check(len(caches) == 2, "chunk mode writes 2 cache csvs")
+    want = 2 * round(0.2 * N_PER_SHARD)
+    check(count == csv_rows(out) == want, f"chunk mode output.csv rows {count} != {want}")
+    check(reduced.read_bytes() == out.read_bytes(), "reduce's merge equals output.csv")
+
+
+def path_d2_measures(root: Path, a, filenames, combos, ncentroids: int, start: int) -> None:
+    """``select`` with each whole-pool measure in float32 through the CLI,
+    then the same selector's greedy loop alone in float32 and float64 for
+    its step times and peak device memory."""
+    steps = round(0.2 * len(a)) - 2
+    for measure in GREEDY_MEASURES:
+        out = root / f"select_{measure}.csv"
+        torch.cuda.reset_peak_memory_stats()
+        t_sel = run_stage("select", f"data.path={WORK}/b/clusters/{SPEC}.pkl",
+                          f"data.output.path={out}", f"measure_name={measure}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rows = csv_rows(out)
+        kind = "mi" if measure == "mem_mi" else measure
+        loops = []
+        for dtype in ("float32", "float64"):
+            torch.cuda.reset_peak_memory_stats()
+            sel = mi.GreedySelector(a, combos, ncentroids, kind=kind, dtype=dtype,
+                                    scorer="mem" if measure == "mem_mi" else "full",
+                                    device="cuda")
+            picks, gains, lapse, _ = sel.run_greedy(steps + 2, [start], fold_start=False)
+            loops.append(f"{dtype} {1e3 * np.median(lapse):.3f} ms median, "
+                         f"{1e3 * np.mean(lapse):.3f} mean, peak "
+                         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+            check(len(lapse) == steps and all(math.isfinite(g) for g in gains),
+                  f"select {measure} in {dtype}: {steps} steps, finite gains")
+            if dtype == "float32":
+                same = {line.split(",")[1] for line in out.read_text().splitlines()} == {
+                    filenames[i] for i in picks}
+                # the card's busy share of the first 100 steps, traced apart
+                sel = mi.GreedySelector(a, combos, ncentroids, kind=kind,
+                                        scorer="mem" if measure == "mem_mi" else "full",
+                                        device="cuda")
+                wall, busy, _ = device_busy(lambda: sel.run_greedy(102, [start],
+                                                                   fold_start=False))
+                loops.append(f"traced 100 steps: the card busy {1e3 * busy / 100:.3f} ms a "
+                             f"step, {100 * busy / wall:.1f}% of the wall")
+        log(f"path D2, select measure_name={measure} float32 at V={len(a)}, "
+            f"P={len(combos)}, C={ncentroids}: {t_sel:.2f} s, {rows} rows (want {steps + 1}), "
+            f"peak device memory {peak:.3f} GiB, the same clips as the loop below in "
+            f"float32: {same}; greedy step over {steps} steps: " + "; ".join(loops))
+        check(rows == steps + 1, f"select {measure}: {steps + 1} rows")
+
+
+def path_d3_scorers(a, combos, ncentroids: int, start: int) -> None:
+    """Every full-table scorer in float64 on one cache (start + 20 folded
+    picks): all 2048 candidates on the card, the first 256 on the CPU."""
+    sel = mi.GreedySelector(a, combos, ncentroids, scorer="mem", dtype="float64",
+                            device="cuda")
+    sel.run_greedy(22, [start])
+    cache, pairs = sel.cache, sel.pairs_all
+    cpu_cache = {k: v.cpu() for k, v in cache.items()}
+    cache32 = {k: v.float() for k, v in cache.items()}
+    n_cpu = 256
+    errs = []
+    for kind in mi._SCORE_FNS:
+        card = mi.score_candidates_full(cache, pairs, ncentroids, kind)
+        t0 = time.time()
+        cpu = mi.score_candidates_full(cpu_cache, pairs[:n_cpu].cpu(), ncentroids, kind)
+        t_cpu = time.time() - t0
+        s32 = mi.score_candidates_full(cache32, pairs, ncentroids, kind).double()
+        scale = float(card.abs().max())
+        err = float((card[:n_cpu].cpu() - cpu).abs().max()) / scale
+        err32 = float((s32 - card).abs().max()) / scale
+        errs.append(f"{kind} {err:.2e} (float32 {err32:.2e}; CPU {t_cpu:.2f} s)")
+        check(torch.isfinite(card).all() and err <= 1e-9, f"{kind} scores: card vs CPU")
+    full = mi.score_candidates_full(cache, pairs, ncentroids, "mi")
+    mem = mi.score_candidates_mem(cache, sel.stats, pairs, ncentroids)
+    err_mem = float((full - mem).abs().max() / full.abs().max())
+    log(f"path D3, float64 scores of {len(a)} candidates on the card against the first "
+        f"{n_cpu} on the CPU, relative to the largest |score| (float32 on the card against "
+        f"float64): " + "; ".join(errs) + f"; full MI against the incremental score "
+        f"{err_mem:.2e}")
+    check(err_mem <= 1e-9, "full-table MI vs the incremental score in float64")
+
+
+def path_d4_compare(a, combos, ncentroids: int) -> None:
+    cfg = ss.get_config({"data.path": f"{WORK}/b/clusters/{SPEC}.pkl"})
+    t0 = time.time()
+    report = ss.compare_measures(cfg)
+    t_measures = time.time() - t0
+    t0 = time.time()
+    dtypes = ss.compare_dtypes(a, combos, ncentroids, subset_size=round(0.2 * len(a)))
+    t_dtypes = time.time() - t0
+    log(f"path D4, compare_measures (mi full vs mem_mi, float32, {t_measures:.2f} s): "
+        f"{json.dumps(report['partitions'])}")
+    log(f"path D4, compare_dtypes at V={len(a)} (batch_mi, float32 vs float64, "
+        f"{t_dtypes:.2f} s): {json.dumps(dtypes)}")
+    (part,) = report["partitions"].values()
+    check(math.isfinite(part["max_gain_diff"]), "compare_measures report")
+    check(dtypes["rounds"] > 0 and math.isfinite(dtypes["max_gain_diff"]),
+          "compare_dtypes report")
+
+
+def path_d5_contrastive(root: Path) -> None:
+    """Contrastive selection on path B's feature pkls, then the probe
+    trained again on the card and on the CPU from the same initial
+    parameters (TF32 off), and ``merge_contrastive_csvs`` on a score csv."""
+    shards = sorted((WORK / "b" / "features").glob("shard-*.pkl"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.time()
+    out, count = cs.run_contrastive_selection(shards, root / "contrastive.csv")
+    t_run = time.time() - t0
+    want = round(0.2 * 2 * N_PER_SHARD)
+    check(count == csv_rows(out) == want, f"contrastive selection rows {count}")
+    video, audio, metas = cs.load_penultimate_features(shards)
+    check(video.shape == (2 * N_PER_SHARD, 2304) and audio.shape == (2 * N_PER_SHARD, 128),
+          "probe features")
+    steps = 3 * math.ceil(len(video) / 128)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    probe = cs.train_probe(video, audio, device="cuda")
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    _, busy, _ = device_busy(lambda: cs.train_probe(video, audio, device="cuda"))
+    t0 = time.time()
+    probe_cpu = cs.train_probe(video, audio, device="cpu")
+    t_cpu = time.time() - t0
+    scores, scores_cpu = (cs.alignment_scores(p, video, audio) for p in (probe, probe_cpu))
+    err = float(np.abs(scores - scores_cpu).max() / np.abs(scores_cpu).max())
+    score_csv = root / "contrastive_scores.csv"
+    with open(score_csv, "w") as f:
+        for m, sc in zip(metas, scores):
+            f.write(f"{m['shard_name']},{m['filename']},{float(sc)!r}\n")
+    merged, n_merged = cs.merge_contrastive_csvs([score_csv], root / "contrastive_merged.csv")
+    kept = [line.split(",") for line in merged.read_text().splitlines()]
+    selected = {line.split(",")[1] for line in out.read_text().splitlines()}
+    same = len(selected & {row[1] for row in kept})
+    log(f"path D5, contrastive selection of {len(video)} clips (video 2304-d, audio 128-d; "
+        f"3 epochs of batch 128, {steps} steps): run_contrastive_selection {t_run:.2f} s, "
+        f"{count} rows; train_probe on the card {t_card:.3f} s ({1e3 * t_card / steps:.3f} ms "
+        f"a step; the card busy {1e3 * busy / steps:.3f} ms a step under torch.profiler), "
+        f"on the CPU {t_cpu:.2f} s; card scores vs the CPU's {err:.2e} of the "
+        f"largest |score|; merge_contrastive_csvs kept {n_merged} rows, {same} of them "
+        f"the ones run_contrastive_selection kept")
+    check(np.isfinite(scores).all() and err <= 1e-4, "contrastive scores: card vs CPU")
+    check(n_merged == len(kept) == want and all(math.isfinite(float(r[2])) for r in kept),
+          f"merged contrastive csv: {want} rows of finite scores")
+
+
+def main_path_d() -> None:
+    """Path D on path B's assignments and features."""
+    root = WORK / "d"
+    a, filenames, combos, ncentroids, start = path_b_partition()
+    reset_counts()
+    path_d1_chunks(root)
+    path_d2_measures(root, a, filenames, combos, ncentroids, start)
+    path_d3_scorers(a, combos, ncentroids, start)
+    path_d4_compare(a, combos, ncentroids)
+    path_d5_contrastive(root)
+    log(f"path D launches {counts()} (stage 6 has no hand-written kernel); {card()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -875,6 +1085,9 @@ def main() -> int:
         launches[name] += n
     log(f"path C total {time.time() - t0:.1f} s")
     main_path_b()
+    t0 = time.time()
+    main_path_d()
+    log(f"path D total {time.time() - t0:.1f} s")
     shutil.rmtree(WORK, ignore_errors=True)
     kernels = []
     for name, _, replaces in KERNELS:
