@@ -12,12 +12,12 @@ the JAX package):
   samples over through shared memory, requeuing a dead worker's unfinished
   shards;
 * assemble static-shape batches (pad the tail batch and mask) behind a
-  background prefetch thread.
+  background prefetch thread;
+* pad a process's batches with all-masked ones up to a count shared by all
+  processes (``pad_to_length``), so data-parallel ranks step in lock-step.
 
 Nothing here imports torch: a spawned worker starts from a fresh import of
-this module and must never touch the parent's CUDA context. Lock-step
-padding across processes (``empty_batch``, ``pad_to_length``) is not
-ported.
+this module and must never touch the parent's CUDA context.
 """
 
 from __future__ import annotations
@@ -220,9 +220,9 @@ def _sample_from_shm(payload: Dict) -> Dict:
 
 def _stream_worker(wid, shard_paths, metas, skip_lists, decoder, prepare, q):
     """Persistent decode worker (a spawned process): streams its shards
-    sample by sample onto the shared bounded queue, with ``shard_done``
-    after each completed shard so the consumer can requeue only the
-    unfinished rest on failure."""
+    sample by sample onto its own bounded queue, with ``shard_done`` after
+    each completed shard so the consumer can requeue only the unfinished
+    rest on failure."""
     try:
         for shard_path in shard_paths:
             ds = TarShardDataset([shard_path], metas, skip_lists, decoder, prepare)
@@ -248,26 +248,31 @@ def _pooled_stream(
 ) -> Iterator[Dict]:
     """Stream samples from ``num_workers`` persistent decode processes.
 
-    At most ``buffer_samples`` decoded clips wait in the queue (each a
-    shared-memory segment, ~6.3 MB at production shapes), whatever the
-    shard size. Arrival is unordered across workers, as with the
+    Each worker has a queue of its own, of ``buffer_samples // num_workers``
+    decoded clips (each a shared-memory segment, ~6.3 MB at production
+    shapes), whatever the shard size. One shared queue is not safe: a
+    worker killed while its queue's feeder thread holds the queue's write
+    lock leaves the lock taken for good, so every other writer blocks while
+    staying alive. Arrival is unordered across workers, as with the
     reference's DataLoader workers.
 
-    When a worker reports an error, or dies without a word (found by
-    polling its liveness), its unfinished shards are requeued onto a new
-    worker, the partly streamed shard resumed exactly once through a skip
-    list of the filenames already delivered. A shard that fails
-    ``shard_retries`` workers in a row is dropped with a warning.
+    When a worker reports an error, or dies without a word (its process
+    sentinel), what it queued before is read, then its unfinished shards
+    are requeued onto a new worker, the partly streamed shard resumed
+    exactly once through a skip list of the filenames already delivered. A
+    shard that fails ``shard_retries`` workers in a row is dropped with a
+    warning.
     """
     import multiprocessing as mp
     import queue as queue_mod
     from collections import defaultdict
+    from multiprocessing.connection import wait
 
     from ..utils.shards import worker_selection
 
     # spawn, never fork: the parent holds a CUDA context and threads
     ctx = mp.get_context("spawn")
-    q = ctx.Queue(maxsize=max(buffer_samples, 1))
+    per_worker = max(buffer_samples // num_workers, 1)
     workers: Dict[int, Dict] = {}
     yielded: Dict[str, set] = defaultdict(set)
     retry_counts: Dict[str, int] = defaultdict(int)
@@ -282,13 +287,14 @@ def _pooled_stream(
                        | yielded[name])
             for name in {Path(p).stem for p in sub_paths}
         }
+        q = ctx.Queue(maxsize=per_worker)
         p = ctx.Process(
             target=_stream_worker,
             args=(wid, list(sub_paths), metas, skips, decoder, prepare, q),
             daemon=True,
         )
         p.start()
-        workers[wid] = {"proc": p, "shards": list(sub_paths),
+        workers[wid] = {"proc": p, "queue": q, "shards": list(sub_paths),
                         "completed": set(), "done": False}
 
     def handle_failure(wid, reason):
@@ -319,51 +325,118 @@ def _pooled_stream(
     for w in range(num_workers):
         launch(worker_selection(list(shard_paths), w, num_workers))
 
+    def received(st):
+        """The messages a worker has queued, without blocking. A message is
+        one pipe write of under PIPE_BUF bytes, so a dead worker's queue
+        holds whole messages only."""
+        while not st["done"]:
+            try:
+                yield st["queue"].get_nowait()
+            except queue_mod.Empty:
+                return
+
     try:
         while any(not st["done"] for st in workers.values()):
-            try:
-                kind, payload = q.get(timeout=poll_interval)
-            except queue_mod.Empty:
-                for wid, st in list(workers.items()):
-                    if not st["done"] and not st["proc"].is_alive():
-                        handle_failure(wid, "process died without reporting")
-                continue
-            if kind == "sample":
-                sample = _sample_from_shm(payload)
-                yielded[sample["shard_name"]].add(sample["filename"])
-                yield sample
-            elif kind == "shard_done":
-                wid, shard_name = payload
-                workers[wid]["completed"].add(shard_name)
-            elif kind == "error":
-                wid, msg = payload
-                handle_failure(wid, msg)
-            else:  # done
-                workers[payload]["done"] = True
+            live = [st for st in workers.values() if not st["done"]]
+            # a queue's private reader end is what wait() can watch
+            wait([st["queue"]._reader for st in live] + [st["proc"].sentinel for st in live],
+                 timeout=poll_interval)
+            for wid, st in list(workers.items()):
+                dead = not st["proc"].is_alive()  # before reading: nothing follows
+                for kind, payload in received(st):
+                    if kind == "sample":
+                        sample = _sample_from_shm(payload)
+                        yielded[sample["shard_name"]].add(sample["filename"])
+                        yield sample
+                    elif kind == "shard_done":
+                        st["completed"].add(payload[1])
+                    elif kind == "error":
+                        handle_failure(wid, payload[1])
+                    else:  # done
+                        st["done"] = True
+                if dead and not st["done"]:
+                    handle_failure(wid, "process died without reporting")
     finally:
+        from multiprocessing import shared_memory
+
         for st in workers.values():
             p = st["proc"]
             if p.is_alive():
                 p.terminate()
             p.join(timeout=5)
-        # unlink the segments of samples never delivered (the consumer left
-        # early); those of killed workers are reclaimed by multiprocessing's
-        # resource tracker when the process ends
-        from multiprocessing import shared_memory
+            # unlink the segments of samples never delivered (the consumer
+            # left early); those of killed workers are reclaimed by
+            # multiprocessing's resource tracker when the process ends
+            q = st["queue"]
+            try:
+                while True:
+                    kind, payload = q.get_nowait()
+                    if kind == "sample" and payload.get("shm"):
+                        try:
+                            seg = shared_memory.SharedMemory(name=payload["shm"])
+                            seg.close()
+                            seg.unlink()
+                        except FileNotFoundError:
+                            pass
+            except queue_mod.Empty:
+                pass
+            q.close()
 
-        try:
-            while True:
-                kind, payload = q.get_nowait()
-                if kind == "sample" and payload.get("shm"):
-                    try:
-                        seg = shared_memory.SharedMemory(name=payload["shm"])
-                        seg.close()
-                        seg.unlink()
-                    except FileNotFoundError:
-                        pass
-        except queue_mod.Empty:
-            pass
-        q.close()
+
+def empty_batch_like(batch: Dict) -> Dict:
+    """An all-masked batch with the same array shapes (a lock-step no-op)."""
+    out = {}
+    # a snapshot: consumers stage extra keys into (copies of) loader batches
+    # on other threads
+    for key, val in list(batch.items()):
+        if isinstance(val, np.ndarray):
+            out[key] = np.zeros_like(val)
+        elif isinstance(val, list):
+            out[key] = ["" if isinstance(v, str) else 0 for v in val]
+        else:
+            out[key] = val
+    return out
+
+
+def empty_batch(batch_size: int, num_frames: int = 32, size: int = 256,
+                audio_len: int = 160000) -> Dict:
+    """An all-masked batch built from config shapes (for ranks whose local
+    loader yields nothing but that must still step with the others)."""
+    return {
+        "filename": [""] * batch_size,
+        "shard_name": [""] * batch_size,
+        "shard_size": [0] * batch_size,
+        "batch_mask": np.zeros(batch_size, bool),
+        "frames": np.zeros((batch_size, num_frames, size, size, 3), np.uint8),
+        "audio": np.zeros((batch_size, audio_len), np.float32),
+        "valid_samples": np.full((batch_size,), audio_len, np.int32),
+    }
+
+
+def pad_to_length(batches: Iterable[Dict], num_batches: int,
+                  template: Optional[Dict] = None) -> Iterator[Dict]:
+    """Yield ``batches``, then all-masked padding up to ``num_batches``.
+
+    The lock-step half of the reference's ``ResizedDataset`` +
+    ``get_length`` contract (``mps/distributed.py:444-461``): ranks whose
+    shards run short step through masked no-op batches, so every rank runs
+    the same number of steps.
+    """
+    n = 0
+    last = None
+    for b in batches:
+        last = b
+        n += 1
+        yield b
+    pad = empty_batch_like(last) if last is not None else template
+    while n < num_batches:
+        if pad is None:
+            raise ValueError(
+                "pad_to_length needs a template batch when the local loader "
+                "is empty"
+            )
+        yield pad
+        n += 1
 
 
 def make_loader(
@@ -376,17 +449,21 @@ def make_loader(
     prefetch: int = 2,
     num_workers: int = 0,
     buffer_samples: int = 32,
+    pad_to_batches: Optional[int] = None,
+    pad_template: Optional[Dict] = None,
 ) -> Iterable[Dict]:
     """Batched clip loader.
 
     ``num_workers`` > 0 decodes the shards in that many spawned worker
     processes (at most one per shard; shards split round-robin as in the
-    reference's ``worker_urls``), which stream samples through a queue of
-    at most ``buffer_samples`` clips. ``decoder`` and ``prepare`` must then
+    reference's ``worker_urls``), which stream samples through queues of
+    at most ``buffer_samples`` clips in all. ``decoder`` and ``prepare`` must then
     pickle: a decoder instance or module-level function, a
     ``functools.partial`` of ``prepare_clip``. With 0 workers or a single
     shard, decoding runs in-process. Either way a background thread keeps
-    ``prefetch`` batches ahead.
+    ``prefetch`` batches ahead. ``pad_to_batches`` pads the batches with
+    all-masked ones up to that count (``pad_to_length``; ``pad_template``
+    when this process has no batch at all).
     """
     if num_workers > 0 and len(shard_paths) > 1:
         num_workers = min(num_workers, len(shard_paths))
@@ -395,6 +472,8 @@ def make_loader(
     else:
         source = TarShardDataset(shard_paths, metas, skip_lists, decoder, prepare)
     batches = batched(source, batch_size)
+    if pad_to_batches is not None:
+        batches = pad_to_length(batches, pad_to_batches, pad_template)
     if prefetch:
         return Prefetcher(batches, depth=prefetch)
     return batches

@@ -16,6 +16,12 @@ with feature dims zero-padded to ``Dmax`` (exact: padding adds nothing to
 distances or deltas). After warmup ``train_step`` routes the assign and
 accumulate through kernel K1 (``ops.kmeans_kernel``) when ``use_pallas``.
 
+Across processes (``group=``, ``runtime.Group``) each rank steps on its own
+rows and the per-step counts and deltas are summed over the ranks before
+the update, as the JAX package's ``psum``s inside ``shard_map`` and the
+reference's NCCL all-reduce (``sgd_clustering.py:113-127``) do; kernel K1
+runs unchanged on each rank's local rows.
+
 Random draws come from ``torch.Generator``s and are injectable: the JAX
 package's ``jax.random`` draws cannot be reproduced in torch, so tests hand
 the same draws to both sides.
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..runtime import Group, all_reduce_sum
 from .kmeans_kernel import fused_assign_update
 
 Tensor = torch.Tensor
@@ -169,9 +176,17 @@ def train_step(
     initial_rounds: int = 10,
     reinit: Tuple[float, float] = (0.7, 5.0),
     use_pallas: bool = True,
+    group: Optional[Group] = None,
+    global_batch: Optional[int] = None,
 ) -> Tuple[KMeansState, Tensor]:
-    """One mini-batch update. batch: (M, B, Dmax), zero past each
+    """One mini-batch update. batch: (M, B_local, Dmax), zero past each
     clustering's width (as ``stack_batch`` pads it).
+
+    With ``group``, counts and deltas are summed over its ranks before the
+    lr fallback and the update (the JAX ``psum``s), so every rank computes
+    the same new state, and ``count`` advances by the global batch
+    (``global_batch``, else ``B_local`` times the world size). The mean
+    min-distance stays the rank's own.
 
     ``use_pallas`` (the JAX package's key name) routes the post-warmup
     assign + accumulate through kernel K1 (``fused_assign_update``), which
@@ -181,7 +196,7 @@ def train_step(
     always take the random-assignment path. Returns (new_state, mean
     min-distance (M,))."""
     m, k, _ = state.centers.shape
-    b = batch.shape[1]
+    b_local = batch.shape[1]
     warmup = state.count < initial_rounds * k
     if use_pallas and not warmup:
         if reinit[1] != 5.0:
@@ -194,6 +209,10 @@ def train_step(
                                     initial_rounds, reinit)
         counts = _segment_counts(best, k)
         deltas_raw = _segment_deltas(best, batch, k)
+    counts = all_reduce_sum(counts, group)
+    deltas_raw = all_reduce_sum(deltas_raw, group)
+    b_global = global_batch if global_batch is not None else (
+        b_local * (group.world_size if group is not None else 1))
 
     # lr fallback (sgd_clustering.py:116-119): per-clustering max count
     max_count = counts.max(-1, keepdim=True).values  # (M, 1)
@@ -208,12 +227,28 @@ def train_step(
     new_state = KMeansState(
         centers=centers,
         counts=state.counts + counts,
-        count=state.count + b,
+        count=state.count + b_global,
         fallback=fallback,
         d_mask=state.d_mask,
         dims=state.dims,
     )
     return new_state, mean_dist
+
+
+def make_sharded_train_step(group: Group, initial_rounds: int = 10,
+                            reinit: Tuple[float, float] = (0.7, 5.0),
+                            use_pallas: bool = True):
+    """``train_step`` over ``group``: each rank passes its (M, B_local, Dmax)
+    rows and gets the state every rank gets (the counterpart of the JAX
+    package's ``shard_map``'d step; the batch is split by the caller, one
+    process per card, instead of by a sharding)."""
+
+    def step(state, batch, lr, rand=None, generator=None):
+        return train_step(state, batch, lr, rand=rand, generator=generator,
+                          initial_rounds=initial_rounds, reinit=reinit,
+                          use_pallas=use_pallas, group=group)
+
+    return step
 
 
 def assign_step(state: KMeansState, batch: Tensor,

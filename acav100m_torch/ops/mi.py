@@ -22,6 +22,13 @@ of operations, so caches agree bit for bit. Top-k breaks ties by the lowest
 index (a stable descending sort), like ``lax.top_k``; ``torch.topk`` orders
 ties arbitrarily. ``torch.argmax`` returns the first maximal index, like
 ``jnp.argmax``.
+
+Both selectors take ``group=`` (a ``runtime.Group``, one process per card;
+the JAX package's ``mesh=``) to split the candidate axis over the ranks:
+each rank scores a contiguous slice, the scores are all-gathered in
+candidate order, and every rank takes the same winners by the single-device
+tie rule and folds them into an identical cache. The full-table scorers then
+build only their slice's (W/world, P, C, C) tables on each card.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..runtime import Group, all_gather_cat, group_device
 
 Tensor = torch.Tensor
 EPS = float(np.finfo("float64").eps)
@@ -272,6 +281,22 @@ def score_candidates_mem(cache: Dict, stats: Dict, pairs: Tensor,
     return _pair_mean(scores, pair_weights)
 
 
+def score_sharded(score, pairs: Tensor, group: Optional[Group]) -> Tensor:
+    """``score`` (pairs (W,P,2) -> (W,)) over the candidates; with ``group``
+    (W a multiple of its world size) each rank scores its contiguous W/world
+    slice and the slices are all-gathered in candidate order."""
+    if group is None:
+        return score(pairs)
+    per = pairs.shape[0] // group.world_size
+    return all_gather_cat(score(pairs[group.rank * per:(group.rank + 1) * per]), group)
+
+
+def _pad_rows(n: int, group: Optional[Group]) -> int:
+    """``n`` rounded up to a multiple of the group's world size."""
+    world = group.world_size if group is not None else 1
+    return -(-n // world) * world
+
+
 def stable_top_k(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     """Top-k values and indices, ties to the lowest index (``lax.top_k``)."""
     vals, idx = torch.sort(scores, descending=True, stable=True)
@@ -289,7 +314,9 @@ class BatchGreedySelector:
     a static size B: a short tail batch is padded and its pads scored -inf
     and folded with weight 0, as in the JAX package. ``scorer`` is ``mem``
     (the incremental MI score) or a kind of the full-table scorers
-    (``_SCORE_FNS``), averaged over pairs with ``average_method``.
+    (``_SCORE_FNS``), averaged over pairs with ``average_method``. With
+    ``group`` each batch is padded to a multiple of the world size (pads
+    masked as above) and its candidates are scored across the ranks.
     """
 
     def __init__(
@@ -307,6 +334,7 @@ class BatchGreedySelector:
         pair_weights=None,
         dtype="float32",
         device=None,
+        group: Optional[Group] = None,
     ):
         if scorer != "mem" and scorer not in _SCORE_FNS:
             raise ValueError(f"unknown scorer {scorer!r}")
@@ -323,7 +351,8 @@ class BatchGreedySelector:
         )
         self.rng = rng if rng is not None else np.random.RandomState(seed)
         self.dtype = resolve_dtype(dtype)
-        self.device = torch.device(device or "cpu")
+        self.group = group
+        self.device = group_device(device, group)
         pairs_np = pair_assignments(self.assignments, self.combinations)
         self.pairs_all = torch.as_tensor(pairs_np, device=self.device)  # (V,P,2)
         self.cache = init_cache(len(self.combinations), self.C, self.dtype,
@@ -331,14 +360,16 @@ class BatchGreedySelector:
         self.stats = mem_stats(self.cache)
         self.candidate_ids = np.arange(self.assignments.shape[0], dtype=np.int64)
 
+    def _score(self, pairs: Tensor) -> Tensor:
+        if self.scorer == "mem":
+            return score_candidates_mem(self.cache, self.stats, pairs, self.C,
+                                        pair_weights=self.pair_weights)
+        return score_candidates_full(self.cache, pairs, self.C, self.scorer,
+                                     self.average_method, self.pair_weights)
+
     def _step(self, batch_ids: Tensor, valid_mask: Tensor):
         pairs = self.pairs_all[batch_ids]  # (B,P,2)
-        if self.scorer == "mem":
-            scores = score_candidates_mem(self.cache, self.stats, pairs, self.C,
-                                          pair_weights=self.pair_weights)
-        else:
-            scores = score_candidates_full(self.cache, pairs, self.C, self.scorer,
-                                           self.average_method, self.pair_weights)
+        scores = score_sharded(self._score, pairs, self.group)
         scores = torch.where(valid_mask, scores,
                              torch.tensor(-math.inf, dtype=scores.dtype,
                                           device=scores.device))
@@ -382,6 +413,7 @@ class BatchGreedySelector:
         lookups: List[int] = []
         self.modify_k(subset_size)
         self.add_samples(list(start_indices))
+        b_dev = _pad_rows(self.B, self.group)
         while len(selected) < subset_size:
             t0 = time.time()
             self.shuffle_candidates()
@@ -389,17 +421,17 @@ class BatchGreedySelector:
             if b == 0:
                 break
             batch = self.candidate_ids[:b]
-            if b < self.B:  # pad to the static size; pads are masked
-                batch_dev = np.concatenate([batch, np.full(self.B - b, batch[0])])
+            if b < b_dev:  # pad to the static size; pads are masked
+                batch_dev = np.concatenate([batch, np.full(b_dev - b, batch[0])])
             else:
                 batch_dev = batch
-            valid_mask = np.arange(self.B) < b
+            valid_mask = np.arange(b_dev) < b
             top_idx, top_scores = self._step(
                 torch.as_tensor(batch_dev, device=self.device),
                 torch.as_tensor(valid_mask, device=self.device))
             top_idx = top_idx.cpu().numpy()
             top_scores = top_scores.double().cpu().numpy()  # numpy has no bf16
-            if b < self.B:
+            if b < b_dev:
                 keep = top_idx < b
                 top_idx, top_scores = top_idx[keep], top_scores[keep]
             winner_ids = batch[top_idx]
@@ -426,7 +458,9 @@ class GreedySelector:
     ``kind`` is a full-table measure (``_SCORE_FNS``); ``scorer`` ``mem``
     (the default for ``mi``, and valid only for it) scores MI
     incrementally. The pool lives on ``device``; the taken-mask is host
-    numpy, as in the JAX package.
+    numpy, as in the JAX package. With ``group`` the pool is padded to a
+    multiple of the world size with repeats of row 0, which stay inactive,
+    and each rank scores its slice of it.
     """
 
     def __init__(
@@ -440,6 +474,7 @@ class GreedySelector:
         pair_weights=None,
         dtype="float32",
         device=None,
+        group: Optional[Group] = None,
     ):
         if kind not in _SCORE_FNS:
             raise ValueError(f"unknown measure kind {kind!r}")
@@ -455,20 +490,28 @@ class GreedySelector:
             np.asarray(pair_weights, np.float32) if pair_weights is not None else None
         )
         self.dtype = resolve_dtype(dtype)
-        self.device = torch.device(device or "cpu")
+        self.group = group
+        self.device = group_device(device, group)
         pairs_np = pair_assignments(self.assignments, self.combinations)
+        v = pairs_np.shape[0]
+        pad = _pad_rows(v, group) - v
+        if pad:  # repeats of row 0, never active (the JAX package's mesh padding)
+            pairs_np = np.concatenate([pairs_np, np.repeat(pairs_np[:1], pad, 0)])
         self.pairs_all = torch.as_tensor(pairs_np, device=self.device)  # (V,P,2)
         self.cache = init_cache(len(self.combinations), self.C, self.dtype,
                                 self.device)
         self.stats = mem_stats(self.cache)
-        self.active = np.ones(pairs_np.shape[0], dtype=bool)
+        self.active = np.arange(pairs_np.shape[0]) < v
+
+    def _score(self, pairs: Tensor) -> Tensor:
+        if self.scorer == "mem":
+            return score_candidates_mem(self.cache, self.stats, pairs,
+                                        self.C, pair_weights=self.pair_weights)
+        return score_candidates_full(self.cache, pairs, self.C, self.kind,
+                                     self.average_method, self.pair_weights)
 
     def _scores(self) -> Tensor:
-        if self.scorer == "mem":
-            return score_candidates_mem(self.cache, self.stats, self.pairs_all,
-                                        self.C, pair_weights=self.pair_weights)
-        return score_candidates_full(self.cache, self.pairs_all, self.C, self.kind,
-                                     self.average_method, self.pair_weights)
+        return score_sharded(self._score, self.pairs_all, self.group)
 
     def _step(self) -> Tuple[int, float]:
         scores = self._scores()

@@ -17,6 +17,16 @@ Random draws (initial centers, warmup assignment) come from
 ``torch.Generator``s seeded from ``computation.random_seed``; they differ
 from the JAX package's ``jax.random`` draws, so two runs agree only from a
 shared cache past warmup.
+
+Data parallel (``group=``, a ``runtime.Group``, one process per card; the
+JAX package's ``mesh=``): the rank and world size take the place of
+``computation.index``/``total``. In phase A every rank reads all shards
+from its own offset (``node_selection(is_train=True)``, wrapping around),
+so every rank takes the same number of full batches and the all-reduce in
+each step cannot deadlock; every rank starts from rank 0's state and then
+holds the same state after each step; rank 0 writes the ``cache_epoch_*``
+files and the others wait at a barrier.
+Phase B assigns each rank's own shards.
 """
 
 from __future__ import annotations
@@ -31,8 +41,8 @@ import numpy as np
 import torch
 
 from ..config import Config, build_config
-from ..device import resolve_device
 from ..ops import kmeans
+from ..runtime import Group, barrier, broadcast, group_device, placement
 from ..utils.braceexpand import braceexpand
 from ..utils.io import dump_pickle, load_pickle
 from ..utils.manifests import write_run_manifest
@@ -217,13 +227,12 @@ def discover_types(shard_paths) -> Tuple[List[Tuple[str, str]], List[int]]:
     raise RuntimeError("no feature rows found")
 
 
-def train_clusters(cfg):
+def train_clusters(cfg, group: Optional[Group] = None):
     """Phase A. Returns (state, types, dims)."""
-    device = resolve_device(cfg.computation.device)
+    device = group_device(cfg.computation.device, group)
     out_dir = Path(cfg.data.output.path)
     out_dir.mkdir(parents=True, exist_ok=True)
-    index = cfg.computation.index or 0
-    total = cfg.computation.total or 1
+    index, total = placement(cfg.computation.index, cfg.computation.total, group)
     seed = cfg.computation.random_seed or 0
 
     _, all_shards = plan_shards(cfg.data.path, index=index, total=total, suffix=".pkl")
@@ -248,6 +257,9 @@ def train_clusters(cfg):
             dims, cfg.clustering.ncentroids or 32,
             generator=torch.Generator().manual_seed(seed), device=device,
         )
+    # every rank starts from rank 0's centers (the reference all-reduces its
+    # random init, sgd_clustering.py:88-92)
+    broadcast(state.centers, group)
 
     epochs = math.ceil((cfg.clustering.epochs or 2) / total)
     batch_size = cfg.data.batch_size or 1024
@@ -267,22 +279,24 @@ def train_clusters(cfg):
             if len(buf) == batch_size:
                 batch = torch.from_numpy(stack_batch(buf, types, dmax)).to(device)
                 state, _ = kmeans.train_step(state, batch, lr, generator=warmup_gen,
-                                             use_pallas=use_pallas)
+                                             use_pallas=use_pallas, group=group)
                 buf = []
         # drop_last=True in the reference train loader
-        save_centroids(cfg, epoch, state, types, dims)
+        if group is None or group.rank == 0:
+            save_centroids(cfg, epoch, state, types, dims)
+        barrier(group)
     return state, types, dims
 
 
 # -- phase B: assignment ---------------------------------------------------------
 
 def assign_clusters(cfg, state: kmeans.KMeansState,
-                    types: Sequence[Tuple[str, str]]):
-    """Phase B. Returns saved assignment pkl paths."""
+                    types: Sequence[Tuple[str, str]], group: Optional[Group] = None):
+    """Phase B over this process's shards. Returns saved assignment pkl
+    paths."""
     device = state.centers.device
     out_dir = Path(cfg.data.output.path)
-    index = cfg.computation.index or 0
-    total = cfg.computation.total or 1
+    index, total = placement(cfg.computation.index, cfg.computation.total, group)
     mine, _ = plan_shards(cfg.data.path, index=index, total=total, suffix=".pkl")
     mine = [p for p in mine if Path(p).is_file()]
 
@@ -334,7 +348,7 @@ def assign_clusters(cfg, state: kmeans.KMeansState,
     return saved_paths
 
 
-def run_clustering(cfg):
+def run_clustering(cfg, group: Optional[Group] = None):
     """Full stage: train then assign (``run_clustering.py:25-30``)."""
-    state, types, dims = train_clusters(cfg)
-    return assign_clusters(cfg, state, types)
+    state, types, dims = train_clusters(cfg, group)
+    return assign_clusters(cfg, state, types, group)

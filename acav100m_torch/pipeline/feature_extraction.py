@@ -24,8 +24,18 @@ FFmpeg's libraries, ``ffmpeg``, ``opencv`` or ``auto``) and
 ``weights.*_file`` takes a converted flax ``.npz`` or the published
 checkpoints (PySlowFast ``.pyth``/``.pt``/``.pth``, caffe2 ``.pkl``,
 torchvggish ``.pth``), each loaded through its flax tree
-(``models.zoo``). ``computation.quant`` and ``equalize_length`` across
-processes are not ported and raise.
+(``models.zoo``). ``computation.quant`` is not ported and raises.
+
+Data parallel: with ``group=`` (a ``runtime.Group``) each rank extracts its
+own shards, ``plan_shards(index=rank, total=world)`` as in the reference;
+without one, ``computation.index``/``total`` place the process. With
+``computation.equalize_length`` and more than one process, every process
+runs the same number of model steps, counted by ``get_length`` from all
+shards' metadata, and a process whose shards run short steps through
+all-masked batches that write no rows. The JAX package also shards one
+batch over the devices of a mesh inside one program
+(``make_extract_fn(models, mesh)``); that has no counterpart here: a rank
+per card replaces it.
 """
 
 from __future__ import annotations
@@ -41,12 +51,13 @@ import torch
 
 from ..config import Config, build_config
 from ..data.meta import load_metadata
-from ..data.tar_dataset import Prefetcher, make_loader
+from ..data.tar_dataset import Prefetcher, empty_batch, make_loader
 from ..data.video import get_decoder, prepare_clip
 from ..device import resolve_device
 from ..models import compute_dtype, get_model, init_weights, zoo
 from ..models import slowfast as slowfast_mod
 from ..models import vggish as vggish_mod
+from ..runtime import Group, barrier, group_device, placement
 from ..utils.io import (
     load_shard_caches,
     make_feature_row,
@@ -54,7 +65,7 @@ from ..utils.io import (
     save_shard_output,
 )
 from ..utils.manifests import write_run_manifest
-from ..utils.shards import plan_shards
+from ..utils.shards import get_length, plan_shards
 
 DEFAULTS = {
     "models": ["layer_vggish", "layer_slowfast"],
@@ -121,8 +132,6 @@ def _check_supported(cfg) -> None:
     slowfast_mod.check_fast_block(c.fast_block)
     if (c.quant or "none") != "none":
         raise NotImplementedError(f"computation.quant={c.quant} is not ported")
-    if c.equalize_length and (c.total or 1) > 1:
-        raise NotImplementedError("computation.equalize_length is not ported")
 
 
 def build_models(cfg, device=None):
@@ -189,16 +198,17 @@ def _stage(batch: Dict, device, stream) -> Dict:
     return batch
 
 
-def run_extraction(cfg, decoder=None, models=None):
+def run_extraction(cfg, decoder=None, models=None, group: Optional[Group] = None):
     """Extract features for this process's shards. Returns saved paths."""
-    device = resolve_device(cfg.computation.device)
+    device = group_device(cfg.computation.device, group)
     out_dir = Path(cfg.data.output.path)
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    mine, _ = plan_shards(
+    index, total = placement(cfg.computation.index, cfg.computation.total, group)
+    mine, all_shards = plan_shards(
         cfg.data.media.path,
-        index=cfg.computation.index or 0,
-        total=cfg.computation.total or 1,
+        index=index,
+        total=total,
         suffix=".tar",
         discard_remainder=bool(cfg.computation.discard_shards),
     )
@@ -236,9 +246,20 @@ def run_extraction(cfg, decoder=None, models=None):
         skip_shorter_seconds=duration * (cfg.acav.skip_shorter_ratio or 0.25),
     )
     batch_size = cfg.data.batch_size or 16
+    num_workers = cfg.computation.num_workers or 0
+    pad_to_batches = pad_template = None
+    if cfg.computation.equalize_length and total > 1:
+        # the same count on every process: from all shards' metadata
+        # (reference ResizedDataset + get_length, mps/distributed.py:444-461)
+        metas_all, _ = load_metadata(all_shards)
+        sizes_all = [len(metas_all[Path(p).stem]) for p in all_shards
+                     if Path(p).stem in metas_all]
+        pad_to_batches = get_length(sizes_all, batch_size, num_workers, total) // batch_size
+        pad_template = empty_batch(batch_size, num_frames=cfg.data.media.num_frames or 32,
+                                   size=cfg.data.media.size or 256)
     loader = make_loader(mine, metas, batch_size, skip_lists=skip_lists,
-                         decoder=decoder, prepare=prepare,
-                         num_workers=cfg.computation.num_workers or 0)
+                         decoder=decoder, prepare=prepare, num_workers=num_workers,
+                         pad_to_batches=pad_to_batches, pad_template=pad_template)
 
     rows: Dict[str, "OrderedDict[str, Dict]"] = defaultdict(OrderedDict)
     shard_sizes: Dict[str, int] = {}
@@ -307,7 +328,7 @@ def run_extraction(cfg, decoder=None, models=None):
                     and len(rows[shard_name]) >= shard_sizes[shard_name]):
                 save_shard(shard_name)
         if cfg.log_period and (n_iter + 1) % cfg.log_period == 0:
-            print(f"[extract idx={cfg.computation.index}] iter {n_iter + 1} "
+            print(f"[extract idx={index}] iter {n_iter + 1} "
                   f"({time.time() - t0:.1f}s)")
 
     # final pass: flush shards >= shard_ok_ratio complete
@@ -319,4 +340,5 @@ def run_extraction(cfg, decoder=None, models=None):
             save_shard(shard_name)
 
     write_run_manifest(out_dir, saved_paths)
+    barrier(group)
     return saved_paths

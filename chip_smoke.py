@@ -42,7 +42,17 @@ Phases, each printing its own lines:
    score; D4 ``compare_measures`` and ``compare_dtypes``; D5 contrastive
    selection on path B's feature pkls, its scores on the card against the
    CPU's (TF32 off), and ``merge_contrastive_csvs``. Stage 6 has no
-   hand-written kernel: path D launches none.
+   hand-written kernel: path D launches none;
+7. path E, data parallelism (``acav100m_torch.runtime``) on path B's and
+   D's inputs: E1 path B's cluster training through a one-rank NCCL group,
+   bit-equal to path B's, with one all-reduce of the deltas and one
+   sharded step timed; then 2 spawned ranks sharing ``cuda:0`` over gloo
+   (NCCL refuses two ranks on one device): E2 post-warmup cluster steps of
+   2 x 1024 rows against one rank's step on the 2048 rows, E3 the
+   selectors (``batch_mi``, ``mi`` and ``ami`` full-table, float64) against
+   one rank's picks, E4 equalized extraction of 3 npz shards x 4 clips
+   against a one-rank run. With more than one card, E1 and E2 run again
+   over NCCL on ``min(count, 4)`` cards.
 
 Then one JSON line of per-kernel results and, last, the device JSON line.
 Any failed check raises, so the script exits non-zero. Without a CUDA
@@ -53,11 +63,14 @@ from __future__ import annotations
 
 import copy
 import functools
+import hashlib
 import io
 import json
 import math
+import multiprocessing
 import pickle
 import shutil
+import socket
 import subprocess
 import sys
 import tarfile
@@ -67,7 +80,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from acav100m_torch import cli
+from acav100m_torch import cli, runtime
 from acav100m_torch.ablate_k1 import COLD_SETS, TAP_DIMS, k1_inputs
 from acav100m_torch.models import init_weights, zoo
 from acav100m_torch.models.slowfast import LayerSlowFast, ResBlock
@@ -829,17 +842,6 @@ def cluster_step_breakdown(shard: Path) -> None:
     rows = load_pickle(shard)[:1024]
     types, dims = clustering.discover_types([shard])
     dmax = max(dims)
-
-    def host_ms(fn, reps=5):
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return sorted(times)[reps // 2]
-
     stacked = clustering.stack_batch(rows, types, dmax)
     batch = torch.from_numpy(stacked).cuda()
     state = kmeans.init_state(dims, 32, generator=torch.Generator().manual_seed(0),
@@ -1053,6 +1055,369 @@ def main_path_d() -> None:
     log(f"path D launches {counts()} (stage 6 has no hand-written kernel); {card()}")
 
 
+# -- phase 7: path E, data parallelism across processes ------------------------------
+
+E_STEPS = 3  # E2's post-warmup steps
+E_GREEDY_STEPS = 64  # E3's full-table greedy steps
+E_RANK_LIMIT_S = 600
+
+
+def free_address() -> str:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"tcp://127.0.0.1:{s.getsockname()[1]}"
+
+
+def path_b_cache() -> Path:
+    return WORK / "b" / "clusters" / f"cache_epoch_1_{SPEC}.pkl"
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host time of ``fn()`` ended by a device synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def global_rows() -> np.ndarray:
+    """Path B's 2048 feature rows stacked into the padded (10, 2048, 2304)
+    batch, shard 0 first."""
+    from acav100m_torch.pipeline import clustering
+
+    shards = [WORK / "b" / "features" / f"shard-{si:06d}.pkl" for si in range(2)]
+    types, dims = clustering.discover_types(shards)
+    rows = [r for p in shards for r in load_pickle(p)]
+    return clustering.stack_batch(rows, types, max(dims))
+
+
+def path_e1_nccl_one_rank() -> dict:
+    """Path B's cluster training again through a one-rank NCCL group: the
+    state must be bit-equal to path B's; then one all-reduce of the deltas
+    and one sharded step, timed."""
+    from acav100m_torch.ops import kmeans
+    from acav100m_torch.pipeline import clustering
+
+    group = runtime.initialize_runtime(free_address(), 1, 0, device="cuda:0")
+    try:
+        check(group.backend == "nccl", "E1 runs over NCCL")
+        cfg = clustering.get_config({"data.path": f"{WORK}/b/features/{SPEC}.pkl",
+                                     "data.output.path": str(WORK / "e" / "clusters")})
+        reset_counts()
+        t0 = time.time()
+        state, _, _ = clustering.train_clusters(cfg, group)
+        t_train = time.time() - t0
+        launches = counts()
+        want, _, _ = clustering.load_centroids(path_b_cache())
+        written, _, _ = clustering.load_centroids(WORK / "e" / "clusters" / path_b_cache().name)
+        same = all(torch.equal(getattr(s, f).cpu(), getattr(want, f))
+                   for s in (state, written) for f in ("centers", "counts", "fallback"))
+        check(same and state.count == written.count == want.count,
+              "E1: the one-rank NCCL state bit-equal to path B's")
+        check(launches["kmeans_assign_update"] == 3, "E1: K1 launched on steps 2-4")
+        deltas = torch.randn(tuple(state.centers.shape), device=group.device)
+        t_reduce = time_ms(lambda: runtime.all_reduce_sum(deltas, group))
+        batch = torch.from_numpy(global_rows()[:, :N_PER_SHARD]).to(group.device)
+        reset_counts()
+        t_step = host_ms(lambda: kmeans.train_step(state, batch, 0.01, group=group))
+        launches["kmeans_assign_update"] += counts()["kmeans_assign_update"]
+        log(f"path E1, cluster (path B's config) through a one-rank NCCL group: {t_train:.2f} s, "
+            f"state and cache_epoch_1 bit-equal to path B's; one all-reduce of the "
+            f"{deltas.numel() * 4 / 1e6:.2f} MB deltas {t_reduce:.4f} ms (CUDA events, median of "
+            f"20); one sharded train_step of {N_PER_SHARD} rows {t_step:.3f} ms (host, median of "
+            f"5); launches {launches}; {card()}")
+        return launches
+    finally:
+        runtime.shutdown_runtime(group)
+
+
+def e2_rank(group, root: Path) -> dict:
+    """Post-warmup cluster steps from path B's state, this rank on its
+    slice of path B's 2048 rows; K1's assignments of them at each step."""
+    from acav100m_torch.ops import kmeans
+    from acav100m_torch.pipeline import clustering
+
+    state, _, _ = clustering.load_centroids(path_b_cache(), group.device)
+    stacked = global_rows()
+    per = stacked.shape[1] // group.world_size
+    local = torch.from_numpy(np.ascontiguousarray(
+        stacked[:, group.rank * per:(group.rank + 1) * per])).to(group.device)
+    reset_counts()
+    times = []
+    for i in range(E_STEPS):
+        threshold = kmeans._threshold(state.count, state.centers.shape[1], 0.7)
+        best = fused_assign_update(state.centers, state.counts, local, threshold,
+                                   dims=state.dims)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = kmeans.train_step(state, local, 0.01, group=group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        np.savez(root / f"e2_rank{group.rank}_step{i}.npz", best=best.cpu().numpy(),
+                 centers=state.centers.cpu().numpy(), counts=state.counts.cpu().numpy())
+    deltas = torch.randn(tuple(state.centers.shape), device=group.device)
+    t_reduce = host_ms(lambda: runtime.all_reduce_sum(deltas, group), reps=20)
+    return {"count": state.count, "step_ms": times, "all_reduce_ms": t_reduce,
+            "launches": counts()}
+
+
+def e2_check(results: list, root: Path) -> None:
+    """The ranks' steps against one rank's step on all 2048 rows: K1's
+    assignments equal on every row without a 1e-4 near-tie; while every row
+    agrees, counts equal and centers within 1e-5 of their max; the ranks'
+    states bit-identical to each other."""
+    from acav100m_torch.ops import kmeans
+    from acav100m_torch.pipeline import clustering
+
+    world = len(results)
+    state, _, _ = clustering.load_centroids(path_b_cache(), "cuda")
+    batch = torch.from_numpy(global_rows()).cuda()
+    agree = True
+    for i in range(E_STEPS):
+        k = state.centers.shape[1]
+        threshold = kmeans._threshold(state.count, k, 0.7)
+        # comparison launches, not counted
+        want_best = fused_assign_update(state.centers, state.counts, batch, threshold,
+                                        dims=state.dims)[0]
+        dist = discounted_distances(state.centers, state.counts, batch, threshold)
+        two = dist.topk(2, dim=-1, largest=False).values
+        decisive = ((two[..., 1] - two[..., 0]) > 1e-4 * two[..., 0].abs()).cpu().numpy()
+        state, _ = kmeans.train_step(state, batch, 0.01)
+        ranks = [np.load(root / f"e2_rank{r}_step{i}.npz") for r in range(world)]
+        best = np.concatenate([r["best"] for r in ranks], axis=1)
+        differ = best != want_best.cpu().numpy()
+        flips, near = int((differ & decisive).sum()), int((differ & ~decisive).sum())
+        check(flips == 0, f"E2 step {i}: K1's assignments on decisive rows")
+        for r in ranks[1:]:
+            check(all(np.array_equal(r[f], ranks[0][f]) for f in ("centers", "counts")),
+                  f"E2 step {i}: every rank holds the same state")
+        agree = agree and near == 0
+        if agree:
+            want_c = state.centers.cpu().numpy()
+            err = float(np.abs(ranks[0]["centers"] - want_c).max() / np.abs(want_c).max())
+            check(np.array_equal(ranks[0]["counts"], state.counts.cpu().numpy()),
+                  f"E2 step {i}: counts equal")
+            check(err <= 1e-5, f"E2 step {i}: centers within 1e-5 of their max ({err:.2e})")
+            log(f"path E2 step {i}: assignments equal on all {best.size} rows, counts equal, "
+                f"centers within {err:.2e} of their max")
+        else:
+            log(f"path E2 step {i}: {near} near-tie rows assigned otherwise; counts and "
+                f"centers not compared from here on")
+    check(all(r["count"] == state.count for r in results), "E2: count advanced by 2048 a step")
+
+
+def e3_rank(group) -> dict:
+    """Path D's selectors with the candidates split over the ranks."""
+    a, _, combos, ncentroids, start = path_b_partition()
+    out = {}
+    rng = np.random.RandomState(0)
+    rng.shuffle(np.arange(len(a)))
+    sel = mi.BatchGreedySelector(a, combos, ncentroids, batch_size=20, selection_size=4,
+                                 rng=rng, dtype="float64", group=group)
+    picks, gains, lapse, _ = sel.run_greedy(round(0.2 * len(a)), [start])
+    out["batch_mi"] = {"picks": picks, "gains": gains, "ms": 1e3 * float(np.median(lapse))}
+    for kind in ("mi", "ami"):
+        torch.cuda.reset_peak_memory_stats(group.device)
+        sel = mi.GreedySelector(a, combos, ncentroids, kind=kind, scorer="full",
+                                dtype="float64", group=group)
+        picks, gains, lapse, _ = sel.run_greedy(E_GREEDY_STEPS + 2, [start], fold_start=False)
+        out[kind] = {"picks": picks, "gains": gains, "ms": 1e3 * float(np.median(lapse)),
+                     "peak_gib": torch.cuda.max_memory_allocated(group.device) / 2**30}
+    return out
+
+
+def e3_check(results: list) -> None:
+    """Each rank's picks against the single-rank card run's: equal, or where
+    they part, both picks maxima within 1e-12 (float64); the full-table
+    picks replayed through the single-rank scorer, each a maximum within
+    1e-12 of the step's best."""
+    a, _, combos, ncentroids, start = path_b_partition()
+    for r in results[1:]:
+        check(all(r[k]["picks"] == results[0][k]["picks"] and r[k]["gains"] == results[0][k]["gains"]
+                  for k in r), "E3: every rank picks the same")
+    got = results[0]
+    rng = np.random.RandomState(0)
+    rng.shuffle(np.arange(len(a)))
+    sel = mi.BatchGreedySelector(a, combos, ncentroids, batch_size=20, selection_size=4,
+                                 rng=rng, dtype="float64", device="cuda")
+    picks, gains, lapse, _ = sel.run_greedy(round(0.2 * len(a)), [start])
+    lines = []
+    same = 0
+    for i in range(0, len(picks), 4):
+        if picks[i:i + 4] == got["batch_mi"]["picks"][i:i + 4]:
+            same += len(picks[i:i + 4])
+            continue
+        check(np.allclose(sorted(gains[i:i + 4]), sorted(got["batch_mi"]["gains"][i:i + 4]),
+                          rtol=0, atol=1e-12), "E3 batch_mi: differing winners tie")
+        break
+    lines.append(f"batch_mi {same} of {len(picks)} picks equal before any difference, "
+                 f"{got['batch_mi']['ms']:.3f} ms a round (single rank "
+                 f"{1e3 * np.median(lapse):.3f})")
+    for kind in ("mi", "ami"):
+        torch.cuda.reset_peak_memory_stats()
+        single = mi.GreedySelector(a, combos, ncentroids, kind=kind, scorer="full",
+                                   dtype="float64", device="cuda")
+        picks, _, lapse, _ = single.run_greedy(E_GREEDY_STEPS + 2, [start], fold_start=False)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        replay = mi.GreedySelector(a, combos, ncentroids, kind=kind, scorer="full",
+                                   dtype="float64", device="cuda")
+        replay.active[start] = False
+        worst = 0.0
+        for pick in got[kind]["picks"][1:]:
+            scores = replay.scores()
+            scores[~replay.active] = -np.inf
+            worst = max(worst, float(scores.max() - scores[pick]))
+            replay.add_samples([pick])
+        n_same = next((i for i, (u, v) in enumerate(zip(picks, got[kind]["picks"]))
+                       if u != v), len(picks))
+        check(worst <= 1e-12, f"E3 {kind}: every pick a maximum within 1e-12")
+        lines.append(f"{kind} {n_same} of {len(picks)} picks equal, every pick a maximum "
+                     f"within {worst:.1e}, {got[kind]['ms']:.3f} ms a step (single rank "
+                     f"{1e3 * np.median(lapse):.3f}), peak {got[kind]['peak_gib']:.3f} GiB a "
+                     f"rank (single rank {peak:.3f})")
+    log(f"path E3, selectors at V={len(a)}, P={len(combos)}, C={ncentroids} in float64, "
+        f"{len(results)} ranks against one: " + "; ".join(lines))
+
+
+def e4_rank(group) -> dict:
+    """Equalized extraction of path E's clips over the ranks."""
+    root = WORK / "e"
+    cfg = fe.get_config({"data.media.path": f"{root}/clips/shard-{{000000..000002}}.tar",
+                         "data.output.path": str(root / "features_ranks"),
+                         "data.batch_size": 4, "computation.equalize_length": True})
+    models = fe.build_models(cfg, group.device)
+    steps = []
+    models["layer_slowfast"].register_forward_hook(lambda *_: steps.append(1))
+    reset_counts()
+    t0 = time.time()
+    saved = fe.run_extraction(cfg, models=models, group=group)
+    return {"steps": len(steps), "saved": sorted(Path(p).name for p in saved),
+            "seconds": time.time() - t0, "launches": counts()}
+
+
+def e4_check(results: list, root: Path) -> None:
+    """Equal step counts, every shard once, taps within 1e-4 of a one-rank
+    run's."""
+    cfg = fe.get_config({"data.media.path": f"{root}/clips/shard-{{000000..000002}}.tar",
+                         "data.output.path": str(root / "features_one"), "data.batch_size": 4})
+    t0 = time.time()
+    fe.run_extraction(cfg)
+    t_one = time.time() - t0
+    check(len({r["steps"] for r in results}) == 1, "E4: every rank steps the same number of times")
+    saved = sorted(n for r in results for n in r["saved"])
+    check(saved == [f"shard-{i:06d}.pkl" for i in range(3)],
+          f"E4: every shard saved once ({[r['saved'] for r in results]})")
+    one = check_features(root / "features_one", 12)
+    ranks = check_features(root / "features_ranks", 12)
+    check(set(one) == set(ranks), "E4: the same clips and taps")
+    err = max(float(np.abs(ranks[k] - one[k]).max() / max(np.abs(one[k]).max(), 1e-30))
+              for k in one)
+    check(err <= 1e-4, f"E4: taps within 1e-4 of the one-rank run's ({err:.2e})")
+    for r in results:
+        check(r["launches"]["bottleneck_stage"] > 0, "E4: K2 launched on every rank")
+    log(f"path E4, equalized extraction of 3 shards x 4 clips over {len(results)} ranks: "
+        f"steps {[r['steps'] for r in results]}, K2 launches "
+        f"{[r['launches']['bottleneck_stage'] for r in results]}, "
+        f"{[round(r['seconds'], 2) for r in results]} s a rank (model build not included); "
+        f"one rank {t_one:.2f} s (model build included); taps within {err:.2e} of the "
+        f"one-rank run's")
+
+
+def path_e_rank(rank: int, world: int, address: str, backend: str, device: str,
+                scenarios, root: str) -> None:
+    """One rank of path E (a spawned process): joins the group, runs the
+    scenarios, writes its results."""
+    root = Path(root)
+    group = runtime.initialize_runtime(address, world, rank, device=device, backend=backend,
+                                       timeout_s=E_RANK_LIMIT_S)
+    out = {}
+    try:
+        if "e1" in scenarios:
+            from acav100m_torch.pipeline import clustering
+
+            cfg = clustering.get_config({"data.path": f"{WORK}/b/features/{SPEC}.pkl",
+                                         "data.output.path": str(root / "clusters_ranks")})
+            state, _, _ = clustering.train_clusters(cfg, group)
+            out["e1"] = {"sha256": hashlib.sha256(state.centers.cpu().numpy().tobytes()
+                                                  + state.counts.cpu().numpy().tobytes()
+                                                  ).hexdigest(), "count": state.count}
+        if "e2" in scenarios:
+            out["e2"] = e2_rank(group, root)
+        if "e3" in scenarios:
+            out["e3"] = e3_rank(group)
+        if "e4" in scenarios:
+            out["e4"] = e4_rank(group)
+    finally:
+        runtime.shutdown_runtime(group)
+    (root / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def spawn_ranks(world: int, backend: str, devices, scenarios, root: Path) -> list:
+    """``world`` spawned ranks of ``path_e_rank``; fails on a rank's exit code
+    or past the limit, and returns each rank's results."""
+    root.mkdir(parents=True, exist_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    address = free_address()
+    procs = [ctx.Process(target=path_e_rank, args=(r, world, address, backend, devices[r],
+                                                     list(scenarios), str(root)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + E_RANK_LIMIT_S
+    for p in procs:
+        p.join(timeout=max(1.0, deadline - time.time()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join(timeout=10)
+    check(not alive, f"path E ranks within {E_RANK_LIMIT_S} s")
+    check(all(p.exitcode == 0 for p in procs),
+          f"path E ranks exit codes {[p.exitcode for p in procs]}")
+    return [json.loads((root / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def main_path_e() -> dict:
+    """Path E on path B's feature pkls and assignments; returns its launches."""
+    root = WORK / "e"
+    launches = path_e1_nccl_one_rank()
+    write_npz_shards(root / "clips", n_shards=3, per_shard=4)
+    t0 = time.time()
+    results = spawn_ranks(2, "gloo", ["cuda:0", "cuda:0"], ("e2", "e3", "e4"), root / "gloo")
+    log(f"path E, 2 ranks sharing cuda:0 over gloo: {time.time() - t0:.1f} s from spawn to "
+        f"exit")
+    e2 = [r["e2"] for r in results]
+    log(f"path E2, {E_STEPS} post-warmup cluster steps of 2 x {N_PER_SHARD} rows over gloo "
+        f"(both ranks on cuda:0): ms a step {[[round(t, 3) for t in r['step_ms']] for r in e2]}, "
+        f"one all-reduce of the deltas {[round(r['all_reduce_ms'], 3) for r in e2]} ms "
+        f"(host, median of 20); {card()}")
+    e2_check(e2, root / "gloo")
+    e3_check([r["e3"] for r in results])
+    e4_check([r["e4"] for r in results], root)
+    for r in results:
+        for part in ("e2", "e4"):
+            for name, n in r[part]["launches"].items():
+                launches[name] += n
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        world = min(n_cards, 4)
+        results = spawn_ranks(world, "nccl", [f"cuda:{r}" for r in range(world)], ("e1", "e2"),
+                              root / "nccl")
+        check(len({json.dumps(r["e1"]) for r in results}) == 1,
+              "E1 over NCCL: every rank holds the same state")
+        e2_check([r["e2"] for r in results], root / "nccl")
+        log(f"path E over NCCL, {world} ranks on {world} cards: E1 states equal; E2 ms a step "
+            f"{[[round(t, 3) for t in r['e2']['step_ms']] for r in results]}, all-reduce "
+            f"{[round(r['e2']['all_reduce_ms'], 3) for r in results]} ms")
+        for r in results:
+            for name, n in r["e2"]["launches"].items():
+                launches[name] += n
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1088,6 +1453,10 @@ def main() -> int:
     t0 = time.time()
     main_path_d()
     log(f"path D total {time.time() - t0:.1f} s")
+    t0 = time.time()
+    for name, n in main_path_e().items():
+        launches[name] += n
+    log(f"path E total {time.time() - t0:.1f} s")
     shutil.rmtree(WORK, ignore_errors=True)
     kernels = []
     for name, _, replaces in KERNELS:

@@ -191,9 +191,7 @@ def test_bf16_build_keeps_float32_weights_and_writes_float32_pkls(tmp_path):
 
 
 @pytest.mark.parametrize("override", [{"computation.dtype": "float16"},
-                                      {"computation.quant": "int8"},
-                                      {"computation.equalize_length": True,
-                                       "computation.total": 2}])
+                                      {"computation.quant": "int8"}])
 def test_what_is_not_ported_still_raises(override):
     cfg = tfe.get_config({"computation.device": "cpu", **override})
     with pytest.raises(NotImplementedError):

@@ -1,5 +1,6 @@
-"""The port's import boundary and device rule: ``acav100m_torch`` and
-``chip_smoke`` load no jax/flax/optax/acav100m_tpu module, and an entry
+"""The port's import boundary and device rule: ``acav100m_torch``,
+``chip_smoke`` and the distributed tests' rank helper load no
+jax/flax/optax/acav100m_tpu module, and an entry
 point left on its default device (cuda) raises when no CUDA device exists;
 ``acav100m_torch.data``, which spawned decode workers import, loads no
 torch."""
@@ -24,6 +25,7 @@ names = [m.name for m in pkgutil.walk_packages(acav100m_torch.__path__, "acav100
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import tests.torch_dist_workers
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "acav100m_tpu"))
 print(json.dumps({"modules": names, "bad": bad}))
@@ -41,7 +43,8 @@ def test_port_imports_no_jax():
                 "acav100m_torch.pipeline.clustering",
                 "acav100m_torch.pipeline.subset_selection",
                 "acav100m_torch.ops.kmeans_kernel",
-                "acav100m_torch.ops.bottleneck_kernel", "acav100m_torch.cli"):
+                "acav100m_torch.ops.bottleneck_kernel", "acav100m_torch.cli",
+                "acav100m_torch.runtime.mesh"):
         assert mod in res["modules"]
 
 

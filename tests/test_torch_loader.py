@@ -23,7 +23,7 @@ from acav100m_torch.data import tar_dataset as ttd
 from acav100m_torch.data import video as tvideo
 from acav100m_torch.data.meta import load_metadata
 
-from .torch_workers import crash_once_decoder
+from .torch_workers import crash_once_decoder, die_holding_queue_lock
 
 LIMIT_S = 120
 
@@ -118,6 +118,26 @@ def test_killed_worker_shards_are_requeued(tmp_path):
     assert (tmp_path / "crashed").exists(), "the crash never happened"
     assert sorted(seen) == sorted(expected), "clips lost or delivered twice"
     assert any("requeuing" in str(w.message) for w in caught)
+
+
+def test_worker_killed_holding_its_queue_lock_stalls_no_other(tmp_path):
+    """A worker killed while a queue's write lock is taken (its feeder thread
+    mid-write) must not block the other workers: each writes to a queue of
+    its own, so every clip still arrives exactly once."""
+    tcli.write_fixtures(tmp_path, num_shards=4, clips_per_shard=6, size=16)
+    shards = sorted(tmp_path.glob("shard-*.tar"))
+    metas, _ = load_metadata(shards)
+    expected = {row["filename"] for m in metas.values() for row in m.values()}
+    decoder = functools.partial(die_holding_queue_lock, marker_path=str(tmp_path / "crashed"),
+                                crash_after=3)
+    loader = ttd.make_loader(shards, metas, batch_size=4, decoder=decoder, prefetch=0,
+                             num_workers=2, buffer_samples=8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        seen = [fn for batch in loader
+                for fn, real in zip(batch["filename"], batch["batch_mask"]) if real]
+    assert (tmp_path / "crashed").exists(), "the crash never happened"
+    assert sorted(seen) == sorted(expected), "clips lost or delivered twice"
 
 
 def test_skip_lists_hold_in_workers(tmp_path):

@@ -134,8 +134,10 @@ def test_greedy_selector_matches_jax(kind, scorer, dtype, tol):
 
 def test_mem_and_full_mi_pick_alike_in_the_port():
     a, combos = _problem(GREEDY_SEED, v=80, d=4, c=8)
-    mem = tmi.GreedySelector(a, combos, ncentroids=8, scorer="mem", dtype="float64")
-    full = tmi.GreedySelector(a, combos, ncentroids=8, scorer="full", dtype="float64")
+    mem = tmi.GreedySelector(a, combos, ncentroids=8, scorer="mem", dtype="float64",
+                             device="cpu")
+    full = tmi.GreedySelector(a, combos, ncentroids=8, scorer="full", dtype="float64",
+                              device="cpu")
     s_mem, g_mem, _, _ = mem.run_greedy(40, START)
     s_full, g_full, _, _ = full.run_greedy(40, START)
     assert s_mem == s_full
@@ -144,7 +146,7 @@ def test_mem_and_full_mi_pick_alike_in_the_port():
 
 def test_greedy_selector_without_fold_keeps_an_empty_cache():
     a, combos = _problem(3, v=30, d=4, c=8)
-    ts = tmi.GreedySelector(a, combos, ncentroids=8, dtype="float64")
+    ts = tmi.GreedySelector(a, combos, ncentroids=8, dtype="float64", device="cpu")
     sel, _, _, _ = ts.run_greedy(5, [7], fold_start=False)
     # the singleton takes an output slot only; the mem scorer's first pick
     # is the first active index, every score tying exactly
@@ -229,3 +231,15 @@ def test_compare_defaults_raise_without_cuda(tmp_path):
         tss.compare_measures(tss.get_config({"data.path": str(tmp_path / "shard-000000.pkl")}))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tss.compare_dtypes(a, combos, ncentroids=4, subset_size=5)
+
+
+def test_selector_defaults_raise_without_cuda():
+    """The selectors resolve their default device as every entry point does:
+    ``cuda``, raising where there is no card, never a silent CPU run."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    a, combos = _problem(5, v=20, d=3, c=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmi.GreedySelector(a, combos, ncentroids=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmi.BatchGreedySelector(a, combos, ncentroids=4)

@@ -63,7 +63,8 @@ def test_modify_k_grows_k_without_keep_unselected():
     combos = get_cluster_pairing([(str(i), "x") for i in range(D)], "combination")
     for keep, want in ((True, 2), (False, 15)):
         ts = tmi.BatchGreedySelector(a, combos, ncentroids=C, batch_size=B,
-                                     selection_size=2, keep_unselected=keep, seed=0)
+                                     selection_size=2, keep_unselected=keep, seed=0,
+                                     device="cpu")
         js = jmi.BatchGreedySelector(a, combos, ncentroids=C, batch_size=B,
                                      selection_size=2, keep_unselected=keep, seed=0)
         assert ts.modify_k(150) == js.modify_k(150) == want

@@ -2,10 +2,13 @@
 ``data.decoder=native`` over the same two shards of mpeg4 + AAC clips and
 the same weights, the port decoding in two spawned workers. Arrival is
 unordered there, so rows are matched by filename; every tap agrees within
-1e-4 of its max, the tolerance of ``test_extract_matches_jax``."""
+1e-4 of its max, the tolerance of ``test_extract_matches_jax``. The test
+runs under a time limit of its own, so a hung decode worker fails it
+instead of stalling the run."""
 
 import io
 import json
+import signal
 import tarfile
 from collections import OrderedDict
 
@@ -28,6 +31,21 @@ from .torch_parity import random_variables
 torch.set_num_threads(1)
 
 SPEC = "shard-{000000..000001}"
+LIMIT_S = 300
+
+
+@pytest.fixture(autouse=True)
+def time_limit():
+    def expire(signum, frame):
+        raise TimeoutError(f"mp4 extract test ran past {LIMIT_S} s")
+
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(LIMIT_S)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
 
 
 @pytest.fixture(scope="module")

@@ -161,7 +161,7 @@ def test_full_measure_select_picks_maxima(measure_assignments, measure):
     start, subset = int(candidates[0]), round(0.2 * len(a))
     ncentroids = int(a.max()) + 1
     ts = tmi.GreedySelector(a, combos, ncentroids, kind=measure, scorer="full",
-                            dtype="float64")
+                            dtype="float64", device="cpu")
     picks, _, _, _ = ts.run_greedy(subset, [start], fold_start=False)
     js = jmi.GreedySelector(a, combos, ncentroids, kind=measure, scorer="full",
                             dtype="float64")

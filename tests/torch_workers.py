@@ -2,6 +2,8 @@
 their own that imports only the port, so a spawned decode worker that
 unpickles one imports neither JAX nor the test files."""
 
+import gc
+import multiprocessing.queues
 import os
 from pathlib import Path
 
@@ -19,5 +21,22 @@ def crash_once_decoder(data, marker_path, crash_after=3):
     marker = Path(marker_path)
     if _decoded >= crash_after and not marker.exists():
         marker.touch()
+        os._exit(1)
+    return decode_npz(data)
+
+
+def die_holding_queue_lock(data, marker_path, crash_after=3):
+    """decode_npz that, on its ``crash_after``-th decode (once across all
+    processes), takes the write lock of every queue in its worker and then
+    hard-kills the worker: the locks stay taken for good, as when a worker
+    is killed while its queue's feeder thread is writing a message."""
+    global _decoded
+    _decoded += 1
+    marker = Path(marker_path)
+    if _decoded >= crash_after and not marker.exists():
+        marker.touch()
+        for obj in gc.get_objects():
+            if isinstance(obj, multiprocessing.queues.Queue):
+                obj._wlock.acquire()
         os._exit(1)
     return decode_npz(data)
