@@ -171,14 +171,9 @@ class Prefetcher:
 
 def _sample_to_shm(sample: Dict) -> Dict:
     """Move a decoded sample's arrays into a SharedMemory segment; return a
-    small picklable descriptor.
-
-    A worker hard-killed mid-write could tear a multi-MB pickled sample in
-    the queue's pipe, and the consumer would then block forever on the
-    missing bytes. Pipe writes up to PIPE_BUF are atomic, so the queue
-    carries only this sub-KB descriptor and the ~6 MB of frames and audio
-    ride shared memory.
-    """
+    small picklable descriptor: the worker's pipe carries that, and the
+    ~6 MB of frames and audio are written once and read once instead of
+    pickled through the pipe."""
     from multiprocessing import shared_memory
 
     arrays = {k: np.asarray(v) for k, v in sample.items()
@@ -218,21 +213,24 @@ def _sample_from_shm(payload: Dict) -> Dict:
     return sample
 
 
-def _stream_worker(wid, shard_paths, metas, skip_lists, decoder, prepare, q):
+def _stream_worker(wid, shard_paths, metas, skip_lists, decoder, prepare, conn, slots):
     """Persistent decode worker (a spawned process): streams its shards
-    sample by sample onto its own bounded queue, with ``shard_done`` after
-    each completed shard so the consumer can requeue only the unfinished
-    rest on failure."""
+    sample by sample down its own pipe, taking one of ``slots`` for each
+    sample (the consumer gives it back on receipt), with ``shard_done``
+    after each completed shard so the consumer can requeue only the
+    unfinished rest on failure."""
     try:
         for shard_path in shard_paths:
             ds = TarShardDataset([shard_path], metas, skip_lists, decoder, prepare)
             for sample in ds:
-                q.put(("sample", _sample_to_shm(sample)))
-            q.put(("shard_done", (wid, Path(shard_path).stem)))
+                slots.acquire()
+                conn.send(("sample", _sample_to_shm(sample)))
+            conn.send(("shard_done", (wid, Path(shard_path).stem)))
     except Exception as e:  # reported to the consumer, which requeues
-        q.put(("error", (wid, f"{type(e).__name__}: {e}")))
+        conn.send(("error", (wid, f"{type(e).__name__}: {e}")))
     finally:
-        q.put(("done", wid))
+        conn.send(("done", wid))
+        conn.close()
 
 
 def _pooled_stream(
@@ -248,24 +246,27 @@ def _pooled_stream(
 ) -> Iterator[Dict]:
     """Stream samples from ``num_workers`` persistent decode processes.
 
-    Each worker has a queue of its own, of ``buffer_samples // num_workers``
-    decoded clips (each a shared-memory segment, ~6.3 MB at production
-    shapes), whatever the shard size. One shared queue is not safe: a
-    worker killed while its queue's feeder thread holds the queue's write
-    lock leaves the lock taken for good, so every other writer blocks while
-    staying alive. Arrival is unordered across workers, as with the
-    reference's DataLoader workers.
+    Each worker writes to a pipe of its own, with at most
+    ``buffer_samples // num_workers`` decoded clips (each a shared-memory
+    segment, ~6.3 MB at production shapes) sent and not yet received,
+    whatever the shard size: a semaphore of its own counts them. The
+    consumer holds no copy of a worker's write end, so a worker that dies,
+    even in the middle of a message, leaves end of file on its pipe, and
+    nothing a dying worker holds is shared with another worker. (One
+    ``Queue`` shared by all workers is not safe: a worker killed while its
+    feeder thread holds the queue's write lock leaves that lock taken for
+    good, and every other writer blocks while staying alive.) Arrival is
+    unordered across workers, as with the reference's DataLoader workers.
 
-    When a worker reports an error, or dies without a word (its process
-    sentinel), what it queued before is read, then its unfinished shards
-    are requeued onto a new worker, the partly streamed shard resumed
-    exactly once through a skip list of the filenames already delivered. A
-    shard that fails ``shard_retries`` workers in a row is dropped with a
-    warning.
+    When a worker reports an error, or its pipe ends before its ``done``,
+    what it sent before is read, then its unfinished shards are requeued
+    onto a new worker, the partly streamed shard resumed exactly once
+    through a skip list of the filenames already delivered. A shard that
+    fails ``shard_retries`` workers in a row is dropped with a warning.
     """
     import multiprocessing as mp
-    import queue as queue_mod
     from collections import defaultdict
+    from multiprocessing import shared_memory
     from multiprocessing.connection import wait
 
     from ..utils.shards import worker_selection
@@ -287,15 +288,17 @@ def _pooled_stream(
                        | yielded[name])
             for name in {Path(p).stem for p in sub_paths}
         }
-        q = ctx.Queue(maxsize=per_worker)
+        reader, writer = ctx.Pipe(duplex=False)
+        slots = ctx.BoundedSemaphore(per_worker)
         p = ctx.Process(
             target=_stream_worker,
-            args=(wid, list(sub_paths), metas, skips, decoder, prepare, q),
+            args=(wid, list(sub_paths), metas, skips, decoder, prepare, writer, slots),
             daemon=True,
         )
         p.start()
-        workers[wid] = {"proc": p, "queue": q, "shards": list(sub_paths),
-                        "completed": set(), "done": False}
+        writer.close()  # the worker's copy is the only one: its death is EOF
+        workers[wid] = {"proc": p, "conn": reader, "slots": slots,
+                        "shards": list(sub_paths), "completed": set(), "done": False}
 
     def handle_failure(wid, reason):
         st = workers[wid]
@@ -322,29 +325,43 @@ def _pooled_stream(
         if requeue:
             launch(requeue)
 
+    def received(conn):
+        """The whole messages on ``conn`` now, without blocking on a new
+        one; then None once the pipe has ended (EOF, or a message cut
+        short by its writer's death)."""
+        while conn.poll():
+            try:
+                yield conn.recv()
+            except (EOFError, OSError):
+                yield None
+                return
+
+    def unlink(payload):
+        if payload.get("shm"):
+            try:
+                seg = shared_memory.SharedMemory(name=payload["shm"])
+                seg.close()
+                seg.unlink()
+            except FileNotFoundError:
+                pass
+
     for w in range(num_workers):
         launch(worker_selection(list(shard_paths), w, num_workers))
 
-    def received(st):
-        """The messages a worker has queued, without blocking. A message is
-        one pipe write of under PIPE_BUF bytes, so a dead worker's queue
-        holds whole messages only."""
-        while not st["done"]:
-            try:
-                yield st["queue"].get_nowait()
-            except queue_mod.Empty:
-                return
-
     try:
         while any(not st["done"] for st in workers.values()):
-            live = [st for st in workers.values() if not st["done"]]
-            # a queue's private reader end is what wait() can watch
-            wait([st["queue"]._reader for st in live] + [st["proc"].sentinel for st in live],
+            wait([st["conn"] for st in workers.values() if not st["done"]],
                  timeout=poll_interval)
             for wid, st in list(workers.items()):
-                dead = not st["proc"].is_alive()  # before reading: nothing follows
-                for kind, payload in received(st):
+                if st["done"]:
+                    continue
+                for msg in received(st["conn"]):
+                    if msg is None:
+                        handle_failure(wid, "process died without reporting")
+                        break
+                    kind, payload = msg
                     if kind == "sample":
+                        st["slots"].release()
                         sample = _sample_from_shm(payload)
                         yielded[sample["shard_name"]].add(sample["filename"])
                         yield sample
@@ -354,11 +371,9 @@ def _pooled_stream(
                         handle_failure(wid, payload[1])
                     else:  # done
                         st["done"] = True
-                if dead and not st["done"]:
-                    handle_failure(wid, "process died without reporting")
+                    if st["done"]:
+                        break
     finally:
-        from multiprocessing import shared_memory
-
         for st in workers.values():
             p = st["proc"]
             if p.is_alive():
@@ -367,20 +382,10 @@ def _pooled_stream(
             # unlink the segments of samples never delivered (the consumer
             # left early); those of killed workers are reclaimed by
             # multiprocessing's resource tracker when the process ends
-            q = st["queue"]
-            try:
-                while True:
-                    kind, payload = q.get_nowait()
-                    if kind == "sample" and payload.get("shm"):
-                        try:
-                            seg = shared_memory.SharedMemory(name=payload["shm"])
-                            seg.close()
-                            seg.unlink()
-                        except FileNotFoundError:
-                            pass
-            except queue_mod.Empty:
-                pass
-            q.close()
+            for msg in received(st["conn"]):
+                if msg is not None and msg[0] == "sample":
+                    unlink(msg[1])
+            st["conn"].close()
 
 
 def empty_batch_like(batch: Dict) -> Dict:

@@ -177,16 +177,17 @@ def train_step(
     reinit: Tuple[float, float] = (0.7, 5.0),
     use_pallas: bool = True,
     group: Optional[Group] = None,
-    global_batch: Optional[int] = None,
 ) -> Tuple[KMeansState, Tensor]:
     """One mini-batch update. batch: (M, B_local, Dmax), zero past each
     clustering's width (as ``stack_batch`` pads it).
 
     With ``group``, counts and deltas are summed over its ranks before the
     lr fallback and the update (the JAX ``psum``s), so every rank computes
-    the same new state, and ``count`` advances by the global batch
-    (``global_batch``, else ``B_local`` times the world size). The mean
-    min-distance stays the rank's own.
+    the same new state, and ``count`` advances by the global batch,
+    ``B_local`` times the world size (every rank steps on as many rows).
+    The mean min-distance stays the rank's own. This is the counterpart of
+    the JAX package's ``make_sharded_train_step``: the caller splits the
+    batch, one process per card, instead of a sharding.
 
     ``use_pallas`` (the JAX package's key name) routes the post-warmup
     assign + accumulate through kernel K1 (``fused_assign_update``), which
@@ -211,8 +212,7 @@ def train_step(
         deltas_raw = _segment_deltas(best, batch, k)
     counts = all_reduce_sum(counts, group)
     deltas_raw = all_reduce_sum(deltas_raw, group)
-    b_global = global_batch if global_batch is not None else (
-        b_local * (group.world_size if group is not None else 1))
+    b_global = b_local * (group.world_size if group is not None else 1)
 
     # lr fallback (sgd_clustering.py:116-119): per-clustering max count
     max_count = counts.max(-1, keepdim=True).values  # (M, 1)
@@ -233,22 +233,6 @@ def train_step(
         dims=state.dims,
     )
     return new_state, mean_dist
-
-
-def make_sharded_train_step(group: Group, initial_rounds: int = 10,
-                            reinit: Tuple[float, float] = (0.7, 5.0),
-                            use_pallas: bool = True):
-    """``train_step`` over ``group``: each rank passes its (M, B_local, Dmax)
-    rows and gets the state every rank gets (the counterpart of the JAX
-    package's ``shard_map``'d step; the batch is split by the caller, one
-    process per card, instead of by a sharding)."""
-
-    def step(state, batch, lr, rand=None, generator=None):
-        return train_step(state, batch, lr, rand=rand, generator=generator,
-                          initial_rounds=initial_rounds, reinit=reinit,
-                          use_pallas=use_pallas, group=group)
-
-    return step
 
 
 def assign_step(state: KMeansState, batch: Tensor,

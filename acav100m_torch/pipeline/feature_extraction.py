@@ -30,9 +30,12 @@ Data parallel: with ``group=`` (a ``runtime.Group``) each rank extracts its
 own shards, ``plan_shards(index=rank, total=world)`` as in the reference;
 without one, ``computation.index``/``total`` place the process. With
 ``computation.equalize_length`` and more than one process, every process
-runs the same number of model steps, counted by ``get_length`` from all
-shards' metadata, and a process whose shards run short steps through
-all-masked batches that write no rows. The JAX package also shards one
+runs the same number of steps, counted by ``get_length`` from all shards'
+metadata, and a process whose shards run short steps through all-masked
+batches that write no rows. Ranks exchange nothing per step (the one
+collective is the closing barrier), so such a batch is neither copied to
+the card nor run through the models: it costs a step of bookkeeping
+(cache saves, the log line) and no card time. The JAX package also shards one
 batch over the devices of a mesh inside one program
 (``make_extract_fn(models, mesh)``); that has no counterpart here: a rank
 per card replaces it.
@@ -183,8 +186,12 @@ def make_extract_fn(models: Dict):
 
 def _stage(batch: Dict, device, stream) -> Dict:
     """Copy a host batch's arrays to ``device``; on CUDA the copy runs on
-    ``stream`` and an event marks its end."""
+    ``stream`` and an event marks its end. An all-masked batch (an
+    ``equalize_length`` pad) writes no rows and is not copied."""
     batch = dict(batch)  # the loader may still hold the original dict
+    if not np.any(batch["batch_mask"]):
+        batch["_dev"] = None
+        return batch
     arrays = [torch.from_numpy(np.asarray(batch[k]))
               for k in ("frames", "audio", "valid_samples")]
     if device.type != "cuda":
@@ -289,15 +296,17 @@ def run_extraction(cfg, decoder=None, models=None, group: Optional[Group] = None
 
     t0 = time.time()
     for n_iter, batch in enumerate(batches):
-        dev, event = batch.pop("_dev")
-        if event is not None:
-            current = torch.cuda.current_stream(device)
-            current.wait_event(event)
-            for t in dev:  # the copies were allocated on the side stream
-                t.record_stream(current)
-        taps = extract_fn(*dev)
-        taps = {name: [t.float().cpu().numpy() for t in tap_list]
-                for name, tap_list in taps.items()}
+        staged = batch.pop("_dev")
+        if staged is not None:
+            dev, event = staged
+            if event is not None:
+                current = torch.cuda.current_stream(device)
+                current.wait_event(event)
+                for t in dev:  # the copies were allocated on the side stream
+                    t.record_stream(current)
+            taps = extract_fn(*dev)
+            taps = {name: [t.float().cpu().numpy() for t in tap_list]
+                    for name, tap_list in taps.items()}
         for i in range(len(batch["filename"])):
             if not batch["batch_mask"][i]:
                 continue

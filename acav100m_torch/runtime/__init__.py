@@ -6,7 +6,6 @@ from .mesh import (
     broadcast,
     group_device,
     initialize_runtime,
-    local_batch_size,
     placement,
     shutdown_runtime,
 )
@@ -19,7 +18,6 @@ __all__ = [
     "broadcast",
     "group_device",
     "initialize_runtime",
-    "local_batch_size",
     "placement",
     "shutdown_runtime",
 ]

@@ -109,15 +109,6 @@ def shutdown_runtime(group: Group) -> None:
         dist.destroy_process_group()
 
 
-def local_batch_size(global_batch_size: int, group: Group) -> int:
-    n = group.world_size
-    if global_batch_size % n != 0:
-        raise ValueError(
-            f"global batch {global_batch_size} not divisible by world size {n}"
-        )
-    return global_batch_size // n
-
-
 def placement(cfg_index, cfg_total, group: Optional[Group]):
     """(index, total) of this process's shards: the config's
     ``computation.index``/``total``, or the group's rank and world size. A

@@ -61,6 +61,7 @@ device it exits at once and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import hashlib
@@ -1122,9 +1123,7 @@ def path_e1_nccl_one_rank() -> dict:
         deltas = torch.randn(tuple(state.centers.shape), device=group.device)
         t_reduce = time_ms(lambda: runtime.all_reduce_sum(deltas, group))
         batch = torch.from_numpy(global_rows()[:, :N_PER_SHARD]).to(group.device)
-        reset_counts()
         t_step = host_ms(lambda: kmeans.train_step(state, batch, 0.01, group=group))
-        launches["kmeans_assign_update"] += counts()["kmeans_assign_update"]
         log(f"path E1, cluster (path B's config) through a one-rank NCCL group: {t_train:.2f} s, "
             f"state and cache_epoch_1 bit-equal to path B's; one all-reduce of the "
             f"{deltas.numel() * 4 / 1e6:.2f} MB deltas {t_reduce:.4f} ms (CUDA events, median of "
@@ -1146,23 +1145,27 @@ def e2_rank(group, root: Path) -> dict:
     per = stacked.shape[1] // group.world_size
     local = torch.from_numpy(np.ascontiguousarray(
         stacked[:, group.rank * per:(group.rank + 1) * per])).to(group.device)
-    reset_counts()
+    launches = dict.fromkeys(counts(), 0)
     times = []
     for i in range(E_STEPS):
         threshold = kmeans._threshold(state.count, state.centers.shape[1], 0.7)
+        # the check's reference: K1's assignments, outside the counted window
         best = fused_assign_update(state.centers, state.counts, local, threshold,
                                    dims=state.dims)[0]
         torch.cuda.synchronize()
+        reset_counts()
         t0 = time.perf_counter()
         state, _ = kmeans.train_step(state, local, 0.01, group=group)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        for name, n in counts().items():
+            launches[name] += n
         np.savez(root / f"e2_rank{group.rank}_step{i}.npz", best=best.cpu().numpy(),
                  centers=state.centers.cpu().numpy(), counts=state.counts.cpu().numpy())
     deltas = torch.randn(tuple(state.centers.shape), device=group.device)
     t_reduce = host_ms(lambda: runtime.all_reduce_sum(deltas, group), reps=20)
     return {"count": state.count, "step_ms": times, "all_reduce_ms": t_reduce,
-            "launches": counts()}
+            "launches": launches}
 
 
 def e2_check(results: list, root: Path) -> None:
@@ -1174,6 +1177,9 @@ def e2_check(results: list, root: Path) -> None:
     from acav100m_torch.pipeline import clustering
 
     world = len(results)
+    for r in results:
+        check(r["launches"]["kmeans_assign_update"] == E_STEPS,
+              f"E2: K1 launched once a step on every rank ({r['launches']})")
     state, _, _ = clustering.load_centroids(path_b_cache(), "cuda")
     batch = torch.from_numpy(global_rows()).cuda()
     agree = True
@@ -1290,13 +1296,18 @@ def e4_rank(group) -> dict:
                          "data.output.path": str(root / "features_ranks"),
                          "data.batch_size": 4, "computation.equalize_length": True})
     models = fe.build_models(cfg, group.device)
-    steps = []
-    models["layer_slowfast"].register_forward_hook(lambda *_: steps.append(1))
+    forwards = []
+    models["layer_slowfast"].register_forward_hook(lambda *_: forwards.append(1))
+    log_lines = io.StringIO()
     reset_counts()
     t0 = time.time()
-    saved = fe.run_extraction(cfg, models=models, group=group)
-    return {"steps": len(steps), "saved": sorted(Path(p).name for p in saved),
-            "seconds": time.time() - t0, "launches": counts()}
+    with contextlib.redirect_stdout(log_lines):  # one "iter N" line a step
+        saved = fe.run_extraction(cfg, models=models, group=group)
+    seconds = time.time() - t0
+    steps = sum("] iter " in line for line in log_lines.getvalue().splitlines())
+    return {"steps": steps, "forwards": len(forwards),
+            "saved": sorted(Path(p).name for p in saved), "seconds": seconds,
+            "launches": counts()}
 
 
 def e4_check(results: list, root: Path) -> None:
@@ -1308,6 +1319,8 @@ def e4_check(results: list, root: Path) -> None:
     fe.run_extraction(cfg)
     t_one = time.time() - t0
     check(len({r["steps"] for r in results}) == 1, "E4: every rank steps the same number of times")
+    check(sum(r["forwards"] for r in results) == 3,
+          f"E4: the models run on the 3 real batches only, no pad ({results})")
     saved = sorted(n for r in results for n in r["saved"])
     check(saved == [f"shard-{i:06d}.pkl" for i in range(3)],
           f"E4: every shard saved once ({[r['saved'] for r in results]})")
@@ -1320,7 +1333,8 @@ def e4_check(results: list, root: Path) -> None:
     for r in results:
         check(r["launches"]["bottleneck_stage"] > 0, "E4: K2 launched on every rank")
     log(f"path E4, equalized extraction of 3 shards x 4 clips over {len(results)} ranks: "
-        f"steps {[r['steps'] for r in results]}, K2 launches "
+        f"steps {[r['steps'] for r in results]}, model forwards "
+        f"{[r['forwards'] for r in results]}, K2 launches "
         f"{[r['launches']['bottleneck_stage'] for r in results]}, "
         f"{[round(r['seconds'], 2) for r in results]} s a rank (model build not included); "
         f"one rank {t_one:.2f} s (model build included); taps within {err:.2e} of the "

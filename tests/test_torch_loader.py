@@ -1,8 +1,8 @@
 """The port's pooled decode workers: ``make_loader(num_workers=2)`` delivers
 the clips that the JAX package's in-process loader delivers, bit for bit,
 over npz and mp4 shards; a worker hard-killed mid-shard has its shards
-requeued and every clip arrives exactly once; skip lists hold in the
-workers. Each test runs under its own time limit, so a hung worker fails
+requeued and every clip arrives exactly once, also when it dies in the
+middle of a message; skip lists hold in the workers. Each test runs under its own time limit, so a hung worker fails
 the test instead of stalling the run."""
 
 import functools
@@ -122,8 +122,10 @@ def test_killed_worker_shards_are_requeued(tmp_path):
 
 def test_worker_killed_holding_its_queue_lock_stalls_no_other(tmp_path):
     """A worker killed while a queue's write lock is taken (its feeder thread
-    mid-write) must not block the other workers: each writes to a queue of
-    its own, so every clip still arrives exactly once."""
+    mid-write) and in the middle of a message down its pipe must not block
+    the consumer or the other workers: each writes to a pipe of its own,
+    whose cut message reads as its end, so every clip still arrives exactly
+    once."""
     tcli.write_fixtures(tmp_path, num_shards=4, clips_per_shard=6, size=16)
     shards = sorted(tmp_path.glob("shard-*.tar"))
     metas, _ = load_metadata(shards)

@@ -13,11 +13,13 @@ writes ``rank{RANK}.npz`` and ``rank{RANK}.json`` there:
 * ``batch_*`` / ``greedy_*``: the selectors with the candidates split over
   the ranks;
 * ``extract``: equalized ``run_extraction`` over the clip shards, with its
-  model steps counted.
+  steps and its model forwards counted.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import sys
 from collections import OrderedDict
@@ -37,11 +39,11 @@ def run_kmeans(group, work: Path, out: dict) -> None:
     rows = slice(group.rank * b_local, (group.rank + 1) * b_local)
     state = kmeans.init_state(list(inp["dims"]), int(inp["k"]),
                               centers=inp["centers"], device="cpu")
-    step = kmeans.make_sharded_train_step(group, initial_rounds=int(inp["initial_rounds"]))
     for i, batch in enumerate(inp["batches"]):
         local = torch.from_numpy(np.ascontiguousarray(batch[:, rows]))
         rand = torch.from_numpy(inp["rand"]) if i == 0 else None
-        state, _ = step(state, local, float(inp["lr"]), rand=rand)
+        state, _ = kmeans.train_step(state, local, float(inp["lr"]), rand=rand,
+                                     initial_rounds=int(inp["initial_rounds"]), group=group)
         out[f"kmeans_counts_{i}"] = state.counts.numpy()
         out[f"kmeans_centers_{i}"] = state.centers.numpy()
         out[f"kmeans_count_{i}"] = np.asarray(state.count)
@@ -93,16 +95,19 @@ def run_extract(group, work: Path, out: dict) -> None:
     for name, model in models.items():
         model.load_state_dict(weights[name])
         model.eval()
-    steps = []
-    models["layer_slowfast"].register_forward_hook(lambda *_: steps.append(1))
+    forwards = []
+    models["layer_slowfast"].register_forward_hook(lambda *_: forwards.append(1))
     cfg = feature_extraction.get_config({
         "data.media.path": f"{work}/clips/shard-{{000000..000002}}.tar",
         "data.output.path": str(work / "features_extract"), "data.batch_size": 2,
         "data.media.num_frames": 4, "data.media.size": 16,
         "computation.equalize_length": True, "computation.device": "cpu",
     })
-    saved = feature_extraction.run_extraction(cfg, models=models, group=group)
-    out["extract_steps"] = len(steps)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):  # one "iter N" line a step (log_period 1)
+        saved = feature_extraction.run_extraction(cfg, models=models, group=group)
+    out["extract_steps"] = sum("] iter " in line for line in log.getvalue().splitlines())
+    out["extract_forwards"] = len(forwards)
     out["extract_saved"] = [Path(p).name for p in saved]
 
 

@@ -3,8 +3,10 @@ their own that imports only the port, so a spawned decode worker that
 unpickles one imports neither JAX nor the test files."""
 
 import gc
+import multiprocessing.connection
 import multiprocessing.queues
 import os
+import struct
 from pathlib import Path
 
 from acav100m_torch.data.video import decode_npz
@@ -27,9 +29,12 @@ def crash_once_decoder(data, marker_path, crash_after=3):
 
 def die_holding_queue_lock(data, marker_path, crash_after=3):
     """decode_npz that, on its ``crash_after``-th decode (once across all
-    processes), takes the write lock of every queue in its worker and then
-    hard-kills the worker: the locks stay taken for good, as when a worker
-    is killed while its queue's feeder thread is writing a message."""
+    processes), dies in the two ways a killed writer can leave its channel:
+    it takes the write lock of every queue in its worker (the lock then
+    stays taken for good, as when a worker is killed while a queue's feeder
+    thread is writing), and it writes the first bytes of a message to every
+    pipe it writes to (the message then stays cut short). Then it
+    hard-kills the worker."""
     global _decoded
     _decoded += 1
     marker = Path(marker_path)
@@ -38,5 +43,8 @@ def die_holding_queue_lock(data, marker_path, crash_after=3):
         for obj in gc.get_objects():
             if isinstance(obj, multiprocessing.queues.Queue):
                 obj._wlock.acquire()
+            elif isinstance(obj, multiprocessing.connection.Connection) and obj.writable:
+                # a message's length header promising 4096 bytes, then one
+                os.write(obj.fileno(), struct.pack("!i", 4096) + b"\x80")
         os._exit(1)
     return decode_npz(data)
