@@ -2,14 +2,20 @@
 positional arguments and dotted-key overrides:
 
     python -m acav100m_torch fixtures out_dir [--num_shards=2 --size=64 ...]
+    python -m acav100m_torch filter in.tsv out.tsv [--keywords_dir=... --fasttext_model=...]
+    python -m acav100m_torch download filtered.tsv out_dir [--source_dir=...]
+    python -m acav100m_torch segment video_dir out_dir [--num_clips=3 --backend=auto ...]
     python -m acav100m_torch extract data.media.path=... data.output.path=...
     python -m acav100m_torch cluster data.path=... data.output.path=...
     python -m acav100m_torch select data.path=... data.output.path=...
     python -m acav100m_torch reduce out.csv cache1.csv [cache2.csv ...]
     python -m acav100m_torch convert {slowfast,vggish} in_path out_path [--format ...]
 
+``filter``, ``download`` and ``segment`` are stages 1-3, host work with the
+JAX package's arguments and defaults (``download --source_dir`` copies
+local files; without it youtube-dl or yt-dlp fetches, where installed).
 ``reduce`` appends the chunk caches that ``select chunk_size=N`` writes
-(``caches/cache_*``) to ``out.csv``, in sorted order. Every stage runs on
+(``caches/cache_*``) to ``out.csv``, in sorted order. Stages 4-6 run on
 ``computation.device`` (default ``cuda``; pass
 ``computation.device=cpu`` to run on the CPU).
 """
@@ -29,6 +35,38 @@ from .config import parse_overrides
 
 def _overrides(tokens):
     return parse_overrides([t for t in tokens if "=" in t])
+
+
+def cmd_filter(args):
+    from .pipeline.metadata_filtering import run_file
+
+    kept, total = run_file(args.in_path, args.out_path, keywords_dir=args.keywords_dir,
+                           fasttext_model=args.fasttext_model)
+    print(f"Done. {kept}/{total}({100.0 * kept / max(total, 1):.2f}%) lines left")
+
+
+def cmd_download(args):
+    from .pipeline.video_download import run_download
+
+    ok, total = run_download(args.tsv_path, args.out_dir, source_dir=args.source_dir)
+    print(f"downloaded {ok}/{total}")
+
+
+def cmd_segment(args):
+    import random
+
+    from .pipeline.clip_segmentation import open_video_backend, segment_video
+
+    rng = random.Random(args.seed)
+    count = 0
+    for path in sorted(Path(args.video_dir).glob("*.mp4")):
+        _, paths = segment_video(
+            open_video_backend(path, args.backend), args.out_dir, path.stem,
+            num_clips=args.num_clips, sampling=args.sampling,
+            cut_random_clips=args.cut_random_clips,
+            calc_diversity_with_sum=args.calc_diversity_with_sum, rng=rng)
+        count += len(paths)
+    print(f"extracted {count} clips to {args.out_dir}")
 
 
 def cmd_extract(args):
@@ -111,6 +149,31 @@ def main(argv=None):
     parser = argparse.ArgumentParser(prog="acav100m_torch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("filter", help="stage 1: metadata filtering")
+    p.add_argument("in_path")
+    p.add_argument("out_path")
+    p.add_argument("--keywords_dir", default=None)
+    p.add_argument("--fasttext_model", default=None)
+    p.set_defaults(fn=cmd_filter)
+
+    p = sub.add_parser("download", help="stage 2: video download")
+    p.add_argument("tsv_path")
+    p.add_argument("out_dir")
+    p.add_argument("--source_dir", default=None)
+    p.set_defaults(fn=cmd_download)
+
+    p = sub.add_parser("segment", help="stage 3: clip segmentation")
+    p.add_argument("video_dir")
+    p.add_argument("out_dir")
+    p.add_argument("--num_clips", type=int, default=3)
+    p.add_argument("--sampling", default="diversity_greedy")
+    p.add_argument("--cut_random_clips", type=int, default=None)
+    p.add_argument("--calc_diversity_with_sum", action="store_true")
+    p.add_argument("--seed", type=int, default=98052)
+    p.add_argument("--backend", default="auto", choices=["auto", "native", "ffmpeg", "opencv"])
+    p.set_defaults(fn=cmd_segment)
+
     for verb, fn, help_ in (
         ("extract", cmd_extract, "stage 4: feature extraction"),
         ("cluster", cmd_cluster, "stage 5: k-means clustering"),

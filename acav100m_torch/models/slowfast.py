@@ -38,10 +38,27 @@ its biases in float32, as the JAX ``PallasStage`` does.
 fast pathway: the same function in another layout (JAX
 ``slowfast.py:298-316``), so the port validates it and runs the canonical
 graph for every schedule.
+
+``quant="int8"`` (the JAX package's ``quant``, ``slowfast.py:897-902``)
+runs ``s2``..``s5`` on both pathways with int8 convs (``QuantResBlock``,
+``models/quant.py``); the stems and fuse convs stay fp, and the int8 stage
+takes precedence over ``pallas_stages``, so K2 does not run. ``calibrate``
+is the one fp observation pass that sets the activation scales. With a
+``fast_block`` schedule the JAX package quantizes its blocked kernels per
+blocked output channel (``QuantBlockedBottleneck``); every blocked column
+holds the kt canonical taps of one output channel and exact zeros, so its
+scale and int8 weights equal the canonical channel's, and activation
+scales are per tensor: the port's canonical int8 graph is the same
+function in every layout (``tests/test_torch_quant.py`` pins it). The
+observers' maxima are buffers outside ``state_dict`` (a PySlowFast
+checkpoint has none): ``quant_state_dict``/``load_quant_state_dict`` carry
+them, and ``quant_state_from_flax`` reads the JAX package's ``quant``
+collection.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -49,6 +66,7 @@ import torch
 from torch import nn
 
 from . import compute_dtype, in_dtype, register_model
+from . import quant as q
 from ..ops.bottleneck_kernel import fold_bn, fused_stage
 
 LAYER_DIMS = [88, 352, 704, 1408, 2304]
@@ -168,22 +186,119 @@ class ResBlock(nn.Module):
         return out
 
 
-class ResStage(nn.Module):
-    """One stage of both pathways: ``pathway{p}_res{i}`` blocks."""
+QUANT_SITES = ("q_in", "q_a", "q_b")  # the observed inputs of branch1/a, b, c
 
-    def __init__(self, si: int, dim_in: Tuple[int, int], fused_slow: bool = False):
+
+class QuantResBlock(ResBlock):
+    """``ResBlock`` with int8 conv arithmetic (JAX ``QuantBottleneck``,
+    ``slowfast.py:462-553``): the same parameters plus one abs-max observer
+    per conv input (``q_in``, ``q_a``, ``q_b``; non-persistent buffers).
+
+    mode ``calib``: ``ResBlock``'s fp math while the observers keep running
+    maxima. mode ``int8``: the input and the two inner activations quantize
+    against the frozen scales, the convs run int8 with int32 sums
+    (``quant.qconv``), BN and ReLU stay in the compute dtype. The identity
+    shortcut is the dequantized input ``xq * s_in``, a projection shortcut
+    ``BN(qconv(xq))``. The int8 weight matrices and scales are made once in
+    eval mode and kept until the weights are loaded or moved or the module
+    changes mode."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        for site in QUANT_SITES:
+            self.register_buffer(site, torch.zeros(()), persistent=False)
+        self._qweights = None
+
+    def _convs(self) -> Dict[str, nn.Conv3d]:
+        t = self.branch2
+        convs = {"a": t.a, "b": t.b, "c": t.c}
+        if hasattr(self, "branch1"):
+            convs["branch1"] = self.branch1
+        return convs
+
+    def quantized_weights(self) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        """{conv: (int8 (Cout, K) matrix, float32 scale (Cout,))}."""
+        if self._qweights is None or self.training:
+            with torch.inference_mode(False), torch.no_grad():
+                made = {}
+                for name, conv in self._convs().items():
+                    wq, sw = q.weight_qparams(conv.weight)
+                    made[name] = (q.weight_matrix(wq), sw)
+            if self.training:
+                return made
+            self._qweights = made
+        return self._qweights
+
+    def train(self, mode: bool = True):
+        self._qweights = None
+        return super().train(mode)
+
+    def _apply(self, fn, *args, **kwargs):
+        self._qweights = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._qweights = None
+        super()._load_from_state_dict(*args, **kwargs)
+
+    def _observe(self, site: str, x: torch.Tensor) -> None:
+        amax = x.detach().abs().amax().float()
+        # a normal tensor, updated in place even under inference_mode
+        with torch.inference_mode(False), torch.no_grad():
+            buf = getattr(self, site)
+            buf.copy_(torch.maximum(buf, amax))
+
+    def forward(self, x, mode: str = "int8"):
+        if mode == "none":
+            return super().forward(x)
+        if mode == "calib":
+            self._observe("q_in", x)
+            shortcut = (self.branch1_bn(in_dtype(self.branch1, x)) if hasattr(self, "branch1")
+                        else x)
+            t = self.branch2
+            h = torch.relu(t.a_bn(in_dtype(t.a, x)))
+            self._observe("q_a", h)
+            h = torch.relu(t.b_bn(in_dtype(t.b, h)))
+            self._observe("q_b", h)
+            return torch.relu(shortcut + t.c_bn(in_dtype(t.c, h)))
+        if mode != "int8":
+            raise ValueError(f"quant mode {mode!r} is not one of {q.MODES}")
+        dtype, t, w = x.dtype, self.branch2, self.quantized_weights()
+        s_in = q.act_scale(self.q_in)
+        xq = q.quantize_act(x, s_in)
+        if hasattr(self, "branch1"):
+            shortcut = self.branch1_bn(q.qconv(xq, s_in, *w["branch1"], self.branch1, dtype))
+        else:
+            shortcut = (xq.float() * s_in).to(dtype)
+        h = torch.relu(t.a_bn(q.qconv(xq, s_in, *w["a"], t.a, dtype)))
+        s_a = q.act_scale(self.q_a)
+        h = torch.relu(t.b_bn(q.qconv(q.quantize_act(h, s_a), s_a, *w["b"], t.b, dtype)))
+        s_b = q.act_scale(self.q_b)
+        h = t.c_bn(q.qconv(q.quantize_act(h, s_b), s_b, *w["c"], t.c, dtype))
+        return torch.relu(shortcut + h)
+
+
+class ResStage(nn.Module):
+    """One stage of both pathways: ``pathway{p}_res{i}`` blocks;
+    ``QuantResBlock``s where ``quant``, which then take precedence over
+    ``fused_slow``."""
+
+    def __init__(self, si: int, dim_in: Tuple[int, int], fused_slow: bool = False,
+                 quant: bool = False):
         super().__init__()
         w = 64
         dim_out = w * 4 * 2 ** si
         dim_inner = w * 2 ** si
         self.stride = SPATIAL_STRIDES[si]
-        self.fused_slow = fused_slow
+        self.fused_slow = fused_slow and not quant
+        self.quant = quant
+        block = QuantResBlock if quant else ResBlock
         for p, (cin, cout, inner, kt) in enumerate((
                 (dim_in[0], dim_out, dim_inner, SLOW_TEMP_KERNELS[si + 1]),
                 (dim_in[1], dim_out // BETA_INV, dim_inner // BETA_INV,
                  FAST_TEMP_KERNELS[si + 1]))):
             for i in range(STAGE_BLOCKS[si]):
-                self.add_module(f"pathway{p}_res{i}", ResBlock(
+                self.add_module(f"pathway{p}_res{i}", block(
                     cin if i == 0 else cout, cout, inner, kt,
                     self.stride if i == 0 else 1))
         self.num_blocks = STAGE_BLOCKS[si]
@@ -230,7 +345,13 @@ class ResStage(nn.Module):
         y = fused_stage(frames, self._folded(x.dtype), stride=self.stride)
         return y.reshape(b, t, *y.shape[1:]).permute(0, 4, 1, 2, 3)
 
-    def forward(self, slow, fast):
+    def forward(self, slow, fast, mode: str = "none"):
+        if self.quant:
+            for blk in self._blocks(0):
+                slow = blk(slow, mode)
+            for blk in self._blocks(1):
+                fast = blk(fast, mode)
+            return slow, fast
         if self.fused_slow:
             slow = self._fused(slow)
         else:
@@ -260,15 +381,26 @@ def check_fast_block(fast_block: Optional[Sequence[int]]) -> Tuple[int, ...]:
     return tuple(int(f) for f in fb)
 
 
+def check_quant(quant: Optional[str]) -> str:
+    """The JAX package's ``computation.quant``: ``none`` (or None) or
+    ``int8``; raises on any other string, which the JAX package would run
+    as int8 (``slowfast.py:907``)."""
+    quant = quant or "none"
+    if quant not in ("none", "int8"):
+        raise ValueError(f"quant takes 'none' or 'int8', got {quant!r}")
+    return quant
+
+
 class SlowFastBackbone(nn.Module):
     """Returns the 5 layer taps in ``dtype``; inputs slow (B,3,T/4,H,W),
     fast (B,3,T,H,W), cast to ``dtype`` on the way in."""
 
     def __init__(self, pallas_stages: bool = True, dtype=torch.float32,
-                 fast_block: Optional[Sequence[int]] = None):
+                 fast_block: Optional[Sequence[int]] = None, quant: str = "none"):
         super().__init__()
         self.dtype = compute_dtype(dtype)
         self.fast_block = check_fast_block(fast_block)
+        self.quant = check_quant(quant)
         w = 64
         self.s1 = VideoModelStem(w)
         self.s1_fuse = FuseFastToSlow(w // BETA_INV)
@@ -276,7 +408,8 @@ class SlowFastBackbone(nn.Module):
         for si in range(4):
             fused = (pallas_stages and SLOW_TEMP_KERNELS[si + 1] == 1
                      and SPATIAL_STRIDES[si] == 1)
-            self.add_module(f"s{si + 2}", ResStage(si, (slow_in, fast_in), fused))
+            self.add_module(f"s{si + 2}", ResStage(si, (slow_in, fast_in), fused,
+                                                   quant=self.quant == "int8"))
             dim_out = w * 4 * 2 ** si
             if si < 3:
                 self.add_module(f"s{si + 2}_fuse", FuseFastToSlow(dim_out // BETA_INV))
@@ -285,16 +418,39 @@ class SlowFastBackbone(nn.Module):
                 slow_in = dim_out
             fast_in = dim_out // BETA_INV
 
-    def forward(self, slow, fast) -> List[torch.Tensor]:
+    def forward(self, slow, fast, quant_mode: Optional[str] = None) -> List[torch.Tensor]:
+        """``quant_mode`` (``quant.MODES``) defaults to ``int8`` for an int8
+        backbone and ``none`` otherwise."""
+        mode = quant_mode or ("int8" if self.quant == "int8" else "none")
         slow, fast = self.s1(slow.to(self.dtype), fast.to(self.dtype))
         slow, fast = self.s1_fuse(slow, fast)
         taps = [_pool_all(slow, fast)]  # 88
         for si in range(4):
-            slow, fast = getattr(self, f"s{si + 2}")(slow, fast)
+            slow, fast = getattr(self, f"s{si + 2}")(slow, fast, mode)
             if si < 3:
                 slow, fast = getattr(self, f"s{si + 2}_fuse")(slow, fast)
             taps.append(_pool_all(slow, fast))  # 352 704 1408 2304
         return taps
+
+    def _quant_blocks(self):
+        return [(name, mod) for name, mod in self.named_modules()
+                if isinstance(mod, QuantResBlock)]
+
+    def quant_state_dict(self) -> "OrderedDict[str, torch.Tensor]":
+        """The observers' running maxima, ``{block}.{q_in,q_a,q_b}``."""
+        return OrderedDict((f"{name}.{site}", getattr(blk, site).detach().clone())
+                           for name, blk in self._quant_blocks() for site in QUANT_SITES)
+
+    def load_quant_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        """Loads every observer's maximum; raises on a missing or extra key."""
+        want = set(self.quant_state_dict())
+        if set(state) != want:
+            raise KeyError(f"quant state keys: missing {sorted(want - set(state))}, "
+                           f"unexpected {sorted(set(state) - want)}")
+        with torch.no_grad():
+            for name, blk in self._quant_blocks():
+                for site in QUANT_SITES:
+                    getattr(blk, site).copy_(torch.as_tensor(state[f"{name}.{site}"]))
 
 
 def normalize_frames(frames: torch.Tensor) -> torch.Tensor:
@@ -321,17 +477,28 @@ class LayerSlowFast(SlowFastBackbone):
     media_type = "video"
 
     def __init__(self, pallas_stages: bool = True, dtype=torch.float32,
-                 fast_block: Optional[Sequence[int]] = None):
-        super().__init__(pallas_stages=pallas_stages, dtype=dtype, fast_block=fast_block)
+                 fast_block: Optional[Sequence[int]] = None, quant: str = "none"):
+        super().__init__(pallas_stages=pallas_stages, dtype=dtype, fast_block=fast_block,
+                         quant=quant)
         self.eval()
 
-    def forward(self, frames: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, frames: torch.Tensor, quant_mode: Optional[str] = None
+                ) -> List[torch.Tensor]:
         """uint8 frames (B,T,H,W,3) -> the 5 taps (B, dim) in ``dtype``."""
         slow, fast = pack_pathways(normalize_frames(frames))
         to_ncdhw = (0, 4, 1, 2, 3)
         return SlowFastBackbone.forward(
             self, slow.permute(*to_ncdhw).contiguous(),
-            fast.permute(*to_ncdhw).contiguous())
+            fast.permute(*to_ncdhw).contiguous(), quant_mode)
+
+    @torch.no_grad()
+    def calibrate(self, frames: torch.Tensor) -> None:
+        """One observation pass (the fp graph) raising the observers'
+        running maxima to this batch's (JAX ``LayerSlowFast.calibrate``);
+        ``run_extraction`` calls it on its first batch."""
+        if self.quant != "int8":
+            raise ValueError("calibrate needs an int8 model (quant='int8')")
+        LayerSlowFast.forward(self, frames, quant_mode="calib")
 
 
 @register_model("slow_fast")  # reference model_types spelling
@@ -414,6 +581,22 @@ def state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
         put(f"{tkey}.running_var", st["var"])
         sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd
+
+
+def quant_state_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's flax ``quant`` collection (``s{k}_{slow,fast}/
+    block{i}/q_{in,a,b}/amax``) -> ``LayerSlowFast.load_quant_state_dict``'s
+    ``s{k}.pathway{p}_res{i}.q_{in,a,b}``."""
+    tree = variables["quant"]
+    out: Dict[str, torch.Tensor] = {}
+    for si in range(4):
+        for pw, tag in ((0, "slow"), (1, "fast")):
+            for bi in range(STAGE_BLOCKS[si]):
+                for site in QUANT_SITES:
+                    amax = _get(tree, (f"s{si + 2}_{tag}", f"block{bi}", site, "amax"))
+                    out[f"s{si + 2}.pathway{pw}_res{bi}.{site}"] = torch.tensor(
+                        float(np.asarray(amax, np.float32)), dtype=torch.float32)
+    return out
 
 
 def _put(tree: Dict, path, leaf) -> None:

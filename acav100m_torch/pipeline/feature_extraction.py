@@ -24,11 +24,16 @@ FFmpeg's libraries, ``ffmpeg``, ``opencv`` or ``auto``) and
 ``weights.*_file`` takes a converted flax ``.npz`` or the published
 checkpoints (PySlowFast ``.pyth``/``.pt``/``.pth``, caffe2 ``.pkl``,
 torchvggish ``.pth``), each loaded through its flax tree
-(``models.zoo``). ``computation.quant`` is not ported and raises.
+(``models.zoo``). ``computation.quant=int8`` runs SlowFast's ``s2``..``s5``
+with int8 convs (``models/quant.py``; K2 does not run) on activation scales
+calibrated on the run's first batch, as the JAX package does; ``none`` is
+the default and any other value raises ``ValueError``.
 
 Data parallel: with ``group=`` (a ``runtime.Group``) each rank extracts its
 own shards, ``plan_shards(index=rank, total=world)`` as in the reference;
-without one, ``computation.index``/``total`` place the process. With
+without one, ``computation.index``/``total`` place the process. In int8
+each rank calibrates on its own first batch, as each JAX process does, so
+the ranks' scales may differ. With
 ``computation.equalize_length`` and more than one process, every process
 runs the same number of steps, counted by ``get_length`` from all shards'
 metadata, and a process whose shards run short steps through all-masked
@@ -133,8 +138,7 @@ def _check_supported(cfg) -> None:
     c = cfg.computation
     compute_dtype(c.dtype or "float32")
     slowfast_mod.check_fast_block(c.fast_block)
-    if (c.quant or "none") != "none":
-        raise NotImplementedError(f"computation.quant={c.quant} is not ported")
+    slowfast_mod.check_quant(c.quant)
 
 
 def build_models(cfg, device=None):
@@ -154,7 +158,7 @@ def build_models(cfg, device=None):
         cls = get_model(name)
         video = cls.media_type == "video"
         model = (cls(pallas_stages=bool(c.pallas_stages), dtype=dtype,
-                     fast_block=c.fast_block) if video else cls(dtype=dtype))
+                     fast_block=c.fast_block, quant=c.quant) if video else cls(dtype=dtype))
         wfile = cfg.weights.slowfast_file if video else cfg.weights.vggish_file
         if wfile and Path(wfile).is_file():
             conv = slowfast_mod if video else vggish_mod
@@ -294,6 +298,13 @@ def run_extraction(cfg, decoder=None, models=None, group: Optional[Group] = None
     staged = (_stage(b, device, stream) for b in loader)
     batches = Prefetcher(staged, depth=depth) if depth > 0 else staged
 
+    # int8: the activation scales are set on the run's first batch, the
+    # staged batch with its masked pad rows, once (JAX
+    # feature_extraction.py:373-381); an equalize_length pad comes after
+    # every real batch, so it is never the one calibrated on
+    to_calibrate = [m for m in models.values()
+                    if (cfg.computation.quant or "none") != "none"
+                    and getattr(m, "quant", "none") == "int8"]
     t0 = time.time()
     for n_iter, batch in enumerate(batches):
         staged = batch.pop("_dev")
@@ -304,6 +315,9 @@ def run_extraction(cfg, decoder=None, models=None, group: Optional[Group] = None
                 current.wait_event(event)
                 for t in dev:  # the copies were allocated on the side stream
                     t.record_stream(current)
+            for model in to_calibrate:
+                model.calibrate(dev[0])
+            to_calibrate = []
             taps = extract_fn(*dev)
             taps = {name: [t.float().cpu().numpy() for t in tap_list]
                     for name, tap_list in taps.items()}

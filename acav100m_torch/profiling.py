@@ -1,12 +1,13 @@
 """Device-time profile of one extract batch on one GPU.
 
-    python -m acav100m_torch.profiling [--dtype bfloat16] [--by-shape]
+    python -m acav100m_torch.profiling [--dtype bfloat16] [--quant int8] [--by-shape]
 
 Runs one warm extract batch of 4 synthetic clips through both full-width
 models (32 frames of 256x256, seeded weights, in float32 with PyTorch's
 default TF32 for cuDNN convolutions, or in bfloat16 as
-``computation.dtype=bfloat16`` runs them) under ``torch.profiler`` (CUDA
-activity). It
+``computation.dtype=bfloat16`` runs them; ``--quant int8`` runs SlowFast's
+int8 stages, calibrated on the same batch first) under ``torch.profiler``
+(CUDA activity). It
 prints the device time by kernel name, the summed device time and the wall
 time, so the device's busy share is their ratio. With ``--by-shape`` it
 also records input shapes and prints the convolutions' device time by
@@ -124,6 +125,23 @@ def device_busy(fn):
     return wall, kernels / 1e6, copies / 1e6
 
 
+def batch_profile(fn, iters: int = 3, ops=("aten::_int_mm",), top: int = 8):
+    """``fn()`` once to warm, then ``iters`` calls under ``torch.profiler``
+    -> (device ms a call, {op: device ms a call of the kernels ``op``
+    launched}, [(device ms a call, kernel name)] of the ``top`` kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted(_device_events(prof), key=_device_us, reverse=True)
+    busy = sum(_device_us(e) for e in events) / iters / 1e3
+    by_op = {op: sum(_total_device_us(e) for e in prof.key_averages() if e.key == op)
+             / iters / 1e3 for op in ops}
+    return busy, by_op, [(_device_us(e) / iters / 1e3, e.key) for e in events[:top]]
+
+
 def run(label: str, fn, iters: int = 3, top: int = 16, by_shape: bool = False) -> None:
     fn()  # warm: builds kernels, picks cuDNN algorithms
     torch.cuda.synchronize()
@@ -155,6 +173,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="device time of one warm extract batch")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
                     help="the models' compute dtype (computation.dtype)")
+    ap.add_argument("--quant", choices=["none", "int8"], default="none",
+                    help="SlowFast's int8 stages (computation.quant)")
     ap.add_argument("--by-shape", action="store_true",
                     help="also print the convolutions' device time by shape")
     args = ap.parse_args(argv)
@@ -164,7 +184,8 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(0)
     print(card())
     with torch.inference_mode():
-        sf, vg = LayerSlowFast(dtype=args.dtype), LayerVggish(dtype=args.dtype)
+        sf = LayerSlowFast(dtype=args.dtype, quant=args.quant)
+        vg = LayerVggish(dtype=args.dtype)
         init_weights(sf, gen)
         init_weights(vg, gen)
         sf.to(dev).eval()
@@ -173,7 +194,9 @@ def main(argv=None) -> int:
                                dtype=torch.uint8).to(dev)
         audio = (0.1 * torch.randn((4, 160000), generator=gen)).to(dev)
         valid = torch.full((4,), 160000, device=dev)
-        run(f"extract batch (4 clips, SlowFast + VGGish, {args.dtype})",
+        if args.quant == "int8":
+            sf.calibrate(frames)
+        run(f"extract batch (4 clips, SlowFast + VGGish, {args.dtype}, quant {args.quant})",
             lambda: (sf(frames), vg(audio, valid)), by_shape=args.by_shape)
     return 0
 

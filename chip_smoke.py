@@ -52,7 +52,28 @@ Phases, each printing its own lines:
    selectors (``batch_mi``, ``mi`` and ``ami`` full-table, float64) against
    one rank's picks, E4 equalized extraction of 3 npz shards x 4 clips
    against a one-rank run. With more than one card, E1 and E2 run again
-   over NCCL on ``min(count, 4)`` cards.
+   over NCCL on ``min(count, 4)`` cards;
+8. path F, int8 extraction (``computation.quant=int8``) and stages 2-3: F1
+   extracts path A's clips on path C's checkpoints three times, float32 fp
+   (the reference), int8 in float32 and the JAX package's int8 leg (bf16,
+   ``fast_block=[4,4,4,4,4]``, int8), then ``cluster`` and ``select`` on
+   each: K2 and K2-bf16 never launch in int8, every video tap's cosine to
+   the fp tap is above 0.99, video assignment agreement at least 0.75 and
+   subset overlap at least 0.6 (the JAX package's gates); the int8 conv's
+   int32 sums on the card equal the CPU's on every conv geometry of the
+   model at full width; each block of the slow ``s3`` int8 stage on the
+   card, from the CPU's input with the same scales, moves no int8 activation
+   by more than one step (BN rounds otherwise on the card), at most 1e-3 of
+   them, and stays within 1e-3 relative L2 of the CPU's output; one warm
+   batch's
+   device time in float32, bf16 and both int8 legs, the int8 GEMM's share
+   and the calibration pass. F2 runs stages 2-3 on OpenCV (this machine
+   has no FFmpeg): two OpenCV-written videos of three constant-colour
+   scenes through ``download --source_dir``, ``segment --backend opencv``
+   and ``bundle_shards``, then ``extract`` (``data.decoder=opencv``, int8),
+   ``cluster`` and ``select``, with the row counts checked at each stage.
+   Stage 1 is host text work whose ``nltk`` this machine lacks: the CPU
+   tests hold it.
 
 Then one JSON line of per-kernel results and, last, the device JSON line.
 Any failed check raises, so the script exits non-zero. Without a CUDA
@@ -1432,6 +1453,334 @@ def main_path_e() -> dict:
     return launches
 
 
+# -- phase 8: path F, int8 extraction and stages 2-3 -------------------------------
+
+INT8 = ["computation.quant=int8"]
+# path F1's extractions of path A's clips on path C's checkpoints: the fp
+# reference (float32, K2 route) and the JAX package's two int8 legs
+F_LEGS = {"fp": [], "int8": INT8, "int8_bf16": INT8 + HEADLINE}
+COSINE_MIN, AGREEMENT_MIN, OVERLAP_MIN = 0.99, 0.75, 0.6  # tests/test_quant.py's gates
+# a block on the card against the CPU, same input and scales: BN rounds
+# otherwise on the card, so an activation within rounding of a half step
+# moves one step (tests/test_torch_quant.py), and a move at q_a moves some
+# of q_b's; at most 1e-3 of a site's activations may move, each by one
+# step, and the block's output is held to 1e-3 relative L2 (measured on an
+# H100: at most 36 of 1048576 moved, 1.10e-4 relative L2)
+STAGE_MOVED, STAGE_REL_L2 = 1e-3, 1e-3
+
+
+def checkpoint_args() -> list:
+    root = WORK / "c" / "weights"
+    return [f"weights.slowfast_file={root / 'SLOWFAST_8x8_R50.pkl'}",
+            f"weights.vggish_file={root / 'vggish.pth'}"]
+
+
+def assignments(clusters: Path) -> dict:
+    """{(filename, model, layer): cluster} of the video assignments."""
+    out = {}
+    for path in sorted(clusters.glob("shard-*.pkl")):
+        for row in load_pickle(path):
+            for f in row["video_assignments"]:
+                for layer, v in f["array"].items():
+                    out[row["filename"], f["model_key"], layer] = int(v)
+    return out
+
+
+def selected(csv: Path) -> set:
+    return {line.split(",")[1] for line in csv.read_text().splitlines()}
+
+
+def path_f1_legs() -> dict:
+    """Each leg through extract -> cluster -> select on path A's clips and
+    path C's checkpoints; the int8 legs' video taps, assignments and picks
+    held against the fp leg's. Returns the int8 legs' launches (the fp leg
+    is the comparison)."""
+    clips = WORK / "a" / "clips"
+    n_clips = 16
+    legs, launches = {}, dict.fromkeys(counts(), 0)
+    for leg, args in F_LEGS.items():
+        root = WORK / "f" / leg
+        reset_counts()
+        t_ext = run_stage("extract", f"data.media.path={clips}/{SPEC}.tar",
+                          f"data.output.path={root}/features", "data.batch_size=4",
+                          *checkpoint_args(), *args)
+        after_extract = counts()
+        taps = check_features(root / "features", n_clips)
+        t_clu = run_stage("cluster", f"data.path={root}/features/{SPEC}.pkl",
+                          f"data.output.path={root}/clusters", "data.batch_size=4",
+                          "clustering.ncentroids=4", "clustering.epochs=4")
+        t_sel = run_stage("select", f"data.path={root}/clusters/{SPEC}.pkl",
+                          f"data.output.path={root}/output.csv", f"data.meta.path={clips}")
+        run = counts()
+        rows, want = csv_rows(root / "output.csv"), round(0.2 * n_clips)
+        check(rows == want, f"path F1 {leg}: output.csv rows {rows} != {want}")
+        check(run["kmeans_assign_update"] > after_extract["kmeans_assign_update"],
+              f"path F1 {leg}: K1 launched by cluster")
+        if leg == "fp":
+            check(after_extract["bottleneck_stage"] > 0, "path F1 fp: K2 launched")
+        else:
+            check(after_extract["bottleneck_stage"] == after_extract["bottleneck_stage_bf16"] == 0,
+                  f"path F1 {leg}: K2 and K2-bf16 never launched in int8 ({after_extract})")
+            for name, n in run.items():
+                launches[name] += n
+        legs[leg] = {"taps": taps, "assign": assignments(root / "clusters"),
+                     "selected": selected(root / "output.csv"),
+                     "seconds": (t_ext, t_clu, t_sel), "launches": run}
+    fp = legs["fp"]
+    for leg in ("int8", "int8_bf16"):
+        got = legs[leg]
+        cos = {}
+        for key, want in fp["taps"].items():
+            if key[1] != "video_features":
+                continue
+            a, b = got["taps"][key].astype(np.float64), want.astype(np.float64)
+            cos[key] = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+        worst = min(cos, key=cos.get)
+        same = [got["assign"][k] == v for k, v in fp["assign"].items()]
+        agreement = sum(same) / len(same)
+        overlap = len(got["selected"] & fp["selected"]) / len(fp["selected"])
+        t_ext, t_clu, t_sel = got["seconds"]
+        log(f"path F1 {leg} ({' '.join(F_LEGS[leg])}): extract {t_ext:.2f} s "
+            f"({n_clips / t_ext:.2f} clips/s); cluster {t_clu:.2f} s; select {t_sel:.2f} s; "
+            f"video taps' cosine to the fp leg's, per clip and layer, at least {cos[worst]:.6f} "
+            f"({worst[0]} {worst[2]}); video assignment agreement {agreement:.3f} over "
+            f"{len(same)}; subset overlap {overlap:.3f} of {len(fp['selected'])}; launches "
+            f"{got['launches']}")
+        check(cos[worst] > COSINE_MIN, f"path F1 {leg}: cosine {cos[worst]} > {COSINE_MIN}")
+        check(agreement >= AGREEMENT_MIN, f"path F1 {leg}: agreement {agreement}")
+        check(overlap >= OVERLAP_MIN, f"path F1 {leg}: overlap {overlap}")
+    t_ext, t_clu, t_sel = fp["seconds"]
+    log(f"path F1 fp reference (float32, K2 route): extract {t_ext:.2f} s; cluster "
+        f"{t_clu:.2f} s; select {t_sel:.2f} s; launches {fp['launches']} (not counted)")
+    return launches
+
+
+def path_a_batch(n: int) -> dict:
+    """The first ``n`` of path A's clips as a staged batch on the card."""
+    from acav100m_torch.data.meta import load_metadata
+    from acav100m_torch.data.tar_dataset import TarShardDataset, collate
+
+    shard = str(WORK / "a" / "clips" / "shard-000000.tar")
+    metas, _ = load_metadata([shard])
+    samples = []
+    for sample in TarShardDataset([shard], metas):
+        samples.append(sample)
+        if len(samples) == n:
+            break
+    batch = collate(samples, n)
+    return {k: torch.from_numpy(batch[k]).cuda() for k in ("frames", "audio", "valid_samples")}
+
+
+def int8_models(*extra) -> dict:
+    return fe.build_models(fe.get_config({"data.media.path": "-", **dict(
+        a.split("=", 1) for a in (*checkpoint_args(), *extra))}))
+
+
+def int8_sites(blk, x: torch.Tensor):
+    """``blk(x, "int8")`` -> (its output, the int8 activations it quantized:
+    q_in, q_a, q_b)."""
+    import acav100m_torch.models.quant as qmod
+
+    sites, quantize = [], qmod.quantize_act
+
+    def record(v, scale):
+        sites.append(quantize(v, scale))
+        return sites[-1]
+
+    qmod.quantize_act = record
+    try:
+        with torch.inference_mode():
+            return blk(x, "int8"), sites
+    finally:
+        qmod.quantize_act = quantize
+
+
+def path_f1_card_checks() -> None:
+    """On one clip of path A through the int8 model at full width (path C's
+    checkpoint, calibrated on it): every int8 conv geometry's int32 sums on
+    the card against the CPU's, bit for bit, and the slow ``s3`` stage on
+    the card against the CPU with the same scales."""
+    import acav100m_torch.models.quant as qmod
+
+    model = int8_models(*INT8)["layer_slowfast"]
+    frames = path_a_batch(2)["frames"][:1]
+    seen, stage_in = {}, []
+    conv = qmod.conv3d_int8
+
+    def record(xq, wmat, ksize, stride, padding):
+        y, shape = conv(xq, wmat, ksize, stride, padding)
+        key = (tuple(xq.shape[1:]), tuple(wmat.shape), tuple(ksize), tuple(stride))
+        if key not in seen:
+            seen[key] = (xq.cpu(), wmat.cpu(), tuple(padding), y.cpu())
+        return y, shape
+
+    # s2_fuse returns (slow, fast): the slow tensor is s3's slow input
+    hook = model.s2_fuse.register_forward_hook(lambda m, i, out: stage_in.append(out[0]))
+    qmod.conv3d_int8 = record
+    try:
+        with torch.inference_mode():
+            model.calibrate(frames)
+            model(frames)
+    finally:
+        qmod.conv3d_int8 = conv
+        hook.remove()
+    t0 = time.time()
+    differ = [key for key, (xq, wmat, padding, y) in seen.items()
+              if not torch.equal(conv(xq, wmat, key[2], key[3], padding)[0], y)]
+    kinds = sorted({(k[2], k[3][1]) for k in seen})
+    log(f"path F1, int8 conv at full width (one clip, 32 frames of 256x256): {len(seen)} "
+        f"geometries (kernel, spatial stride: {kinds}; Cin {sorted({k[0][0] for k in seen})}), "
+        f"the card's int32 sums equal to the CPU's on {len(seen) - len(differ)} "
+        f"({time.time() - t0:.1f} s on the CPU)")
+    check(not differ and len(seen) >= 20, f"int8 conv card vs CPU bit for bit: {differ}")
+    # the slow s3 stage (4 int8 blocks, same scales) from s2_fuse's output:
+    # each block on the card and on the CPU from the CPU chain's input
+    blocks = model.s3._blocks(0)
+    cpu_blocks = [copy.deepcopy(b).cpu() for b in blocks]
+    x = stage_in[-1].cpu()
+    lines, chain = [], x.cuda()
+    for i, (blk, blk_cpu) in enumerate(zip(blocks, cpu_blocks)):
+        y, sites = int8_sites(blk, x.cuda())
+        y_cpu, sites_cpu = int8_sites(blk_cpu, x)
+        with torch.inference_mode():
+            chain = blk(chain, "int8")
+        steps = [(a.cpu().int() - b.int()).abs() for a, b in zip(sites, sites_cpu)]
+        moved = [int((d > 0).sum()) for d in steps]
+        rel = float((y.cpu() - y_cpu).double().norm() / y_cpu.double().norm())
+        lines.append(f"block {i}: q_in/q_a/q_b moved {moved} of {[d.numel() for d in steps]}, "
+                     f"output relative L2 {rel:.2e}")
+        check(moved[0] == 0, f"s3 block {i}: the same input quantizes the same")
+        check(max(int(d.max()) for d in steps) <= 1
+              and all(m <= STAGE_MOVED * d.numel() for m, d in zip(moved, steps)),
+              f"s3 block {i}: int8 activations within one step: {lines[-1]}")
+        check(rel <= STAGE_REL_L2, f"s3 block {i}: {lines[-1]}")
+        x = y_cpu
+    chained = float((chain.cpu() - x).double().norm() / x.double().norm())
+    log(f"path F1, the slow s3 int8 stage at full width ({tuple(stage_in[-1].shape)} in, "
+        f"{tuple(x.shape)} out), card against CPU with the same scales, each block from the "
+        f"same input: " + "; ".join(lines) + f"; the 4 blocks chained on each device: relative "
+        f"L2 {chained:.2e} (one-step moves cascade through 12 quantizes)")
+
+
+def path_f1_times() -> None:
+    """Device time of one warm extract batch of 4 of path A's clips on path
+    C's checkpoints (SlowFast + VGGish) in float32, bf16 and both int8 legs,
+    the int8 GEMM's share of it, and the calibration pass."""
+    from acav100m_torch.profiling import batch_profile
+
+    batch = path_a_batch(4)
+    args = (batch["frames"], batch["audio"], batch["valid_samples"])
+    lines = []
+    for label, extra in (("float32", []), ("bf16", HEADLINE), ("int8", INT8),
+                         ("int8 bf16", INT8 + HEADLINE)):
+        models = int8_models(*extra)
+        sf = models["layer_slowfast"]
+        calib = ""
+        if sf.quant == "int8":
+            with torch.inference_mode():
+                sf.calibrate(batch["frames"])
+                ms = time_ms(lambda: sf.calibrate(batch["frames"]), iters=5, warmup=1)
+            calib = f", the calibration pass {ms:.3f} ms (SlowFast alone, fp graph)"
+        extract = fe.make_extract_fn(models)
+        busy, by_op, top = batch_profile(lambda: extract(*args))
+        share = by_op["aten::_int_mm"] / busy
+        lines.append(f"{label}: {busy:.3f} ms of device time, the int8 GEMM {by_op['aten::_int_mm']:.3f} "
+                     f"ms ({100 * share:.1f}%){calib}; top kernels "
+                     + "; ".join(f"{t:.3f} ms {name[:60]}" for t, name in top[:4]))
+        del models, sf, extract
+    log("path F1 times, one warm extract batch of 4 clips (32 frames of 256x256, SlowFast + "
+        f"VGGish, path C's checkpoints; torch.profiler, mean of 3; {card()}): "
+        + " | ".join(lines))
+
+
+def write_scene_video(path: Path, seed: int, seconds=(12, 12, 12), fps: float = 10.0,
+                      size: int = 256) -> None:
+    """Three constant-colour scenes with hard cuts (the colours a third of the
+    range apart, so each cut scores above ``segment``'s threshold of 10),
+    written by OpenCV (mp4v)."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    colours = np.roll(np.array([[40, 40, 40], [200, 60, 60], [60, 200, 200]], np.uint8),
+                      seed, axis=0)
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), fps, (size, size))
+    check(writer.isOpened(), "cv2.VideoWriter opens an mp4")
+    for colour, s in zip(colours, seconds):
+        for _ in range(int(fps * s)):
+            frame = np.broadcast_to(colour, (size, size, 3)).copy()
+            frame += rng.randint(0, 3, frame.shape).astype(np.uint8)
+            writer.write(frame)
+    writer.release()
+
+
+def path_f2_stages() -> dict:
+    """Stages 2-3 on this machine's OpenCV (no FFmpeg here), then stage 4 in
+    int8 on the bundled clips and stages 5-6: ``download --source_dir``,
+    ``segment --backend opencv``, ``bundle_shards``, ``extract
+    data.decoder=opencv computation.quant=int8``, ``cluster``, ``select``,
+    with the row counts checked at each stage. Returns its launches."""
+    from acav100m_torch.pipeline.bundling import bundle_shards
+
+    root = WORK / "f2"
+    src = root / "src"
+    src.mkdir(parents=True)
+    vids = ["vidA0000001", "vidB0000002"]
+    t0 = time.time()
+    for i, vid in enumerate(vids):
+        write_scene_video(src / f"{vid}.mp4", seed=i)
+    (root / "filtered.tsv").write_text(
+        "".join(f"https://www.youtube.com/watch?v={v}\t{{}}\n" for v in vids))
+    t_write = time.time() - t0
+    t_dl = run_stage("download", str(root / "filtered.tsv"), str(root / "raw"),
+                     f"--source_dir={src}")
+    check(sorted(p.name for p in (root / "raw").iterdir()) == [f"{v}.mp4" for v in vids],
+          "download copied both videos")
+    # each 36 s video: cuts at 12 and 24 s, so two shots of 10 s or more
+    # before the last cut (the reference's rule), each cut to 10 s; with
+    # num_clips 2 no threshold annealing drops a cut
+    t_seg = run_stage("segment", str(root / "raw"), str(root / "clips"), "--backend=opencv",
+                      "--num_clips=2")
+    clips = sorted((root / "clips").glob("*.mp4"))
+    check(len(clips) == 4, f"segment wrote 4 clips, got {[c.name for c in clips]}")
+    shards = bundle_shards(clips, root / "shards", shard_size=2)
+    metas = [json.loads(s.with_suffix(".json").read_text()) for s in shards]
+    check(len(shards) == 2 and [len(m) for m in metas] == [2, 2], "2 shards of 2 clips")
+    spec = f"{root}/shards/shard-{{000000..000001}}"
+    reset_counts()
+    t_ext = run_stage("extract", f"data.media.path={spec}.tar",
+                      f"data.output.path={root}/features", "data.batch_size=2",
+                      "data.decoder=opencv", *checkpoint_args(), *INT8)
+    after_extract = counts()
+    check_features(root / "features", 4)
+    t_clu = run_stage("cluster", f"data.path={root}/features/shard-{{000000..000001}}.pkl",
+                      f"data.output.path={root}/clusters", "data.batch_size=2",
+                      "clustering.ncentroids=2", "clustering.epochs=8")
+    n_assign = sum(len(load_pickle(p)) for p in (root / "clusters").glob("shard-*.pkl"))
+    t_sel = run_stage("select", f"data.path={root}/clusters/shard-{{000000..000001}}.pkl",
+                      f"data.output.path={root}/output.csv", f"data.meta.path={root}/shards")
+    launches = counts()
+    rows = csv_rows(root / "output.csv")
+    log(f"path F2, stages 2-6 on 2 OpenCV-written videos (3 scenes of 12 s, 256x256, 10 fps): "
+        f"writing {t_write:.2f} s, download {t_dl:.2f} s, segment (opencv) {t_seg:.2f} s -> "
+        f"{len(clips)} clips {[c.name for c in clips]}, 2 shards; extract (opencv decoder, "
+        f"int8) {t_ext:.2f} s -> 4 rows; cluster {t_clu:.2f} s -> {n_assign} rows; select "
+        f"{t_sel:.2f} s -> {rows} csv rows; launches {launches}")
+    check(after_extract["bottleneck_stage"] == after_extract["bottleneck_stage_bf16"] == 0,
+          "path F2: no K2 in int8")
+    check(n_assign == 4 and rows == round(0.2 * 4), f"path F2 rows: {n_assign}, {rows}")
+    return launches
+
+
+def main_path_f() -> dict:
+    """Path F; returns its launches (the int8 legs' and F2's)."""
+    launches = path_f1_legs()
+    path_f1_card_checks()
+    path_f1_times()
+    for name, n in path_f2_stages().items():
+        launches[name] += n
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1471,6 +1820,10 @@ def main() -> int:
     for name, n in main_path_e().items():
         launches[name] += n
     log(f"path E total {time.time() - t0:.1f} s")
+    t0 = time.time()
+    for name, n in main_path_f().items():
+        launches[name] += n
+    log(f"path F total {time.time() - t0:.1f} s")
     shutil.rmtree(WORK, ignore_errors=True)
     kernels = []
     for name, _, replaces in KERNELS:

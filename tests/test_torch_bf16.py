@@ -190,9 +190,37 @@ def test_bf16_build_keeps_float32_weights_and_writes_float32_pkls(tmp_path):
                 assert arr.dtype == np.float32 and np.isfinite(arr).all()
 
 
-@pytest.mark.parametrize("override", [{"computation.dtype": "float16"},
-                                      {"computation.quant": "int8"}])
+@pytest.mark.parametrize("override", [{"computation.dtype": "float16"}])
 def test_what_is_not_ported_still_raises(override):
     cfg = tfe.get_config({"computation.device": "cpu", **override})
     with pytest.raises(NotImplementedError):
         tfe.build_models(cfg)
+
+
+def test_int8_builds_in_the_headline_configuration():
+    """``computation.quant=int8`` with bf16 and ``fast_block``: the JAX
+    package's int8 leg. Its weights are the float32 model's, no stage runs
+    K2, and calibrated taps come out in bf16, finite; an unknown ``quant``
+    string raises (the JAX package would run it as int8)."""
+    base = {"computation.device": "cpu", "models": ["layer_slowfast"],
+            "data.media.num_frames": 8, "computation.dtype": "bfloat16",
+            "computation.fast_block": FAST_BLOCK}
+    fp = tfe.build_models(tfe.get_config(base))["layer_slowfast"]
+    model = tfe.build_models(tfe.get_config({**base, "computation.quant": "int8"}))[
+        "layer_slowfast"]
+    assert model.quant == "int8" and model.dtype == torch.bfloat16
+    assert not any(getattr(model, f"s{k}").fused_slow for k in range(2, 6))
+    want, got = fp.state_dict(), model.state_dict()
+    assert list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want)
+    frames = torch.from_numpy(np.random.RandomState(15).randint(
+        0, 255, (2, 8, 16, 16, 3)).astype(np.uint8))
+    before = tbk.fused_stage.launches, tbk.fused_stage_bf16.launches
+    with torch.inference_mode():
+        model.calibrate(frames)
+        taps = model(frames)
+    assert (tbk.fused_stage.launches, tbk.fused_stage_bf16.launches) == before
+    assert all(float(v) > 0 for v in model.quant_state_dict().values())
+    assert [t.dtype for t in taps] == [torch.bfloat16] * 5
+    assert all(torch.isfinite(t).all() for t in taps)
+    with pytest.raises(ValueError):
+        tfe.build_models(tfe.get_config({**base, "computation.quant": "int4"}))

@@ -44,7 +44,13 @@ def test_port_imports_no_jax():
                 "acav100m_torch.pipeline.subset_selection",
                 "acav100m_torch.ops.kmeans_kernel",
                 "acav100m_torch.ops.bottleneck_kernel", "acav100m_torch.cli",
-                "acav100m_torch.runtime.mesh"):
+                "acav100m_torch.runtime.mesh", "acav100m_torch.models.quant",
+                "acav100m_torch.pipeline.metadata_filtering",
+                "acav100m_torch.pipeline.fasttext_ftz",
+                "acav100m_torch.pipeline.video_download",
+                "acav100m_torch.pipeline.video_signature",
+                "acav100m_torch.pipeline.clip_segmentation",
+                "acav100m_torch.pipeline.bundling"):
         assert mod in res["modules"]
 
 

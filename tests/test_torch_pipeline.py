@@ -115,9 +115,16 @@ def test_build_models_loads_flax_npz(clips, variables, tmp_path):
     sd = seeded["layer_slowfast"].state_dict()
     assert not sd["s2.pathway0_res0.branch2.c_bn.weight"].any()
     assert sd["s2.pathway0_res0.branch2.b_bn.weight"].eq(1).all()
-    with pytest.raises(NotImplementedError):
+    # int8 loads the same checkpoint (it has no observer state) and runs
+    # s2..s5 as QuantResBlocks; an unknown quant raises
+    quant = tfe.build_models(_extract_cfg(tfe, clips, tmp_path, **cpu_sf, **{
+        "weights.slowfast_file": str(path), "computation.quant": "int8"}))["layer_slowfast"]
+    got = quant.state_dict()
+    assert all(torch.equal(got[key], val) for key, val in want.items())
+    assert isinstance(quant.s2.pathway0_res0, tsf.QuantResBlock) and not quant.s2.fused_slow
+    with pytest.raises(ValueError):
         tfe.build_models(_extract_cfg(tfe, clips, tmp_path, **{
-            "computation.device": "cpu", "computation.quant": "int8"}))
+            "computation.device": "cpu", "computation.quant": "int16"}))
 
 
 def test_port_cli_end_to_end(extracted):
