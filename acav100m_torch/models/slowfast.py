@@ -241,40 +241,42 @@ class QuantResBlock(ResBlock):
         self._qweights = None
         super()._load_from_state_dict(*args, **kwargs)
 
-    def _observe(self, site: str, x: torch.Tensor) -> None:
-        amax = x.detach().abs().amax().float()
-        # a normal tensor, updated in place even under inference_mode
-        with torch.inference_mode(False), torch.no_grad():
-            buf = getattr(self, site)
-            buf.copy_(torch.maximum(buf, amax))
+    def _site(self, site: str, x: torch.Tensor, mode: str):
+        """A conv input at observer ``site`` -> (what the convs take, its
+        scale): calib raises the running maximum and passes ``x`` on with no
+        scale; int8 quantizes ``x`` against the frozen scale. The maximum is
+        a new tensor, not an in-place update, so the observer follows the
+        batch whether the model or the batch was made under
+        ``torch.inference_mode`` or not."""
+        if mode == "calib":
+            with torch.no_grad():
+                amax = x.detach().abs().amax().float()
+                setattr(self, site, torch.maximum(getattr(self, site), amax))
+            return x, None
+        s = q.act_scale(getattr(self, site))
+        return q.quantize_act(x, s), s
+
+    def _conv(self, name: str, conv: nn.Conv3d, x: torch.Tensor, s: Optional[torch.Tensor],
+              dtype: torch.dtype) -> torch.Tensor:
+        """``conv`` on a ``_site`` output: fp without a scale, int8 with one."""
+        if s is None:
+            return in_dtype(conv, x)
+        return q.qconv(x, s, *self.quantized_weights()[name], conv, dtype)
 
     def forward(self, x, mode: str = "int8"):
         if mode == "none":
             return super().forward(x)
-        if mode == "calib":
-            self._observe("q_in", x)
-            shortcut = (self.branch1_bn(in_dtype(self.branch1, x)) if hasattr(self, "branch1")
-                        else x)
-            t = self.branch2
-            h = torch.relu(t.a_bn(in_dtype(t.a, x)))
-            self._observe("q_a", h)
-            h = torch.relu(t.b_bn(in_dtype(t.b, h)))
-            self._observe("q_b", h)
-            return torch.relu(shortcut + t.c_bn(in_dtype(t.c, h)))
-        if mode != "int8":
+        if mode not in ("calib", "int8"):
             raise ValueError(f"quant mode {mode!r} is not one of {q.MODES}")
-        dtype, t, w = x.dtype, self.branch2, self.quantized_weights()
-        s_in = q.act_scale(self.q_in)
-        xq = q.quantize_act(x, s_in)
+        dtype, t = x.dtype, self.branch2
+        xs, s_in = self._site("q_in", x, mode)
         if hasattr(self, "branch1"):
-            shortcut = self.branch1_bn(q.qconv(xq, s_in, *w["branch1"], self.branch1, dtype))
-        else:
-            shortcut = (xq.float() * s_in).to(dtype)
-        h = torch.relu(t.a_bn(q.qconv(xq, s_in, *w["a"], t.a, dtype)))
-        s_a = q.act_scale(self.q_a)
-        h = torch.relu(t.b_bn(q.qconv(q.quantize_act(h, s_a), s_a, *w["b"], t.b, dtype)))
-        s_b = q.act_scale(self.q_b)
-        h = t.c_bn(q.qconv(q.quantize_act(h, s_b), s_b, *w["c"], t.c, dtype))
+            shortcut = self.branch1_bn(self._conv("branch1", self.branch1, xs, s_in, dtype))
+        else:  # int8: the dequantized input
+            shortcut = x if s_in is None else (xs.float() * s_in).to(dtype)
+        h = torch.relu(t.a_bn(self._conv("a", t.a, xs, s_in, dtype)))
+        h = torch.relu(t.b_bn(self._conv("b", t.b, *self._site("q_a", h, mode), dtype)))
+        h = t.c_bn(self._conv("c", t.c, *self._site("q_b", h, mode), dtype))
         return torch.relu(shortcut + h)
 
 
@@ -447,10 +449,11 @@ class SlowFastBackbone(nn.Module):
         if set(state) != want:
             raise KeyError(f"quant state keys: missing {sorted(want - set(state))}, "
                            f"unexpected {sorted(set(state) - want)}")
-        with torch.no_grad():
-            for name, blk in self._quant_blocks():
-                for site in QUANT_SITES:
-                    getattr(blk, site).copy_(torch.as_tensor(state[f"{name}.{site}"]))
+        for name, blk in self._quant_blocks():
+            for site in QUANT_SITES:
+                buf = getattr(blk, site)
+                setattr(blk, site, torch.as_tensor(state[f"{name}.{site}"]).detach().to(
+                    device=buf.device, dtype=buf.dtype).clone())
 
 
 def normalize_frames(frames: torch.Tensor) -> torch.Tensor:

@@ -301,10 +301,9 @@ def run_extraction(cfg, decoder=None, models=None, group: Optional[Group] = None
     # int8: the activation scales are set on the run's first batch, the
     # staged batch with its masked pad rows, once (JAX
     # feature_extraction.py:373-381); an equalize_length pad comes after
-    # every real batch, so it is never the one calibrated on
-    to_calibrate = [m for m in models.values()
-                    if (cfg.computation.quant or "none") != "none"
-                    and getattr(m, "quant", "none") == "int8"]
+    # every real batch, so it is never the one calibrated on. The model owns
+    # the observers, so it alone decides
+    to_calibrate = [m for m in models.values() if getattr(m, "quant", "none") == "int8"]
     t0 = time.time()
     for n_iter, batch in enumerate(batches):
         staged = batch.pop("_dev")

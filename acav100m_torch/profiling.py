@@ -1,13 +1,12 @@
 """Device-time profile of one extract batch on one GPU.
 
-    python -m acav100m_torch.profiling [--dtype bfloat16] [--quant int8] [--by-shape]
+    python -m acav100m_torch.profiling [--dtype bfloat16] [--by-shape]
 
 Runs one warm extract batch of 4 synthetic clips through both full-width
 models (32 frames of 256x256, seeded weights, in float32 with PyTorch's
 default TF32 for cuDNN convolutions, or in bfloat16 as
-``computation.dtype=bfloat16`` runs them; ``--quant int8`` runs SlowFast's
-int8 stages, calibrated on the same batch first) under ``torch.profiler``
-(CUDA activity). It
+``computation.dtype=bfloat16`` runs them) under ``torch.profiler`` (CUDA
+activity). It
 prints the device time by kernel name, the summed device time and the wall
 time, so the device's busy share is their ratio. With ``--by-shape`` it
 also records input shapes and prints the convolutions' device time by
@@ -125,40 +124,37 @@ def device_busy(fn):
     return wall, kernels / 1e6, copies / 1e6
 
 
-def batch_profile(fn, iters: int = 3, ops=("aten::_int_mm",), top: int = 8):
-    """``fn()`` once to warm, then ``iters`` calls under ``torch.profiler``
-    -> (device ms a call, {op: device ms a call of the kernels ``op``
-    launched}, [(device ms a call, kernel name)] of the ``top`` kernels)."""
+def profile_calls(fn, iters: int = 3, record_shapes: bool = False):
+    """``fn()`` once to warm (builds kernels, picks cuDNN algorithms), then
+    ``iters`` calls under ``torch.profiler`` -> (the profile, wall us a
+    call, [(device us a call, launches a call, kernel name)], the largest
+    device time first)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = sorted(_device_events(prof), key=_device_us, reverse=True)
-    busy = sum(_device_us(e) for e in events) / iters / 1e3
-    by_op = {op: sum(_total_device_us(e) for e in prof.key_averages() if e.key == op)
-             / iters / 1e3 for op in ops}
-    return busy, by_op, [(_device_us(e) / iters / 1e3, e.key) for e in events[:top]]
-
-
-def run(label: str, fn, iters: int = 3, top: int = 16, by_shape: bool = False) -> None:
-    fn()  # warm: builds kernels, picks cuDNN algorithms
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=by_shape) as prof:
+                 record_shapes=record_shapes) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6 / iters
-    events = _device_events(prof)
-    events.sort(key=_device_us, reverse=True)
-    busy_us = sum(_device_us(e) for e in events) / iters
+    events = sorted(_device_events(prof), key=_device_us, reverse=True)
+    return prof, wall_us, [(_device_us(e) / iters, e.count // iters, e.key) for e in events]
+
+
+def op_device_us(prof, op: str, iters: int = 3) -> float:
+    """Device us a call of the kernels that operator ``op``
+    (``aten::_int_mm``, ...) launched in a ``profile_calls`` profile."""
+    return sum(_total_device_us(e) for e in prof.key_averages() if e.key == op) / iters
+
+
+def run(label: str, fn, iters: int = 3, top: int = 16, by_shape: bool = False) -> None:
+    prof, wall_us, rows = profile_calls(fn, iters, record_shapes=by_shape)
+    busy_us = sum(us for us, _, _ in rows)
     print(f"== {label}: wall {wall_us:.1f} us/iter, device busy {busy_us:.1f} us/iter "
           f"({100 * busy_us / wall_us:.1f}%)")
-    for e in events[:top]:
-        print(f"   {_device_us(e) / iters:10.1f} us  x{e.count // iters:<4d} {e.key[:90]}")
+    for us, count, name in rows[:top]:
+        print(f"   {us:10.1f} us  x{count:<4d} {name[:90]}")
     if by_shape:
         convs = [e for e in prof.key_averages(group_by_input_shape=True)
                  if e.key == "aten::convolution"]
@@ -173,8 +169,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="device time of one warm extract batch")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
                     help="the models' compute dtype (computation.dtype)")
-    ap.add_argument("--quant", choices=["none", "int8"], default="none",
-                    help="SlowFast's int8 stages (computation.quant)")
     ap.add_argument("--by-shape", action="store_true",
                     help="also print the convolutions' device time by shape")
     args = ap.parse_args(argv)
@@ -184,8 +178,7 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(0)
     print(card())
     with torch.inference_mode():
-        sf = LayerSlowFast(dtype=args.dtype, quant=args.quant)
-        vg = LayerVggish(dtype=args.dtype)
+        sf, vg = LayerSlowFast(dtype=args.dtype), LayerVggish(dtype=args.dtype)
         init_weights(sf, gen)
         init_weights(vg, gen)
         sf.to(dev).eval()
@@ -194,9 +187,7 @@ def main(argv=None) -> int:
                                dtype=torch.uint8).to(dev)
         audio = (0.1 * torch.randn((4, 160000), generator=gen)).to(dev)
         valid = torch.full((4,), 160000, device=dev)
-        if args.quant == "int8":
-            sf.calibrate(frames)
-        run(f"extract batch (4 clips, SlowFast + VGGish, {args.dtype}, quant {args.quant})",
+        run(f"extract batch (4 clips, SlowFast + VGGish, {args.dtype})",
             lambda: (sf(frames), vg(audio, valid)), by_shape=args.by_shape)
     return 0
 

@@ -1666,7 +1666,7 @@ def path_f1_times() -> None:
     """Device time of one warm extract batch of 4 of path A's clips on path
     C's checkpoints (SlowFast + VGGish) in float32, bf16 and both int8 legs,
     the int8 GEMM's share of it, and the calibration pass."""
-    from acav100m_torch.profiling import batch_profile
+    from acav100m_torch.profiling import op_device_us, profile_calls
 
     batch = path_a_batch(4)
     args = (batch["frames"], batch["audio"], batch["valid_samples"])
@@ -1682,11 +1682,12 @@ def path_f1_times() -> None:
                 ms = time_ms(lambda: sf.calibrate(batch["frames"]), iters=5, warmup=1)
             calib = f", the calibration pass {ms:.3f} ms (SlowFast alone, fp graph)"
         extract = fe.make_extract_fn(models)
-        busy, by_op, top = batch_profile(lambda: extract(*args))
-        share = by_op["aten::_int_mm"] / busy
-        lines.append(f"{label}: {busy:.3f} ms of device time, the int8 GEMM {by_op['aten::_int_mm']:.3f} "
-                     f"ms ({100 * share:.1f}%){calib}; top kernels "
-                     + "; ".join(f"{t:.3f} ms {name[:60]}" for t, name in top[:4]))
+        prof, _, rows = profile_calls(lambda: extract(*args))
+        busy = sum(us for us, _, _ in rows) / 1e3
+        gemm = op_device_us(prof, "aten::_int_mm") / 1e3
+        lines.append(f"{label}: {busy:.3f} ms of device time, the int8 GEMM {gemm:.3f} "
+                     f"ms ({100 * gemm / busy:.1f}%){calib}; top kernels "
+                     + "; ".join(f"{us / 1e3:.3f} ms {name[:60]}" for us, _, name in rows[:4]))
         del models, sf, extract
     log("path F1 times, one warm extract batch of 4 clips (32 frames of 256x256, SlowFast + "
         f"VGGish, path C's checkpoints; torch.profiler, mean of 3; {card()}): "

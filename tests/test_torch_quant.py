@@ -225,6 +225,29 @@ def test_calib_mode_reproduces_fp_taps(q_variables, frames, dtype):
     assert all(float(v) > 0 for v in model.quant_state_dict().values())
 
 
+@pytest.mark.parametrize("build_inference", [False, True], ids=["built", "built_inference"])
+@pytest.mark.parametrize("calib_inference", [False, True], ids=["calib", "calib_inference"])
+def test_calibrate_under_any_inference_mode(q_variables, frames, build_inference,
+                                            calib_inference):
+    """A model built, loaded and moved under ``torch.inference_mode`` (its
+    buffers then inference tensors), or outside it, calibrates inside or
+    outside it to the same maxima, and its scales load back outside it."""
+    want = _port_model(q_variables, quant="int8")
+    with torch.no_grad():
+        want.calibrate(torch.from_numpy(frames))
+    with torch.inference_mode(build_inference):
+        model = _port_model(q_variables, quant="int8").to("cpu").eval()
+    with torch.inference_mode(calib_inference):
+        model.calibrate(torch.from_numpy(frames))
+    got = model.quant_state_dict()
+    assert {k: float(v) for k, v in got.items()} == \
+        {k: float(v) for k, v in want.quant_state_dict().items()}
+    model.load_quant_state_dict(got)
+    with torch.inference_mode():
+        taps = model(torch.from_numpy(frames))
+    assert all(torch.isfinite(t).all() for t in taps)
+
+
 def test_uncalibrated_int8_is_finite(q_variables, frames):
     model = _port_model(q_variables, quant="int8")
     assert not any(float(v) for v in model.quant_state_dict().values())

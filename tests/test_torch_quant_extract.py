@@ -12,7 +12,13 @@ dead). Each package calibrates on its own, and the scales differ by float32
 rounding (7e-7 relative), which can move a quantized activation one step;
 the taps are held to a cosine above 0.999 and a relative L2 below 5e-2 per
 tap (measured here: cosine at least 0.99953, relative L2 at most 3.1e-2).
-The gate measured agreement 1.0 and overlap 1.0 here."""
+The same clips through the port's fp graph set those apart from fp: the
+s1_fuse tap (before any int8 stage) equals fp's; the s2 tap is within
+7.9e-5 of JAX's int8 and at least 6.8e-3 from fp (held to a twentieth of
+the fp distance); the s3..s5 taps are at least 1.5e-2 from fp (held to
+5e-3), where a one-step move cascading through the stages takes the port
+as far from JAX's int8 as from fp. The gate measured agreement 1.0 and
+overlap 1.0 here."""
 
 from collections import OrderedDict
 
@@ -49,50 +55,92 @@ def _rows(out_dir):
     return [r for p in sorted(out_dir.glob("shard-*.pkl")) for r in load_pickle(p)]
 
 
-def test_run_extraction_int8_calibrates_on_batch_0_and_matches_jax(tmp_path):
-    tcli.main(["fixtures", str(tmp_path / "clips"), "--size=16"])
-    variables = _variables(8, 16, seed=31)
-
-    def cfg(mod, out, **extra):
-        return mod.get_config({"data.media.path": f"{tmp_path}/clips/shard-{{000000..000001}}.tar",
-                               "data.output.path": str(tmp_path / out), "data.batch_size": 4,
-                               "data.media.num_frames": 8, "computation.quant": "int8",
-                               **VIDEO_ONLY, **extra})
-
-    jparams = {"layer_slowfast": dict(variables)}
-    jfe.run_extraction(cfg(jfe, "jax"), models={"layer_slowfast": jsf.LayerSlowFast(
-        quant="int8")}, params=jparams)
-    model = tsf.LayerSlowFast(quant="int8")
+def _port_model(variables, **kw):
+    model = tsf.LayerSlowFast(**kw)
     model.load_state_dict(tsf.state_dict_from_flax(variables))
-    calls = []
-    calibrate = model.calibrate
+    return model
+
+
+def _counted_calibrate(model):
+    """Records the shape of every batch ``model.calibrate`` is called on."""
+    calls, calibrate = [], model.calibrate
 
     def counted(frames):
         calls.append(tuple(frames.shape))
         calibrate(frames)
 
     model.calibrate = counted
+    return calls
+
+
+def _rel(a, b):
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+def test_run_extraction_int8_calibrates_on_batch_0_and_matches_jax(tmp_path):
+    tcli.main(["fixtures", str(tmp_path / "clips"), "--size=16"])
+    variables = _variables(8, 16, seed=31)
+
+    def cfg(mod, out, quant="int8", **extra):
+        return mod.get_config({"data.media.path": f"{tmp_path}/clips/shard-{{000000..000001}}.tar",
+                               "data.output.path": str(tmp_path / out), "data.batch_size": 4,
+                               "data.media.num_frames": 8, "computation.quant": quant,
+                               **VIDEO_ONLY, **extra})
+
+    jparams = {"layer_slowfast": dict(variables)}
+    jfe.run_extraction(cfg(jfe, "jax"), models={"layer_slowfast": jsf.LayerSlowFast(
+        quant="int8")}, params=jparams)
+    model = _port_model(variables, quant="int8")
+    calls = _counted_calibrate(model)
     tfe.run_extraction(cfg(tfe, "port", **{"computation.device": "cpu"}),
                        models=OrderedDict(layer_slowfast=model))
     assert calls == [(4, 8, 16, 16, 3)]  # once, on the first batch of 4 clips
     want_q = tsf.quant_state_from_flax(jparams["layer_slowfast"])
     for key, val in model.quant_state_dict().items():
         np.testing.assert_allclose(float(val), float(want_q[key]), rtol=1e-5, err_msg=key)
-    jrows, trows = _rows(tmp_path / "jax"), _rows(tmp_path / "port")
+    # the port's fp features of the same clips, which int8 must stand apart from
+    tfe.run_extraction(cfg(tfe, "fp", quant="none", **{"computation.device": "cpu"}),
+                       models=OrderedDict(layer_slowfast=_port_model(variables)))
+    jrows, trows, frows = (_rows(tmp_path / d) for d in ("jax", "port", "fp"))
     assert len(trows) == 8 and [r["filename"] for r in trows] == [r["filename"] for r in jrows]
-    for jr, tr in zip(jrows, trows):
+    assert [r["filename"] for r in frows] == [r["filename"] for r in trows]
+    for jr, tr, fr in zip(jrows, trows, frows):
         assert set(tr) == set(jr) and not tr["audio_features"]
-        (jf,), (tf,) = jr["video_features"], tr["video_features"]
+        (jf,), (tf,), (ff,) = jr["video_features"], tr["video_features"], fr["video_features"]
         assert {k: v for k, v in tf.items() if k != "array"} == \
             {k: v for k, v in jf.items() if k != "array"}
         assert list(tf["array"]) == list(jf["array"])
-        for layer, want in jf["array"].items():
-            got = tf["array"][layer]
+        for i, (layer, want) in enumerate(jf["array"].items()):
+            got, fp = tf["array"][layer], ff["array"][layer]
             assert got.dtype == np.float32 and got.shape == want.shape
             a, b = got.astype(np.float64), want.astype(np.float64)
             cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
-            rel = np.linalg.norm(a - b) / np.linalg.norm(b)
+            rel = _rel(got, want)
             assert cos > 0.999 and rel < 5e-2, (layer, cos, rel)
+            if i == 0:  # s1_fuse: before the first int8 stage, fp in both
+                np.testing.assert_array_equal(got, fp)
+            elif i == 1:  # s2, the first int8 stage: JAX's int8, far from fp
+                assert rel < 0.05 * _rel(got, fp), (layer, rel, _rel(got, fp))
+            else:  # deeper, one-step moves cascade; still well off the fp graph
+                assert _rel(got, fp) > 5e-3, (layer, _rel(got, fp))
+
+
+def test_run_extraction_calibrates_an_int8_model_whatever_the_config(tmp_path):
+    """The model owns the observers: an int8 model passed in ``models=`` is
+    calibrated on the first batch though ``computation.quant`` is unset."""
+    tcli.main(["fixtures", str(tmp_path / "clips"), "--size=16", "--num_shards=1",
+               "--clips_per_shard=2"])
+    model = _port_model(_variables(8, 16, seed=33), quant="int8")
+    calls = _counted_calibrate(model)
+    tfe.run_extraction(tfe.get_config({
+        "data.media.path": f"{tmp_path}/clips/shard-000000.tar",
+        "data.output.path": str(tmp_path / "port"), "data.batch_size": 2,
+        "data.media.num_frames": 8, "computation.device": "cpu", **VIDEO_ONLY}),
+        models=OrderedDict(layer_slowfast=model))
+    assert calls == [(2, 8, 16, 16, 3)]
+    assert all(float(v) > 0 for v in model.quant_state_dict().values())
+    assert len(_rows(tmp_path / "port")) == 2
 
 
 def test_int8_curation_gate(tmp_path):
