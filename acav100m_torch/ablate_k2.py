@@ -14,23 +14,34 @@ thing. It also prints ``ptxas``'s register and spill count for each
 variant and the full kernel's most frequent SASS instructions.
 
 K2's bf16 form (``csrc/bottleneck_stage_bf16.cu``) is timed beside it in
-the same way, on bf16 inputs of the same shape, with its own variants; and
-the card's own rate of each form's ``mma.sync`` instruction is measured.
+the same way, on bf16 inputs of the same shape (its weights packed by
+``pack_block_bf16``), with its own variants; and the card's own rate of
+each form's tensor-core instruction (``mma.sync`` TF32 for the float32
+form, ``wgmma`` bf16 for the bf16 form, and ``mma.sync`` bf16) is measured.
+
+    python -m acav100m_torch.ablate_k2 --parent OLD.cu
+
+also builds OLD.cu, the bf16 form of an earlier checkout whose launcher
+takes raw weights and the output tile, and times it beside this one in
+turns (parent, this, this, parent).
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import ctypes
+import functools
 import re
 import subprocess
 import sys
 from pathlib import Path
+from typing import Optional
 
 import torch
 
 from .ops import cuda_build
-from .ops.bottleneck_kernel import _KEYS, _ptr, bind, fused_stage_ref
+from .ops.bottleneck_kernel import _KEYS, _ptr, bind, fused_stage_ref, pack_block_bf16
 from .profiling import card, time_ms
 
 SRC = cuda_build.CSRC / "bottleneck_stage.cu"
@@ -96,25 +107,31 @@ VARIANTS = {
 # the bf16 form's variants, on the same plan
 VARIANTS_BF16 = {
     "full": [],
-    # no tensor-core work: fragments are loaded by ldmatrix, then dropped
+    # no tensor-core work: the wgmma instructions emptied (their operands
+    # come from shared memory by descriptor, so nothing else drops out)
     "no_mma": [(
-        '      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "\n'
-        '      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"\n',
-        '      ""\n')],
-    # product b's (the 3x3's) fragment loads and MMAs gone; staging stays
-    "skip_b": [("mma_chunk<2, 4, KC>(acc, ak", "if (false) mma_chunk<2, 4, KC>(acc, ak")],
-    # staging, barriers and epilogues alone
-    "no_products": [("mma_chunk<3, 4, KA>(", "if (false) mma_chunk<3, 4, KA>("),
-                    ("mma_chunk<2, 4, KC>(", "if (false) mma_chunk<2, 4, KC>(")],
+        "  if constexpr (N == 16) wgmma_n16(d, da, db);\n"
+        "  else if constexpr (N == 32) wgmma_n32(d, da, db);\n"
+        "  else wgmma_n128(d, da, db);\n", "")],
+    # product b's (the 3x3's) wgmma gone
+    "skip_b": [("wgmma<NW>(acc_b[m]", "if (false) wgmma<NW>(acc_b[m]")],
+    # loads, the ring, barriers and epilogues alone
+    "no_products": [("wgmma<NW>(acc_a[m]", "if (false) wgmma<NW>(acc_a[m]"),
+                    ("wgmma<NW>(acc_b[m]", "if (false) wgmma<NW>(acc_b[m]"),
+                    ("wgmma<128>(acc_c[m]", "if (false) wgmma<128>(acc_c[m]")],
 }
 
 
 # The card's own rate for the instruction each form issues: mma.sync
 # m16n8k8 TF32 and m16n8k16 bf16 from registers, 8 independent accumulators
-# a warp, two CTAs of 8 warps an SM, as K2 runs. (name, PTX, FLOP an MMA)
+# a warp, two CTAs of 8 warps an SM, as K2 runs; and wgmma m64n256k16 bf16
+# from shared memory (WGMMA_RATE_SRC), three warpgroups an SM, each issuing
+# 8 a batch into its own accumulator. (name, PTX, FLOP an instruction)
 MMA_SHAPES = {
     "m16n8k8 TF32": ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32", 2 * 16 * 8 * 8),
     "m16n8k16 bf16": ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32", 2 * 16 * 8 * 16),
+    "wgmma m64n256k16 bf16": ("wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16",
+                              2 * 64 * 256 * 16),
 }
 MMA_RATE_SRC = r"""
 #include <cuda_runtime.h>
@@ -143,20 +160,76 @@ extern "C" int launch(void* out, int blocks, int iters, void* stream) {
 """
 
 
+WGMMA_RATE_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+extern __shared__ __align__(128) unsigned char sm[];
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+__global__ void __launch_bounds__(384, 1) wgmma_rate(float* out, int iters) {
+  for (int i = threadIdx.x; i < 10240 / 4; i += blockDim.x)
+    reinterpret_cast<float*>(sm)[i] = 0.f;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(sm);
+  // A: 64 rows x 16 channels (2 planes of 1 KB); B: 256 rows x 16 (2 of 4 KB)
+  const uint64_t da = desc(base, 1024, 128), db = desc(base + 2048, 4096, 128);
+  float d[128];
+  for (int j = 0; j < 128; ++j) d[j] = 0.f;
+  for (int it = 0; it < iters; ++it) {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+                   "MMA {REGS}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+                   : OUTS : "l"(da), "l"(db), "r"(1));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  }
+  float s = 0.f;
+  for (int j = 0; j < 128; ++j) s += d[j];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int launch(void* out, int blocks, int iters, void* stream) {
+  cudaFuncSetAttribute(wgmma_rate, cudaFuncAttributeMaxDynamicSharedMemorySize, 10240);
+  wgmma_rate<<<blocks, 384, 10240, (cudaStream_t)stream>>>((float*)out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def rate_source(shape: str) -> str:
+    """The timing kernel of ``shape`` (a key of MMA_SHAPES)."""
+    ptx = MMA_SHAPES[shape][0]
+    if not shape.startswith("wgmma"):
+        return MMA_RATE_SRC.replace("MMA", ptx)
+    regs = "{" + ", ".join(f"%{i}" for i in range(128)) + "}"
+    outs = ", ".join(f'"+f"(d[{i}])' for i in range(128))
+    return WGMMA_RATE_SRC.replace("MMA", ptx).replace("{REGS}", regs).replace("OUTS", outs)
+
+
 def mma_rate_tflops(nvcc: str, shape: str) -> float:
-    """TFLOP/s of the mma.sync ``shape`` (a key of MMA_SHAPES) alone on this card."""
-    ptx, flop = MMA_SHAPES[shape]
+    """TFLOP/s of the instruction ``shape`` (a key of MMA_SHAPES) alone on
+    this card."""
+    flop = MMA_SHAPES[shape][1]
     tag = shape.replace(" ", "_")
     src, lib = OUT / f"mma_rate_{tag}.cu", OUT / f"mma_rate_{tag}.so"
-    src.write_text(MMA_RATE_SRC.replace("MMA", ptx))
+    src.write_text(rate_source(shape))
     subprocess.run([nvcc, *cuda_build.NVCC_FLAGS, "-o", str(lib), str(src)], check=True)
     fn = ctypes.CDLL(str(lib)).launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    blocks, iters = 2 * torch.cuda.get_device_properties(0).multi_processor_count, 4096
-    out = torch.empty(blocks * 256, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wgmma = shape.startswith("wgmma")
+    # instructions a launch: mma.sync 8 warps x 8 a CTA, two CTAs an SM;
+    # wgmma 3 warpgroups x 8 a CTA, one CTA an SM
+    blocks, threads, per_block = (sms, 384, 3 * 8) if wgmma else (2 * sms, 256, 8 * 8)
+    iters = 4096
+    out = torch.empty(blocks * threads, device="cuda")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     ms = time_ms(lambda: cuda_build.check(fn(_ptr(out), blocks, iters, stream), "mma_rate"))
-    return blocks * 8 * iters * 8 * flop / (ms * 1e-3) / 1e12
+    return blocks * per_block * iters * flop / (ms * 1e-3) / 1e12
 
 
 def variant_source(subs, src: Path = SRC) -> str:
@@ -174,20 +247,25 @@ FORMS = {"float32": (SRC, VARIANTS, "bottleneck_block", torch.float32),
          "bf16": (SRC_BF16, VARIANTS_BF16, "bottleneck_block_bf16", torch.bfloat16)}
 
 
-def build_all():
-    """One nvcc per variant of each form, all started together; returns
-    {(form, name): (lib, ptxas line)}."""
+def build_all(parent: Optional[Path] = None):
+    """One nvcc per variant of each form, all started together, and for
+    ``parent`` (a bf16 source of an earlier checkout) the variant
+    ("bf16", "parent"); returns {(form, name): (lib, ptxas line)}."""
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = cuda_build.find_nvcc()
     procs = {}
-    for form, (base, variants, _, _) in FORMS.items():
-        for name, subs in variants.items():
-            src = OUT / f"{form}_{name}.cu"
-            src.write_text(variant_source(subs, base))
-            lib = OUT / f"{form}_{name}.so"
-            cmd = [nvcc, *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(src)]
-            procs[form, name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                  stderr=subprocess.STDOUT, text=True), lib)
+    sources = {(form, name): variant_source(subs, base)
+               for form, (base, variants, _, _) in FORMS.items()
+               for name, subs in variants.items()}
+    if parent is not None:
+        sources["bf16", "parent"] = parent.read_text()
+    for (form, name), text in sources.items():
+        src = OUT / f"{form}_{name}.cu"
+        src.write_text(text)
+        lib = OUT / f"{form}_{name}.so"
+        cmd = [nvcc, *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(src)]
+        procs[form, name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True), lib)
     built = {}
     for key, (proc, lib) in procs.items():
         log, _ = proc.communicate()
@@ -198,13 +276,22 @@ def build_all():
     return built
 
 
-def run_stage(fn, x, blocks, outs, stream):
+def run_stage(fn, x, blocks, outs, stream, packed=None):
+    """The stage through launcher ``fn``: the bf16 kernel's on ``packed``
+    weights, else one that takes the weights as they are and the output
+    tile (the float32 form, or the bf16 form of an earlier checkout)."""
     h = x
-    for blk, out in zip(blocks, outs):
+    for i, (blk, out) in enumerate(zip(blocks, outs)):
         n, hh, ww, cin = h.shape
-        err = fn(_ptr(h), n, hh, ww, cin, *(_ptr(blk[k]) for k in _KEYS),
-                 _ptr(blk.get("pw")), _ptr(blk.get("pb")), blk["aw"].shape[1],
-                 blk["cw"].shape[1], 1, 8, 16, _ptr(out), stream)
+        if packed is None:
+            ws, tile = [blk[k] for k in _KEYS] + [blk.get("pw"), blk.get("pb")], (8, 16)
+        else:
+            w = packed[i]
+            ws = [w["aw"], blk["ab"], w["bw"], blk["bb"], w["cw"], blk["cb"],
+                  w.get("pw"), blk.get("pb")]
+            tile = ()
+        err = fn(_ptr(h), n, hh, ww, cin, *(_ptr(t) for t in ws), blk["aw"].shape[1],
+                 blk["cw"].shape[1], 1, *tile, _ptr(out), stream)
         cuda_build.check(err, "bottleneck_block")
         h = out
     return h
@@ -220,14 +307,20 @@ def sass_histogram(lib: Path, top: int = 24) -> str:
     return ", ".join(f"{op} {n}" for op, n in ops.most_common(top))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", type=Path, default=None,
+                        help="a bf16 kernel source of an earlier checkout (launcher "
+                             "bottleneck_block_bf16 taking raw weights and the tile), "
+                             "timed beside this one in turns: parent, this, this, parent")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("ablate_k2: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(card())
-    built = build_all()
+    built = build_all(args.parent)
     gen = torch.Generator().manual_seed(0)
     dev = torch.device("cuda")
 
@@ -251,24 +344,34 @@ def main() -> int:
         xf = x.to(dtype)
         bf = [{k: v.to(dtype) if v.dim() > 1 else v for k, v in blk.items()}
               for blk in blocks]
+        packed = [pack_block_bf16(blk) for blk in bf] if form == "bf16" else None
         outs = [torch.empty((n, hw, hw, cout), device=dev, dtype=dtype) for _ in blocks]
         ref = fused_stage_ref(xf, bf, 1).float()
         full_ms = None
+        calls = {}
         for (f, name), (lib, regs) in built.items():
             if f != form:
                 continue
-            fn = bind(ctypes.CDLL(str(lib)), entry)
-            y = run_stage(fn, xf, bf, outs, stream)
+            own = packed if name != "parent" else None
+            fn = bind(ctypes.CDLL(str(lib)), entry, tile=own is None)
+            call = functools.partial(run_stage, fn, xf, bf, outs, stream, own)
+            calls[name] = call
+            y = call()
             torch.cuda.synchronize()
             err = float((y.float() - ref).abs().max() / ref.abs().max())
-            ms = time_ms(lambda: run_stage(fn, xf, bf, outs, stream))
+            ms = time_ms(call)
             full_ms = ms if name == "full" else full_ms
             print(f"{form:7s} {name:15s} {ms:.4f} ms ({ms - full_ms:+.4f} vs full); "
                   f"err {err:.2e} of max; {regs}")
         print(f"{form} full kernel SASS, most frequent:",
               sass_histogram(built[form, "full"][0]))
+        if "parent" in calls:
+            turns = [("parent", time_ms(calls["parent"])), ("this", time_ms(calls["full"])),
+                     ("this", time_ms(calls["full"])), ("parent", time_ms(calls["parent"]))]
+            print(f"{form} in turns, parent / this kernel (ms): "
+                  + ", ".join(f"{who} {ms:.4f}" for who, ms in turns))
     for shape in MMA_SHAPES:
-        print(f"mma.sync {shape} alone: "
+        print(f"{shape} alone: "
               f"{mma_rate_tflops(cuda_build.find_nvcc(), shape):.1f} TFLOP/s")
     return 0
 

@@ -1,5 +1,5 @@
 // One ResNet bottleneck block with BN folded, on folded frames (NHWC), in
-// bfloat16: the bf16 form of kernel K2.
+// bfloat16: the bf16 form of kernel K2, written for Hopper (sm_90a).
 //
 // Replaces the bfloat16 form of the TPU kernel
 // acav100m_tpu/ops/pallas/bottleneck_kernel.py:fused_stage (body
@@ -12,147 +12,203 @@
 //   y  = bf16(relu(b . cw + cb + sc))               1x1, Ci -> Cout
 // which rounds to bf16 exactly where the TPU kernel does (its lines 91-101).
 //
-// Design. The tiling is the float32 form's (bottleneck_stage.cu): each CTA
-// (8 warps) owns one spatial output tile (TH x TW pixels, all Cout
-// channels; 8 x 16 at stride 1, 4 x 8 at stride 2) of one frame and runs the
-// block's three products as GEMMs on the tensor cores, staging x and the
-// weights in shared memory by cp.async, step by step, into two buffers:
-//   1. a on the tile's input region plus a 1-pixel halo (rounded up to 48
-//      rows), K = Cin in steps of KA; zero outside the frame, which is the
-//      3x3 conv's 'same' padding;
-//   2. b on the tile as an implicit GEMM over the 9 taps, one tap of bw a
-//      step, the A rows read from a at each pixel's region row shifted by
-//      the tap;
-//   3. y = b . cw (+ x[::s, ::s] . pw) in steps of KC channels, then the
-//      biases, the shortcut and ReLU in f32, rounded to bf16 and stored.
-// a and b stay in shared memory, in bf16, as the TPU kernel keeps them in
-// the compute dtype; b overwrites a once every warp is done with it.
+// Design. Persistent CTAs, one an SM, each walking over output tiles of
+// TH x 8 pixels (16 x 8 at stride 1, 8 x 8 at stride 2) of one frame, all
+// Cout channels. Three warpgroups:
+//   * a producer (one elected thread) that loads, at the start, the
+//     block's weight matrices into shared memory once for the CTA by 1-D
+//     bulk copies, and then keeps x in flight through a ring of stages,
+//     each one chunk of KX input channels of the tile's input region (the
+//     tile's pixels plus a 1-pixel halo) by TMA, with zeros outside the
+//     frame and past Cin. Every stage is completed on an mbarrier (full)
+//     and handed back on another (empty): no per-step __syncthreads.
+//   * two consumer warpgroups that run the three products on wgmma
+//     (m64nNk16, bf16 in, f32 sums, A and B from shared memory by
+//     descriptor), each owning half of every product's output columns:
+//       1. a on the region's rows (M = the region padded to 64), K = Cin
+//          chunk by chunk from the ring; zero outside the frame, which is
+//          the 3x3's 'same' padding;
+//       2. b on the tile as an implicit GEMM over the 9 taps of bw: tap
+//          (dy, dx) reads a at each pixel's region row shifted by the tap;
+//       3. y = b . cw (+ x[::s, ::s] . pw, whose x comes through the ring
+//          again, read at the tile's pixels) in passes of 256 columns, then
+//          the biases, the shortcut and ReLU in f32, rounded to bf16.
+//     a and b live in shared memory in bf16 (b over a); four named
+//     barriers of the two consumer warpgroups a tile order them.
+// Weights that do not fit beside the ring (pw when Cin is large, aw when it
+// is larger still) stream through the ring's stages with x instead.
 //
-// Products. Each k16 step of a warp tile is one
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 per 16 x 8 output
-// tile, accumulating in f32: the operands are bf16 already, so nothing is
-// split (the float32 form issues three TF32 products for each). Fragments
-// come from shared memory by ldmatrix: A (16 x 16, rows pixels, columns
-// input channels) by .x4, each lane giving the address of one 16-byte row
-// piece; B from the row-major (K, N) weights by .x4.trans, which hands each
-// lane the (k, k+1) pairs of one column that the B fragment holds, for two
-// 8-column tiles at once. ldmatrix reads 8 rows of 16 bytes a phase, so
-// every shared-memory row stride here is an odd number of 16-byte units
-// (Ci + 8 = 72, KA + 8 = 24, KC + 8 = 40, ncols + 8 = 72 bf16 values),
-// which puts the 8 rows on 8 different groups of 4 banks. Stride 2 reads
-// every other region row in product b, which costs 2-way conflicts there.
+// Layouts. Every shared-memory matrix is K-major without swizzle, in
+// planes of 8 channels: element (row r, channel k) at
+// (k / 8) * plane + r * 16 + (k % 8) * 2 bytes, so a wgmma core matrix (8
+// rows x 16 bytes) is 8 consecutive rows of a plane, and any 8 consecutive
+// rows are one. The wrapper packs the weights once in this order (their
+// rows are the output channels), cw and pw in passes of 256 columns. The
+// region is stored row by row with a pitch of AWS pixels; at stride 2 each
+// region row is split into its even and odd columns, so the pixels a tap
+// reads for 8 consecutive output pixels of a tile row are 8 consecutive
+// region rows, and the tile's rows are a uniform AWS * s apart: product
+// b's and the projection's A operands are then plain descriptors (8-row
+// groups SBO apart), with no ldmatrix.
 //
 // Bound on an H100 SXM at the main path's shape (SlowFast s2_slow at 256^2
 // input: 32 frames of 64x64, Cin 80 -> 256, inner 64, 3 blocks): 57.15
 // GFLOP is 0.058 ms at the 989 TFLOP/s of dense bf16; x in and y out are
-// 21 + 67 = 88 MB, 0.026 ms at 3.35 TB/s. So the stage is bound by
-// operations. This design also moves the two block outputs between blocks
-// through device memory (another 0.27 GB) and recomputes the halo of a.
+// 21 + 67 = 88 MB, 0.026 ms at 3.35 TB/s. One launch per block moves the
+// two block outputs between blocks through device memory, another 0.27 GB
+// (0.08 ms), and product a recomputes the halo (180 region pixels for
+// 128 output pixels at stride 1).
 //
 // Plain C interface for ctypes; the launcher allocates nothing and returns
 // cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define NT 256             // threads per CTA
-#define NWARP (NT / 32)
-#define KA 16              // input channels a step of product a stages
-#define KC 32              // input channels a step of product c stages
-#define MAXR 4             // staged 16-byte x pieces a thread owns: NAM, NQ <= 512
-
 typedef uint16_t bf16_t;   // bf16 bits; arithmetic is in f32
 
-extern __shared__ __align__(16) bf16_t smem[];
+#define NCONS 256          // consumer threads: two warpgroups
+#define NT 384             // and one producer warpgroup
+#define PASS 256           // output columns of product c a pass (128 a warpgroup)
 
-__device__ __forceinline__ void cp16(bf16_t* dst, const bf16_t* src, bool ok) {
-  // 16 bytes global -> shared; with ok false nothing is read and zeros land
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(ok ? 16 : 0) : "memory");
+extern __shared__ __align__(128) unsigned char smem[];
+
+// ---- PTX wrappers -----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// rows [k0, k0+rows) and columns [c0, c0+ncols) of a row-major (K, N) bf16
-// weight matrix into smem[wo + kk * (ncols + 8) + c], zero past K
-__device__ __forceinline__ void stage_w(int wo, const bf16_t* w, int N, int k0, int K,
-                                        int c0, int ncols, int rows) {
-  const int n8 = ncols / 8, ldw = ncols + 8;
-  for (int i = threadIdx.x; i < rows * n8; i += NT) {
-    const int kk = i / n8, c = (i % n8) * 8;
-    const bool ok = k0 + kk < K;
-    cp16(smem + wo + kk * ldw + c, ok ? w + (size_t)(k0 + kk) * N + c0 + c : w, ok);
-  }
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
 }
 
-// Runs steps 0..n-1 of a product: stage(k, buf) issues the cp.async copies
-// of step k into buffer buf, compute(k, buf) uses them. Step k+1 is in
-// flight while step k is computed. Ends on a barrier, so the buffers and
-// anything the product read are free afterwards.
-template <class Stage, class Compute>
-__device__ __forceinline__ void pipeline(int n, Stage stage, Compute compute) {
-  stage(0, 0);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  for (int k = 0; k < n; ++k) {
-    if (k + 1 < n) {
-      stage(k + 1, (k + 1) & 1);
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    }
-    __syncthreads();
-    compute(k, k & 1);
-    __syncthreads();
-  }
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16_t* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16_t* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// contiguous bytes global -> shared, completed on bar
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
-// KD columns of a warp's (16 MT) x (8 NT8) output tile, k16 step by step.
-// arow[i]: smem offset of the row this lane addresses for m-tile i's A
-// fragments (row lr of the m-tile, see below), at the first column plus lc;
-// brow: smem offset of B row lr (input channel k) at the tile's first output
-// column plus lc, rows ldw apart.
-template <int MT, int NT8, int KD>
-__device__ __forceinline__ void mma_chunk(float (&acc)[MT][NT8][4], const int (&arow)[MT],
-                                          int brow, int ldw) {
-  static_assert(NT8 % 2 == 0, "B fragments load two n-tiles at a time");
-#pragma unroll
-  for (int kk = 0; kk < KD; kk += 16) {
-    uint32_t a[MT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) ldsm_x4(a[i], smem + arow[i] + kk);
-#pragma unroll
-    for (int j = 0; j < NT8; j += 2) {
-      uint32_t b[4];  // b[0], b[1]: n-tile j; b[2], b[3]: n-tile j + 1
-      ldsm_x4_trans(b, smem + brow + kk * ldw + 8 * j);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        mma_bf16(acc[i][j], a[i], b[0], b[1]);
-        mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
-      }
-    }
-  }
+__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                       int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void tma_5d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                       int c2, int c3, int c4, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n"
+      :: "r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(bar)
+      : "memory");
+}
+
+// the two consumer warpgroups' barrier (barrier 0 is __syncthreads')
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(NCONS) : "memory");
+}
+
+// this thread's shared-memory stores made visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// matrix descriptor of a K-major, unswizzled operand whose 8-row core
+// matrices start at shared address addr: lbo bytes from one 8-channel
+// plane to the next (along K), sbo bytes from 8 rows to the next 8
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// D (64 x N, f32) += A (64 x 16) . B (16 x N), bf16, both from shared memory
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  if constexpr (N == 16) wgmma_n16(d, da, db);
+  else if constexpr (N == 32) wgmma_n32(d, da, db);
+  else wgmma_n128(d, da, db);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -165,266 +221,409 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
   return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
 }
 
-__global__ void __launch_bounds__(NT, 2) bottleneck_block_bf16_kernel(
-    const bf16_t* __restrict__ x, int H, int W, int Cin,
-    const bf16_t* __restrict__ aw, const float* __restrict__ ab,
-    const bf16_t* __restrict__ bw, const float* __restrict__ bb,
-    const bf16_t* __restrict__ cw, const float* __restrict__ cb,
-    const bf16_t* __restrict__ pw, const float* __restrict__ pb,
-    int Ci, int Cout, int s, int TH, int TW,
-    bf16_t* __restrict__ out, int Ho, int Wo) {
-  const int frame = blockIdx.z;
-  const int oy0 = blockIdx.y * TH, ox0 = blockIdx.x * TW;
-  const int AH = (TH - 1) * s + 3, AW = (TW - 1) * s + 3;  // region + halo
-  const int ry0 = oy0 * s - 1, rx0 = ox0 * s - 1;          // region origin
-  const int NA = AH * AW, NAM = (NA + 47) / 48 * 48, NQ = TH * TW;
-  const int SA = Ci + 8;                    // a and b row stride
-  constexpr int SXA = KA + 8, SX = KC + 8;  // staged x row strides
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  // the row (lr) and 8-column half (lc) of a 16 x 16 fragment block whose
-  // address this lane gives ldmatrix .x4: lanes 0-7 rows 0-7, 8-15 rows
-  // 8-15, each at column 0; lanes 16-31 the same rows at column 8
-  const int lr = (lane & 7) + (lane & 8), lc = (lane >> 4) * 8;
-  const bf16_t* xn = x + (size_t)frame * H * W * Cin;
+// ---- the kernel -------------------------------------------------------------
 
-  // shared memory, by phase (offsets in bf16 values); each product stages
-  // its steps into two buffers, one filling while the other is computed on:
-  //   a: aS (NAM x SA) at 0; 2 x [x (NAM x SXA), aw rows (KA x Ci+8)] after
-  //   b: aS; 2 x [one tap of bw (Ci x Ci+8)] after it; then bS (NQ x SA) over aS
-  //   c: bS; 2 x [x (NQ x SX), cw or pw rows (KC x ncols+8)] after it
-  const int A_END = NAM * SA;
-  bf16_t* aS = smem;
-  bf16_t* bS = smem;
+// Tile geometry at stride S: TH x TW output pixels, their input region of
+// AH rows x AWS stored pixels (at stride 2 a row is its AWP even columns,
+// then its AWP odd ones), NA region pixels padded to NAM (whole m64 tiles).
+template <int S>
+struct Geom {
+  static constexpr int TH = S == 1 ? 16 : 8, TW = 8, NQ = TH * TW, MQ = NQ / 64;
+  static constexpr int AH = S * (TH - 1) + 3, AWP = S == 1 ? TW + 2 : TW + 1;
+  static constexpr int AWS = S * AWP, NA = AH * AWS, NAM = (NA + 63) / 64 * 64, MA = NAM / 64;
+};
 
-  // 1. a = bf16(relu(x . aw + ab)) on the region's NAM rows. A warp owns 48
-  // region pixels x 32 channels.
-  {
-    const int mg = NAM / 48, items = mg * (Ci / 32), ldw = Ci + 8;
-    const int stage_sz = NAM * SXA + KA * ldw, steps = (Cin + KA - 1) / KA;
-    int xoff[MAXR];  // x offset of each staged row this thread copies, or -1
-#pragma unroll
-    for (int r = 0; r < MAXR; ++r) {
-      const int p = (tid + r * NT) / (KA / 8);
-      const int yy = ry0 + p / AW, xx = rx0 + p % AW;
-      xoff[r] = (p < NA && yy >= 0 && yy < H && xx >= 0 && xx < W)
-                    ? (yy * W + xx) * Cin : -1;
+// The launcher's plan of shared memory (byte offsets) and of the ring.
+struct Params {
+  const bf16_t* x;
+  int N, H, W, Cin, Kp;                // Kp: Cin rounded up to 16
+  const bf16_t* aw; const float* ab;   // packed (Kp/8, Ci, 8)
+  const bf16_t* bw; const float* bb;   // packed (9, Ci/8, Ci, 8)
+  const bf16_t* cw; const float* cb;   // packed (P, Ci/8, 256, 8)
+  const bf16_t* pw; const float* pb;   // packed (P, Kp/8, 256, 8), or null
+  int Cout, P;                         // P passes of 256 output columns
+  bf16_t* out;
+  int Ho, Wo, tiles_x, tiles_y, tiles;
+  int KX, NS, aw_res, pw_res;          // ring: KX channels a stage, NS stages
+  uint32_t off_bw, off_cw, off_aw, off_pw, off_a, off_stage, stage_bytes, stage_w;
+};
+
+template <int S, int CI>
+__global__ void __launch_bounds__(NT, 1) bottleneck_block_bf16_kernel(
+    const __grid_constant__ CUtensorMap xmap, const Params p) {
+  using G = Geom<S>;
+  constexpr int NW = CI / 2;  // a's and b's columns a consumer warpgroup owns
+  const int tid = threadIdx.x, wg = tid / 128;
+  const uint32_t base = saddr(smem);
+  const uint32_t full0 = base, empty0 = base + 16, wbar = base + 32;  // mbarriers
+  const int tiles_frame = p.tiles_y * p.tiles_x;
+  if (tid == 0) {
+    for (int s = 0; s < p.NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, NCONS);
     }
-    for (int r0 = 0; r0 < items; r0 += NWARP) {
-      const int item = r0 + warp;
-      const bool live = item < items;
-      const int m0 = (item % mg) * 48, n0 = (item / mg) * 32;
-      float acc[3][4][4] = {};
-      auto stage = [&](int k, int buf) {
-        const int so = A_END + buf * stage_sz, k0 = k * KA;
-#pragma unroll
-        for (int r = 0; r < MAXR; ++r) {
-          const int i = tid + r * NT, p = i / (KA / 8), c = (i % (KA / 8)) * 8;
-          if (p >= NAM) break;
-          const bool ok = xoff[r] >= 0 && k0 + c < Cin;
-          cp16(smem + so + p * SXA + c, ok ? xn + xoff[r] + k0 + c : xn, ok);
-        }
-        stage_w(so + NAM * SXA, aw, Ci, k0, Cin, 0, Ci, KA);
-      };
-      auto compute = [&](int k, int buf) {
-        if (!live) return;
-        const int so = A_END + buf * stage_sz;
-        int arow[3];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) arow[i] = so + (m0 + 16 * i + lr) * SXA + lc;
-        mma_chunk<3, 4, KA>(acc, arow, so + NAM * SXA + lr * ldw + n0 + lc, ldw);
-      };
-      pipeline(steps, stage, compute);
-      if (live) {
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int p = m0 + 16 * i + 8 * h + g;
-            const int yy = ry0 + p / AW, xx = rx0 + p % AW;
-            const bool inside = p < NA && yy >= 0 && yy < H && xx >= 0 && xx < W;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int n = n0 + 8 * j + 2 * t;
-              const float2 bias = __ldg(reinterpret_cast<const float2*>(ab + n));
-              uint32_t v = 0u;
-              if (inside)
-                v = pack_bf16(fmaxf(acc[i][j][2 * h] + bias.x, 0.f),
-                              fmaxf(acc[i][j][2 * h + 1] + bias.y, 0.f));
-              *reinterpret_cast<uint32_t*>(aS + p * SA + n) = v;
-            }
-          }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread --------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid != 2 * 128) return;
+    const uint32_t bw_b = 9 * CI * CI * 2, cw_b = p.P * CI * PASS * 2;
+    const uint32_t aw_b = p.Kp * CI * 2, pw_b = p.P * p.Kp * PASS * 2;
+    mbar_expect_tx(wbar, bw_b + cw_b + (p.aw_res ? aw_b : 0) +
+                             (p.pw != nullptr && p.pw_res ? pw_b : 0));
+    bulk_copy(base + p.off_bw, p.bw, bw_b, wbar);
+    bulk_copy(base + p.off_cw, p.cw, cw_b, wbar);
+    if (p.aw_res) bulk_copy(base + p.off_aw, p.aw, aw_b, wbar);
+    if (p.pw != nullptr && p.pw_res) bulk_copy(base + p.off_pw, p.pw, pw_b, wbar);
+    int st = 0;
+    uint32_t ph = 0;
+    // one stage: channels [k0, k0 + rows) of the region at output origin
+    // (oy0, ox0) of frame, and a weight chunk that streams with it
+    auto chunk = [&](int frame, int oy0, int ox0, int k0, const bf16_t* w, uint32_t wrow) {
+      mbar_wait(empty0 + 8 * st, ph ^ 1);
+      const int rows = min(p.KX, p.Kp - k0);
+      const uint32_t bar = full0 + 8 * st, dst = base + p.off_stage + st * p.stage_bytes;
+      const uint32_t wbytes = w != nullptr ? rows * wrow * 2 : 0;
+      mbar_expect_tx(bar, (rows / 8) * G::NA * 16 + wbytes);
+      for (int j = 0; j < rows / 8; ++j) {
+        if constexpr (S == 1)
+          tma_4d(dst + j * G::NAM * 16, &xmap, k0 + 8 * j, ox0 - 1, oy0 - 1, frame, bar);
+        else
+          tma_5d(dst + j * G::NAM * 16, &xmap, k0 + 8 * j, ox0 - 1, 0, 2 * oy0 - 1, frame, bar);
       }
+      if (w != nullptr) bulk_copy(dst + p.stage_w, w + (size_t)k0 * wrow, wbytes, bar);
+      if (++st == p.NS) { st = 0; ph ^= 1; }
+    };
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      const int frame = t / tiles_frame, r = t % tiles_frame;
+      const int oy0 = (r / p.tiles_x) * G::TH, ox0 = (r % p.tiles_x) * G::TW;
+      for (int k0 = 0; k0 < p.Kp; k0 += p.KX)
+        chunk(frame, oy0, ox0, k0, p.aw_res ? nullptr : p.aw, CI);
+      if (p.pw != nullptr)
+        for (int q = 0; q < p.P; ++q)
+          for (int k0 = 0; k0 < p.Kp; k0 += p.KX)
+            chunk(frame, oy0, ox0, k0, p.pw_res ? nullptr : p.pw + (size_t)q * p.Kp * PASS, PASS);
     }
+    return;
   }
 
-  // 2. b = bf16(relu(conv3x3(a, stride s) + bb)) on the tile, as an implicit
-  // GEMM over the 9 taps (K = 9 Ci): tap (dy, dx) reads the A rows from a at
-  // the region row of each output pixel plus dy * AW + dx. A warp owns 32
-  // output pixels x 32 channels; the launcher admits at most one item a
-  // warp, so b can overwrite a when all are done.
-  {
-    const int mg = NQ / 32, items = mg * (Ci / 32), ldw = Ci + 8, stage_sz = Ci * ldw;
-    const bool live = warp < items;
-    const int m0 = (warp % mg) * 32, n0 = (warp / mg) * 32;
-    float acc[2][4][4] = {};
-    int base[2];  // smem offset of this lane's A row at tap (0, 0), plus lc
+  // ---- consumers: two warpgroups ----------------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int half = wg, warp = (tid % 128) / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+  const uint32_t abuf = base + p.off_a;
+  unsigned char* const abuf_p = smem + p.off_a;
+  const bf16_t* const xn0 = p.x;
+  int st = 0;
+  uint32_t ph = 0;
+  auto next_stage = [&]() { if (++st == p.NS) { st = 0; ph ^= 1; } };
+  mbar_wait(wbar, 0);
+
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const int frame = t / tiles_frame, r = t % tiles_frame;
+    const int oy0 = (r / p.tiles_x) * G::TH, ox0 = (r % p.tiles_x) * G::TW;
+    const bf16_t* xn = xn0 + (size_t)frame * p.H * p.W * p.Cin;
+
+    // 1. a = bf16(relu(x . aw + ab)) on the region's NAM rows, this
+    // warpgroup's NW columns
+    float acc_a[G::MA][NW / 2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = m0 + 16 * i + lr;
-      base[i] = ((s * (q / TW)) * AW + s * (q % TW)) * SA + lc;
-    }
-    auto stage = [&](int tap, int buf) {
-      stage_w(A_END + buf * stage_sz, bw + (size_t)tap * Ci * Ci, Ci, 0, Ci, 0, Ci, Ci);
-    };
-    auto compute = [&](int tap, int buf) {
-      if (!live) return;
-      const int off = ((tap / 3) * AW + tap % 3) * SA;
-      const int brow = A_END + buf * stage_sz + lr * ldw + n0 + lc;
-      int arow[2];
+    for (int m = 0; m < G::MA; ++m)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) arow[i] = base[i] + off;
-      for (int k0 = 0; k0 < Ci; k0 += KC) {
-        int ak[2];
+      for (int j = 0; j < NW / 2; ++j) acc_a[m][j] = 0.f;
+    for (int k0 = 0; k0 < p.Kp; k0 += p.KX) {
+      const int rows = min(p.KX, p.Kp - k0);
+      const uint32_t stage = base + p.off_stage + st * p.stage_bytes;
+      mbar_wait(full0 + 8 * st, ph);
+      wgmma_fence();
+      for (int ks = 0; ks < rows / 16; ++ks) {
+        const uint64_t db = p.aw_res
+            ? make_desc(base + p.off_aw + (k0 / 8 + 2 * ks) * CI * 16 + half * NW * 16, CI * 16, 128)
+            : make_desc(stage + p.stage_w + 2 * ks * CI * 16 + half * NW * 16, CI * 16, 128);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) ak[i] = arow[i] + k0;
-        mma_chunk<2, 4, KC>(acc, ak, brow + k0 * ldw, ldw);
+        for (int m = 0; m < G::MA; ++m)
+          wgmma<NW>(acc_a[m], make_desc(stage + 2 * ks * G::NAM * 16 + m * 64 * 16,
+                                        G::NAM * 16, 128), db);
       }
-    };
-    pipeline(9, stage, compute);  // its last barrier: every warp is done with a
-    if (live) {
+      wgmma_commit();
+      wgmma_wait_all();
+      mbar_arrive(empty0 + 8 * st);
+      next_stage();
+    }
+    consumers_sync();  // the last tile's product c is done with b, which lies over a
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int m = 0; m < G::MA; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int pix = m * 64 + warp * 16 + 8 * h + g;
+        const int rr = pix / G::AWS, jj = pix % G::AWS;
+        const int cc = S == 1 ? jj : 2 * (jj % G::AWP) + jj / G::AWP;
+        const int yy = S * oy0 - 1 + rr, xx = S == 1 ? ox0 - 1 + cc : 2 * ox0 - 2 + cc;
+        const bool inside = pix < G::NA && yy >= 0 && yy < p.H && xx >= 0 && xx < p.W;
+#pragma unroll
+        for (int k = 0; k < NW / 8; ++k) {
+          const int n = half * NW + 8 * k + 2 * t4;
+          const float2 bias = __ldg(reinterpret_cast<const float2*>(p.ab + n));
+          uint32_t v = 0u;
+          if (inside)
+            v = pack_bf16(fmaxf(acc_a[m][4 * k + 2 * h] + bias.x, 0.f),
+                          fmaxf(acc_a[m][4 * k + 2 * h + 1] + bias.y, 0.f));
+          *reinterpret_cast<uint32_t*>(abuf_p + (n / 8) * G::NAM * 16 + pix * 16 + (n % 8) * 2) = v;
+        }
+      }
+    fence_async_smem();
+    consumers_sync();  // a is whole
+
+    // 2. b = bf16(relu(conv3x3(a, stride S) + bb)) on the tile, an implicit
+    // GEMM over the 9 taps: tap (dy, dx) reads a at each pixel's region row
+    // shifted by the tap
+    float acc_b[G::MQ][NW / 2];
+#pragma unroll
+    for (int m = 0; m < G::MQ; ++m)
+#pragma unroll
+      for (int j = 0; j < NW / 2; ++j) acc_b[m][j] = 0.f;
+    wgmma_fence();
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap % 3;
+      const int shift = dy * G::AWS + (S == 1 ? dx : ((dx + 1) & 1) * G::AWP + (dx + 1) / 2);
+#pragma unroll
+      for (int ks = 0; ks < CI / 16; ++ks) {
+        const uint64_t db = make_desc(base + p.off_bw + (tap * (CI / 8) + 2 * ks) * CI * 16 +
+                                          half * NW * 16, CI * 16, 128);
+#pragma unroll
+        for (int m = 0; m < G::MQ; ++m)
+          wgmma<NW>(acc_b[m], make_desc(abuf + 2 * ks * G::NAM * 16 +
+                                            (S * 8 * m * G::AWS + shift) * 16,
+                                        G::NAM * 16, S * G::AWS * 16), db);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    consumers_sync();  // every warpgroup is done with a
+#pragma unroll
+    for (int m = 0; m < G::MQ; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = m * 64 + warp * 16 + 8 * h + g;
+#pragma unroll
+        for (int k = 0; k < NW / 8; ++k) {
+          const int n = half * NW + 8 * k + 2 * t4;
+          const float2 bias = __ldg(reinterpret_cast<const float2*>(p.bb + n));
+          *reinterpret_cast<uint32_t*>(abuf_p + (n / 8) * G::NQ * 16 + q * 16 + (n % 8) * 2) =
+              pack_bf16(fmaxf(acc_b[m][4 * k + 2 * h] + bias.x, 0.f),
+                        fmaxf(acc_b[m][4 * k + 2 * h + 1] + bias.y, 0.f));
+        }
+      }
+    fence_async_smem();
+    consumers_sync();  // b is whole
+
+    // 3. y = bf16(relu(b . cw (+ x[::s, ::s] . pw) + cb (+ pb | f32(x)))),
+    // a pass of 256 columns at a time, 128 a warpgroup
+    for (int pass = 0; pass < p.P; ++pass) {
+      float acc_c[G::MQ][64];
+#pragma unroll
+      for (int m = 0; m < G::MQ; ++m)
+#pragma unroll
+        for (int j = 0; j < 64; ++j) acc_c[m][j] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < CI / 16; ++ks) {
+        const uint64_t db = make_desc(base + p.off_cw + (pass * (CI / 8) + 2 * ks) * PASS * 16 +
+                                          half * 128 * 16, PASS * 16, 128);
+#pragma unroll
+        for (int m = 0; m < G::MQ; ++m)
+          wgmma<128>(acc_c[m], make_desc(abuf + 2 * ks * G::NQ * 16 + m * 64 * 16,
+                                         G::NQ * 16, 128), db);
+      }
+      wgmma_commit();
+      if (p.pw != nullptr) {
+        for (int k0 = 0; k0 < p.Kp; k0 += p.KX) {
+          const int rows = min(p.KX, p.Kp - k0);
+          const uint32_t stage = base + p.off_stage + st * p.stage_bytes;
+          mbar_wait(full0 + 8 * st, ph);
+          wgmma_fence();
+          for (int ks = 0; ks < rows / 16; ++ks) {
+            const uint64_t db = p.pw_res
+                ? make_desc(base + p.off_pw + (pass * (p.Kp / 8) + k0 / 8 + 2 * ks) * PASS * 16 +
+                                half * 128 * 16, PASS * 16, 128)
+                : make_desc(stage + p.stage_w + 2 * ks * PASS * 16 + half * 128 * 16,
+                            PASS * 16, 128);
+#pragma unroll
+            for (int m = 0; m < G::MQ; ++m)
+              wgmma<128>(acc_c[m], make_desc(stage + 2 * ks * G::NAM * 16 +
+                                                 ((S * 8 * m + 1) * G::AWS + 1) * 16,
+                                             G::NAM * 16, S * G::AWS * 16), db);
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+          mbar_arrive(empty0 + 8 * st);
+          next_stage();
+        }
+      }
+      wgmma_wait_all();
+#pragma unroll
+      for (int m = 0; m < G::MQ; ++m)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int q = m0 + 16 * i + 8 * h + g;
+          const int q = m * 64 + warp * 16 + 8 * h + g;
+          const int oy = oy0 + q / G::TW, ox = ox0 + q % G::TW;
+          if (oy >= p.Ho || ox >= p.Wo) continue;
+          const bf16_t* xq = xn + ((size_t)(S * oy) * p.W + S * ox) * p.Cin;  // identity
+          bf16_t* dst = p.out + (((size_t)frame * p.Ho + oy) * p.Wo + ox) * p.Cout;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int n = n0 + 8 * j + 2 * t;
-            const float2 bias = __ldg(reinterpret_cast<const float2*>(bb + n));
-            *reinterpret_cast<uint32_t*>(bS + q * SA + n) =
-                pack_bf16(fmaxf(acc[i][j][2 * h] + bias.x, 0.f),
-                          fmaxf(acc[i][j][2 * h + 1] + bias.y, 0.f));
+          for (int k = 0; k < 16; ++k) {
+            const int n = pass * PASS + half * 128 + 8 * k + 2 * t4;
+            if (n >= p.Cout) break;
+            const float2 bias = __ldg(reinterpret_cast<const float2*>(p.cb + n));
+            const float2 sc =
+                p.pw != nullptr
+                    ? __ldg(reinterpret_cast<const float2*>(p.pb + n))
+                    : unpack_bf16(__ldg(reinterpret_cast<const unsigned int*>(xq + n)));
+            *reinterpret_cast<uint32_t*>(dst + n) =
+                pack_bf16(fmaxf(acc_c[m][4 * k + 2 * h] + bias.x + sc.x, 0.f),
+                          fmaxf(acc_c[m][4 * k + 2 * h + 1] + bias.y + sc.y, 0.f));
           }
         }
     }
   }
+}
 
-  // 3. y = bf16(relu(b . cw (+ x[::s, ::s] . pw) + cb (+ pb | f32(x)))). A
-  // warp owns 32 pixels x 32 channels. A round takes as many whole
-  // 32-channel groups as there are warps for, stages only their weight
-  // columns, and runs the steps of b . cw and then those of the projection
-  // into the same f32 sums.
-  {
-    const int mg = NQ / 32, groups = Cout / 32, gpr = NWARP / mg > 1 ? NWARP / mg : 1;
-    const int csteps = Ci / KC, steps = csteps + (pw != nullptr ? (Cin + KC - 1) / KC : 0);
-    int xoff[MAXR];  // x offset of each staged tile pixel this thread copies, or -1
-#pragma unroll
-    for (int r = 0; r < MAXR; ++r) {
-      const int q = (tid + r * NT) / (KC / 8);
-      const int yy = s * (oy0 + q / TW), xx = s * (ox0 + q % TW);
-      xoff[r] = (q < NQ && yy < H && xx < W) ? (yy * W + xx) * Cin : -1;
-    }
-    for (int g0 = 0; g0 < groups; g0 += gpr) {
-      const int ng = groups - g0 < gpr ? groups - g0 : gpr;
-      const int c0 = g0 * 32, ncols = ng * 32, ldw = ncols + 8;
-      const int stage_sz = NQ * SX + KC * ldw;
-      const bool live = warp < mg * ng;
-      const int m0 = (warp % mg) * 32, n0 = (warp / mg) * 32;  // n0 from c0
-      float acc[2][4][4] = {};
-      auto stage = [&](int k, int buf) {
-        const int so = NQ * SA + buf * stage_sz;
-        if (k < csteps) {
-          stage_w(so + NQ * SX, cw, Cout, k * KC, Ci, c0, ncols, KC);
-          return;
-        }
-        const int k0 = (k - csteps) * KC;
-#pragma unroll
-        for (int r = 0; r < MAXR; ++r) {
-          const int i = tid + r * NT, q = i / (KC / 8), c = (i % (KC / 8)) * 8;
-          if (q >= NQ) break;
-          const bool ok = xoff[r] >= 0 && k0 + c < Cin;
-          cp16(smem + so + q * SX + c, ok ? xn + xoff[r] + k0 + c : xn, ok);
-        }
-        stage_w(so + NQ * SX, pw, Cout, k0, Cin, c0, ncols, KC);
-      };
-      auto compute = [&](int k, int buf) {
-        if (!live) return;
-        const int so = NQ * SA + buf * stage_sz;
-        const bool on_b = k < csteps;
-        int arow[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int q = m0 + 16 * i + lr;
-          arow[i] = (on_b ? q * SA + k * KC : so + q * SX) + lc;
-        }
-        mma_chunk<2, 4, KC>(acc, arow, so + NQ * SX + lr * ldw + n0 + lc, ldw);
-      };
-      pipeline(steps, stage, compute);
-      if (live) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int q = m0 + 16 * i + 8 * h + g, oy = oy0 + q / TW, ox = ox0 + q % TW;
-            if (oy >= Ho || ox >= Wo) continue;
-            const bf16_t* xq = xn + ((size_t)(s * oy) * W + s * ox) * Cin;  // identity
-            bf16_t* dst = out + (((size_t)frame * Ho + oy) * Wo + ox) * Cout;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int n = c0 + n0 + 8 * j + 2 * t;
-              const float2 bias = __ldg(reinterpret_cast<const float2*>(cb + n));
-              const float2 sc =
-                  pw != nullptr
-                      ? __ldg(reinterpret_cast<const float2*>(pb + n))
-                      : unpack_bf16(__ldg(reinterpret_cast<const unsigned int*>(xq + n)));
-              *reinterpret_cast<uint32_t*>(dst + n) =
-                  pack_bf16(fmaxf(acc[i][j][2 * h] + bias.x + sc.x, 0.f),
-                            fmaxf(acc[i][j][2 * h + 1] + bias.y + sc.y, 0.f));
-            }
-          }
-      }
+// ---- the launcher -----------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// x as TMA sees it: a box of 8 channels of the tile's region, zeros outside
+// the frame and past Cin. Stride 1: dims (C, W, H, N), box (8, AWS, AH, 1).
+// Stride 2: dims (C, W/2, 2, H, N), the column split into its half and its
+// parity, box (8, AWP, 2, AH, 1), which lands each region row as its even
+// columns, then its odd ones.
+template <int S>
+static int encode_x(CUtensorMap* map, const void* x, int N, int H, int W, int Cin) {
+  using G = Geom<S>;
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t c = (cuuint64_t)Cin * 2;  // bytes a pixel
+  CUresult r;
+  if (S == 1) {
+    const cuuint64_t dims[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N};
+    const cuuint64_t strides[3] = {c, c * W, c * W * H};
+    const cuuint32_t box[4] = {8, G::AWS, G::AH, 1}, es[4] = {1, 1, 1, 1};
+    r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides, box,
+           es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  } else {
+    const cuuint64_t dims[5] = {(cuuint64_t)Cin, (cuuint64_t)W / 2, 2, (cuuint64_t)H,
+                                (cuuint64_t)N};
+    const cuuint64_t strides[4] = {2 * c, c, c * W, c * W * H};
+    const cuuint32_t box[5] = {8, G::AWP, 2, G::AH, 1}, es[5] = {1, 1, 1, 1, 1};
+    r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x), dims, strides, box,
+           es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Shared memory: the mbarriers, bw and cw resident, aw and pw resident if
+// they fit, a (and b over it), then the ring. Prefers resident weights,
+// then 64 channels a stage and two stages. Returns the bytes, 0 if nothing fits.
+template <int S, int CI>
+static size_t plan_smem(Params* p, bool proj, size_t limit) {
+  using G = Geom<S>;
+  const size_t fixed = 128 + 9 * CI * CI * 2 + (size_t)p->P * CI * PASS * 2 + G::NAM * CI * 2;
+  const size_t aw_b = (size_t)p->Kp * CI * 2, pw_b = proj ? (size_t)p->P * p->Kp * PASS * 2 : 0;
+  static const int rings[6][2] = {{64, 2}, {32, 2}, {64, 1}, {32, 1}, {16, 2}, {16, 1}};
+  for (int res = 0; res < 3; ++res) {
+    const int aw_res = res < 2, pw_res = res < 1;
+    if (!proj && res == 1) continue;
+    const int wrow = (proj && !pw_res) ? PASS : (!aw_res ? CI : 0);
+    for (const auto& ring : rings) {
+      const size_t stage = (size_t)(ring[0] / 8) * 16 * (G::NAM + wrow);
+      const size_t total = fixed + (aw_res ? aw_b : 0) + (pw_res ? pw_b : 0) + ring[1] * stage;
+      if (total > limit) continue;
+      p->KX = ring[0];
+      p->NS = ring[1];
+      p->aw_res = aw_res;
+      p->pw_res = pw_res;
+      p->off_bw = 128;
+      p->off_cw = p->off_bw + 9 * CI * CI * 2;
+      p->off_a = p->off_cw + p->P * CI * PASS * 2;
+      p->off_aw = p->off_a + G::NAM * CI * 2;
+      p->off_pw = p->off_aw + (aw_res ? aw_b : 0);
+      p->off_stage = p->off_pw + (pw_res ? pw_b : 0);
+      p->stage_bytes = stage;
+      p->stage_w = (ring[0] / 8) * 16 * G::NAM;
+      return total;
     }
   }
+  return 0;
 }
 
-static size_t bottleneck_block_bf16_smem(int Ci, int Cout, int s, int TH, int TW) {
-  const int na = ((TH - 1) * s + 3) * ((TW - 1) * s + 3);
-  const int nam = (na + 47) / 48 * 48, nq = TH * TW, mg = nq / 32;
-  const int gpr = NWARP / mg > 1 ? NWARP / mg : 1;
-  const int ncols = 32 * (Cout / 32 < gpr ? Cout / 32 : gpr);
-  const int a_end = nam * (Ci + 8);
-  const int phase_a = a_end + 2 * (nam * (KA + 8) + KA * (Ci + 8));
-  const int phase_b = a_end + 2 * Ci * (Ci + 8);
-  const int phase_c = nq * (Ci + 8) + 2 * (nq * (KC + 8) + KC * (ncols + 8));
-  int most = phase_a > phase_b ? phase_a : phase_b;
-  most = most > phase_c ? most : phase_c;
-  return sizeof(bf16_t) * (size_t)most;
+template <int S, int CI>
+static int launch(Params p, bool proj, cudaStream_t stream) {
+  using G = Geom<S>;
+  int dev = 0, sms = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const size_t smem_bytes = plan_smem<S, CI>(&p, proj, (size_t)optin);
+  if (smem_bytes == 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  const int e = encode_x<S>(&map, p.x, p.N, p.H, p.W, p.Cin);
+  if (e != 0) return e;
+  cudaError_t err = cudaFuncSetAttribute(bottleneck_block_bf16_kernel<S, CI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  p.tiles_x = (p.Wo + G::TW - 1) / G::TW;
+  p.tiles_y = (p.Ho + G::TH - 1) / G::TH;
+  p.tiles = p.N * p.tiles_x * p.tiles_y;
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  if (grid == 0) return 0;
+  bottleneck_block_bf16_kernel<S, CI><<<grid, NT, smem_bytes, stream>>>(map, p);
+  return (int)cudaGetLastError();
 }
 
+// Weights come packed (see the layout note above and the wrapper's
+// pack_block_bf16); biases are float32; pw and pb null for the identity.
 extern "C" int bottleneck_block_bf16(
     const void* x, int N, int H, int W, int Cin, const void* aw, const void* ab,
     const void* bw, const void* bb, const void* cw, const void* cb,
-    const void* pw, const void* pb, int Ci, int Cout, int s, int TH, int TW,
-    void* out, void* stream) {
-  const int nam = (((TH - 1) * s + 3) * ((TW - 1) * s + 3) + 47) / 48 * 48;
-  if (Cin % 8 || Ci % KC || Cout % 32 || H % s || W % s || (TH * TW) % 32 ||
-      (TH * TW / 32) * (Ci / 32) > NWARP || nam * (KA / 8) > MAXR * NT ||
-      TH * TW * (KC / 8) > MAXR * NT)
+    const void* pw, const void* pb, int Ci, int Cout, int s, void* out, void* stream) {
+  if (Cin % 8 || Cout % 32 || (Ci != 32 && Ci != 64) || (s != 1 && s != 2) || H % s || W % s)
     return (int)cudaErrorInvalidValue;
   if (pw == nullptr && (Cin != Cout || s != 1)) return (int)cudaErrorInvalidValue;
-  const size_t smem = bottleneck_block_bf16_smem(Ci, Cout, s, TH, TW);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        bottleneck_block_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int Ho = H / s, Wo = W / s;
-  dim3 grid((Wo + TW - 1) / TW, (Ho + TH - 1) / TH, N);
-  bottleneck_block_bf16_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      (const bf16_t*)x, H, W, Cin, (const bf16_t*)aw, (const float*)ab,
-      (const bf16_t*)bw, (const float*)bb, (const bf16_t*)cw, (const float*)cb,
-      (const bf16_t*)pw, (const float*)pb, Ci, Cout, s, TH, TW, (bf16_t*)out, Ho, Wo);
-  return (int)cudaGetLastError();
+  Params p = {};
+  p.x = (const bf16_t*)x;
+  p.N = N; p.H = H; p.W = W; p.Cin = Cin; p.Kp = (Cin + 15) / 16 * 16;
+  p.aw = (const bf16_t*)aw; p.ab = (const float*)ab;
+  p.bw = (const bf16_t*)bw; p.bb = (const float*)bb;
+  p.cw = (const bf16_t*)cw; p.cb = (const float*)cb;
+  p.pw = (const bf16_t*)pw; p.pb = (const float*)pb;
+  p.Cout = Cout; p.P = (Cout + PASS - 1) / PASS;
+  p.out = (bf16_t*)out; p.Ho = H / s; p.Wo = W / s;
+  const bool proj = pw != nullptr;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (s == 1) return Ci == 64 ? launch<1, 64>(p, proj, st) : launch<1, 32>(p, proj, st);
+  return Ci == 64 ? launch<2, 64>(p, proj, st) : launch<2, 32>(p, proj, st);
 }

@@ -26,14 +26,20 @@ does:
   float32 after its bias and the identity shortcut widened to float32.
   ``a`` and ``b`` are rounded to bf16 after bias and ReLU, the output after
   the shortcut and ReLU (the TPU kernel's lines 91-101). The CUDA kernel
-  runs each product as bf16 ``mma.sync`` m16n8k16 with f32 sums.
+  is persistent (one CTA an SM) with the block's weights resident in
+  shared memory, x brought in by TMA through an ``mbarrier`` ring, and
+  each product on ``wgmma`` with f32 sums. It takes the weights packed
+  (``pack_block_bf16``: K-major planes of 8 channels, cw and pw in passes
+  of 256 columns); the model caches the pack beside its folded weights.
 
 ``fused_stage`` launches the form's CUDA kernel once per block for CUDA
 tensors and runs ``fused_stage_ref``, the plain PyTorch version, for CPU
 tensors. The kernels take NHWC frames with input channels in multiples of
 4 (float32) or 8 (bf16), 32 or 64 inner channels and output channels in
-multiples of 32; each CTA owns an 8 x 16 output tile (4 x 8 at stride 2).
-They raise on anything else. Each form counts its own launches:
+multiples of 32 (at most 768 in bf16, whose cw stays resident); the
+float32 form's CTA owns an 8 x 16 output tile (4 x 8 at stride 2), the
+bf16 form's tiles are 16 x 8 (8 x 8 at stride 2). They raise on anything
+else. Each form counts its own launches:
 ``fused_stage.launches`` (float32) and ``fused_stage_bf16.launches``.
 """
 
@@ -41,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -86,6 +92,65 @@ def fused_stage_ref(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
     return h
 
 
+# output columns of a pass of the bf16 kernel's product c
+PASS = 256
+# the bf16 kernel keeps cw (inner x Cout) resident: at most 3 passes fit
+BF16_MAX_COUT = 3 * PASS
+
+
+def _pack_k(w: Tensor, kp: int) -> Tensor:
+    """(K, N) -> (kp/8, N, 8): K-major planes of 8 input channels, rows past
+    K zero."""
+    k, n = w.shape
+    w = F.pad(w, (0, 0, 0, kp - k))
+    return w.reshape(kp // 8, 8, n).transpose(1, 2).contiguous()
+
+
+def _unpack_k(p: Tensor, k: int) -> Tensor:
+    return p.transpose(1, 2).reshape(-1, p.shape[1])[:k]
+
+
+def _pack_passes(w: Tensor, kp: int) -> Tensor:
+    """(K, Cout) -> (P, kp/8, 256, 8): ``_pack_k`` of each pass of 256
+    output columns, columns past Cout zero."""
+    k, cout = w.shape
+    passes = -(-cout // PASS)
+    w = F.pad(w, (0, passes * PASS - cout, 0, kp - k))
+    return torch.stack([_pack_k(w[:, i * PASS:(i + 1) * PASS], kp) for i in range(passes)])
+
+
+def _unpack_passes(p: Tensor, k: int, cout: int) -> Tensor:
+    return torch.cat([_unpack_k(q, k) for q in p], dim=1)[:, :cout]
+
+
+def pack_block_bf16(blk: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """A block's bf16 weight matrices in the order the bf16 kernel's wgmma
+    reads them from shared memory (``csrc/bottleneck_stage_bf16.cu``):
+    ``aw`` (Cin rounded up to 16, zeros past Cin) and each of ``bw``'s nine
+    taps as ``_pack_k``, ``cw`` and ``pw`` as ``_pack_passes``."""
+    cin, inner = blk["aw"].shape
+    kp = -(-cin // 16) * 16
+    out = {"aw": _pack_k(blk["aw"], kp),
+           "bw": torch.stack([_pack_k(blk["bw"][dy, dx], inner)
+                              for dy in range(3) for dx in range(3)]),
+           "cw": _pack_passes(blk["cw"], inner)}
+    if "pw" in blk:
+        out["pw"] = _pack_passes(blk["pw"], kp)
+    return out
+
+
+def unpack_block_bf16(packed: Dict[str, Tensor], cin: int, cout: int) -> Dict[str, Tensor]:
+    """The inverse of ``pack_block_bf16``: the weight matrices as given."""
+    inner = packed["aw"].shape[1]
+    out = {"aw": _unpack_k(packed["aw"], cin),
+           "bw": torch.stack([_unpack_k(t, inner) for t in packed["bw"]]).reshape(
+               3, 3, inner, inner),
+           "cw": _unpack_passes(packed["cw"], inner, cout)}
+    if "pw" in packed:
+        out["pw"] = _unpack_passes(packed["pw"], cin, cout)
+    return out
+
+
 def _ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
@@ -95,12 +160,16 @@ _LAUNCHERS = {torch.float32: ("bottleneck_stage", "bottleneck_block"),
               torch.bfloat16: ("bottleneck_stage_bf16", "bottleneck_block_bf16")}
 
 
-def bind(lib: ctypes.CDLL, entry: str = "bottleneck_block"):
-    """``lib``'s C launcher ``entry`` with its signature (both forms share
-    it)."""
+def bind(lib: ctypes.CDLL, entry: str = "bottleneck_block", tile: Optional[bool] = None):
+    """``lib``'s C launcher ``entry`` with its signature. The float32 form's
+    takes the output tile (TH, TW) after the stride; the bf16 form's picks
+    its own (``tile`` True binds an older bf16 launcher that takes it)."""
     fn = getattr(lib, entry)
+    if tile is None:
+        tile = entry == "bottleneck_block"
+    tile = [ctypes.c_int] * 2 if tile else []
     fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_int] * 3 + tile + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
 
@@ -134,25 +203,45 @@ def _check_block(blk: Dict[str, Tensor], cin: int, dev) -> torch.dtype:
                 or t.data_ptr() % 16):
             raise ValueError(f"{key} must be a contiguous, 16-byte aligned {want} "
                              f"tensor on {dev}, got {t.dtype} on {t.device}")
-    align = 8 if dtype == torch.bfloat16 else 4  # 16-byte cp.async rows of x
+    align = 8 if dtype == torch.bfloat16 else 4  # 16-byte rows of x
     if cin % align or inner not in (32, 64) or cout % 32:
         raise ValueError(f"the kernel takes input channels in multiples of {align}, "
                          f"32 or 64 inner channels and output channels in multiples "
                          f"of 32, got {cin}, {inner}, {cout}")
+    if dtype == torch.bfloat16 and cout > BF16_MAX_COUT:
+        raise ValueError(f"K2's bf16 form keeps cw resident in shared memory: at most "
+                         f"{BF16_MAX_COUT} output channels, got {cout}")
     return dtype
 
 
-def _launch(x: Tensor, blocks: Sequence[Dict[str, Tensor]], stride: int, counter) -> Tensor:
+def _check_packed(w: Dict[str, Tensor], cin: int, inner: int, cout: int, dev) -> None:
+    """Raise unless ``w`` is ``pack_block_bf16`` of a block of these widths."""
+    kp, passes = -(-cin // 16) * 16, -(-cout // PASS)
+    shapes = {"aw": (kp // 8, inner, 8), "bw": (9, inner // 8, inner, 8),
+              "cw": (passes, inner // 8, PASS, 8), "pw": (passes, kp // 8, PASS, 8)}
+    for key, t in w.items():
+        if (tuple(t.shape) != shapes[key] or t.dtype != torch.bfloat16 or t.device != dev
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"packed {key} must be a contiguous bf16 {shapes[key]} tensor "
+                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _launch(x: Tensor, blocks: Sequence[Dict[str, Tensor]], stride: int, counter,
+            packed: Optional[Sequence[Dict[str, Tensor]]] = None) -> Tensor:
     """Launch the kernel of x's form once per block; ``counter.launches``
-    counts them."""
+    counts them. The bf16 form takes each block's ``pack_block_bf16``, from
+    ``packed`` where the caller keeps it, else packed here."""
     fn = _bind(x.dtype)
+    bf16 = x.dtype == torch.bfloat16
+    if packed is not None and len(packed) != len(blocks):
+        raise ValueError(f"{len(packed)} packed blocks for {len(blocks)} blocks")
     h = x.contiguous()
     if h.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
     s = stride
     with torch.cuda.device(x.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-        for blk in blocks:
+        for i, blk in enumerate(blocks):
             n, hh, ww, cin = h.shape
             if hh % s or ww % s:
                 raise ValueError(f"frame {hh}x{ww} not divisible by stride {s}")
@@ -160,12 +249,18 @@ def _launch(x: Tensor, blocks: Sequence[Dict[str, Tensor]], stride: int, counter
                 raise ValueError(f"{x.dtype} frames need {x.dtype} weight matrices, "
                                  f"got {blk['aw'].dtype}")
             inner, cout = blk["aw"].shape[1], blk["cw"].shape[1]
-            th, tw = (8, 16) if s == 1 else (4, 8)  # output tile; pixels a multiple of 32
             out = torch.empty((n, hh // s, ww // s, cout), device=x.device, dtype=x.dtype)
-            err = fn(_ptr(h), n, hh, ww, cin,
-                     *(_ptr(blk[k]) for k in _KEYS),
-                     _ptr(blk.get("pw")), _ptr(blk.get("pb")),
-                     inner, cout, s, th, tw, _ptr(out), stream)
+            if bf16:
+                w = packed[i] if packed is not None else pack_block_bf16(blk)
+                _check_packed(w, cin, inner, cout, x.device)
+                args = (w["aw"], blk["ab"], w["bw"], blk["bb"], w["cw"], blk["cb"],
+                        w.get("pw"), blk.get("pb"))
+                tile = ()
+            else:
+                args = tuple(blk[k] for k in _KEYS) + (blk.get("pw"), blk.get("pb"))
+                tile = (8, 16) if s == 1 else (4, 8)  # output tile; pixels a multiple of 32
+            err = fn(_ptr(h), n, hh, ww, cin, *(_ptr(t) for t in args),
+                     inner, cout, s, *tile, _ptr(out), stream)
             cuda_build.check(err, _LAUNCHERS[x.dtype][1])
             counter.launches += 1
             h, s = out, 1
@@ -181,30 +276,33 @@ def _device(x: Tensor) -> str:
 
 
 def fused_stage(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
-                stride: int = 1) -> Tensor:
+                stride: int = 1,
+                packed: Optional[Sequence[Dict[str, Tensor]]] = None) -> Tensor:
     """Run a kt=1 bottleneck stage over folded frames x (N, H, W, Cin) in
     x's dtype. CUDA tensors launch K2's form for that dtype once per block
-    (bfloat16 through ``fused_stage_bf16``); CPU tensors take the plain
-    version."""
+    (bfloat16 through ``fused_stage_bf16``, which takes ``packed``); CPU
+    tensors take the plain version."""
     if _device(x) == "cpu":
         return fused_stage_ref(x, blocks, stride)
     if x.dtype == torch.bfloat16:
-        return fused_stage_bf16(x, blocks, stride)
+        return fused_stage_bf16(x, blocks, stride, packed)
     if x.dtype != torch.float32:
         raise ValueError(f"kernel K2 takes float32 or bfloat16, got {x.dtype}")
     return _launch(x, blocks, stride, fused_stage)
 
 
 def fused_stage_bf16(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
-                     stride: int = 1) -> Tensor:
+                     stride: int = 1,
+                     packed: Optional[Sequence[Dict[str, Tensor]]] = None) -> Tensor:
     """K2's bfloat16 form: bf16 frames, bf16 weight matrices, float32
     biases. CUDA tensors launch ``csrc/bottleneck_stage_bf16.cu`` once per
-    block; CPU tensors take the plain version."""
+    block, on ``packed`` (each block's ``pack_block_bf16``) where given;
+    CPU tensors take the plain version."""
     if x.dtype != torch.bfloat16:
         raise ValueError(f"K2's bf16 form takes bfloat16 frames, got {x.dtype}")
     if _device(x) == "cpu":
         return fused_stage_ref(x, blocks, stride)
-    return _launch(x, blocks, stride, fused_stage_bf16)
+    return _launch(x, blocks, stride, fused_stage_bf16, packed)
 
 
 fused_stage.launches = 0

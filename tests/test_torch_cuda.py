@@ -94,16 +94,17 @@ def test_k1_train_step_with_dims_matches_without(card):
     assert torch.equal(m1, m2)
 
 
-def _random_blocks(rnd, cin, stride, dtype=torch.float32):
+def _random_blocks(rnd, cin, stride, dtype=torch.float32, proj=False):
     """Three BN-folded blocks, 64 inner and 256 output channels; the weight
-    matrices in ``dtype``, the biases float32."""
+    matrices in ``dtype``, the biases float32. Block 0 has a projection
+    where the shapes need one, or with ``proj``."""
     blocks = []
     for i in range(3):
         c_in = cin if i == 0 else 256
         blk = {"aw": rnd(c_in, 64, scale=c_in ** -0.5), "ab": rnd(64, scale=0.1),
                "bw": rnd(3, 3, 64, 64, scale=(9 * 64) ** -0.5), "bb": rnd(64, scale=0.1),
                "cw": rnd(64, 256, scale=0.125), "cb": rnd(256, scale=0.1)}
-        if i == 0 and (cin != 256 or stride != 1):
+        if i == 0 and (cin != 256 or stride != 1 or proj):
             blk.update(pw=rnd(c_in, 256, scale=c_in ** -0.5), pb=rnd(256, scale=0.1))
         blocks.append({k: v.to(dtype) if v.dim() > 1 else v for k, v in blk.items()})
     return blocks
@@ -132,18 +133,20 @@ def test_k2_matches_plain(card, n, hw, stride, cin, big):
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
-@pytest.mark.parametrize("n,hw,stride,cin", [
-    (32, 64, 1, 80),  # the main path: s2 slow at 256^2 input, 4 clips of 8 frames
-    (4, 10, 2, 80),   # stride 2, a frame neither tile side cuts
-    (3, 13, 1, 256),  # identity shortcut in block 0, ragged edges
+@pytest.mark.parametrize("n,hw,stride,cin,proj", [
+    (32, 64, 1, 80, True),    # the main path: s2 slow at 256^2 input, 4 clips of 8 frames
+    (4, 10, 2, 80, True),     # stride 2, a frame neither tile side cuts
+    (3, 13, 1, 256, False),   # identity shortcut in block 0, ragged edges
+    (33, 64, 1, 80, True),    # 1056 tiles: not a multiple of the persistent grid
+    (2, 24, 1, 256, True),    # Cin 256 with the projection in block 0 (pw streams)
 ])
-def test_k2_bf16_matches_plain(card, n, hw, stride, cin):
+def test_k2_bf16_matches_plain(card, n, hw, stride, cin, proj):
     gen = torch.Generator().manual_seed(hw + stride)
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(card)
 
-    blocks = _random_blocks(rnd, cin, stride, torch.bfloat16)
+    blocks = _random_blocks(rnd, cin, stride, torch.bfloat16, proj)
     x = rnd(n, hw, hw, cin).to(torch.bfloat16)
     before = fused_stage.launches, fused_stage_bf16.launches
     out = fused_stage(x, blocks, stride)
