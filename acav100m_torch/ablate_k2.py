@@ -112,13 +112,15 @@ VARIANTS_BF16 = {
     "no_mma": [(
         "  if constexpr (N == 16) wgmma_n16(d, da, db);\n"
         "  else if constexpr (N == 32) wgmma_n32(d, da, db);\n"
-        "  else wgmma_n128(d, da, db);\n", "")],
+        "  else if constexpr (N == 64) wgmma_n64(d, da, db);\n"
+        "  else if constexpr (N == 128) wgmma_n128(d, da, db);\n"
+        "  else wgmma_n256(d, da, db);\n", "")],
     # product b's (the 3x3's) wgmma gone
-    "skip_b": [("wgmma<NW>(acc_b[m]", "if (false) wgmma<NW>(acc_b[m]")],
+    "skip_b": [("wgmma<NB>(acc_b", "if (false) wgmma<NB>(acc_b")],
     # loads, the ring, barriers and epilogues alone
     "no_products": [("wgmma<NW>(acc_a[m]", "if (false) wgmma<NW>(acc_a[m]"),
-                    ("wgmma<NW>(acc_b[m]", "if (false) wgmma<NW>(acc_b[m]"),
-                    ("wgmma<128>(acc_c[m]", "if (false) wgmma<128>(acc_c[m]")],
+                    ("wgmma<NB>(acc_b", "if (false) wgmma<NB>(acc_b"),
+                    ("wgmma<NC>(acc_c", "if (false) wgmma<NC>(acc_c")],
 }
 
 
@@ -287,8 +289,7 @@ def run_stage(fn, x, blocks, outs, stream, packed=None):
             ws, tile = [blk[k] for k in _KEYS] + [blk.get("pw"), blk.get("pb")], (8, 16)
         else:
             w = packed[i]
-            ws = [w["aw"], blk["ab"], w["bw"], blk["bb"], w["cw"], blk["cb"],
-                  w.get("pw"), blk.get("pb")]
+            ws = [w["aw"], blk["ab"], w["bw"], blk["bb"], w["cw"], w["cb"], w.get("pw")]
             tile = ()
         err = fn(_ptr(h), n, hh, ww, cin, *(_ptr(t) for t in ws), blk["aw"].shape[1],
                  blk["cw"].shape[1], 1, *tile, _ptr(out), stream)

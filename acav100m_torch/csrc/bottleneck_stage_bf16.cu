@@ -204,11 +204,62 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+
 template <int N>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t db) {
   if constexpr (N == 16) wgmma_n16(d, da, db);
   else if constexpr (N == 32) wgmma_n32(d, da, db);
-  else wgmma_n128(d, da, db);
+  else if constexpr (N == 64) wgmma_n64(d, da, db);
+  else if constexpr (N == 128) wgmma_n128(d, da, db);
+  else wgmma_n256(d, da, db);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -219,6 +270,27 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
   return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+// The four lanes of a quad (q = lane % 4) hold a row's accumulator pairs
+// for columns 8k + 2q, +1 (the wgmma layout); v[2s], v[2s+1] is the pair of
+// k = 4j + s. Afterwards lane q holds the 8 columns 8(4j + q) .. +7, in
+// order: a 4 x 4 transpose of pairs in two butterfly stages, so the
+// epilogue reads and writes 16 bytes a lane.
+__device__ __forceinline__ void quad_transpose(float (&v)[8], int q) {
+  const bool b1 = q & 2, b0 = q & 1;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {  // slots s and s + 2 across lanes q, q ^ 2
+    const int lo = 2 * (e >> 1) + (e & 1), hi = lo + 4;
+    const float r = __shfl_xor_sync(0xffffffffu, b1 ? v[lo] : v[hi], 2);
+    if (b1) v[lo] = r; else v[hi] = r;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {  // slots s and s + 1 across lanes q, q ^ 1
+    const int lo = 4 * (e >> 1) + (e & 1), hi = lo + 2;
+    const float r = __shfl_xor_sync(0xffffffffu, b0 ? v[lo] : v[hi], 1);
+    if (b0) v[lo] = r; else v[hi] = r;
+  }
 }
 
 // ---- the kernel -------------------------------------------------------------
@@ -239,8 +311,8 @@ struct Params {
   int N, H, W, Cin, Kp;                // Kp: Cin rounded up to 16
   const bf16_t* aw; const float* ab;   // packed (Kp/8, Ci, 8)
   const bf16_t* bw; const float* bb;   // packed (9, Ci/8, Ci, 8)
-  const bf16_t* cw; const float* cb;   // packed (P, Ci/8, 256, 8)
-  const bf16_t* pw; const float* pb;   // packed (P, Kp/8, 256, 8), or null
+  const bf16_t* cw; const float* cb;   // packed (P, Ci/8, 256, 8); cb (+ pb)
+  const bf16_t* pw;                    // packed (P, Kp/8, 256, 8), or null
   int Cout, P;                         // P passes of 256 output columns
   bf16_t* out;
   int Ho, Wo, tiles_x, tiles_y, tiles;
@@ -252,7 +324,13 @@ template <int S, int CI>
 __global__ void __launch_bounds__(NT, 1) bottleneck_block_bf16_kernel(
     const __grid_constant__ CUtensorMap xmap, const Params p) {
   using G = Geom<S>;
-  constexpr int NW = CI / 2;  // a's and b's columns a consumer warpgroup owns
+  constexpr int NW = CI / 2;  // a's columns a consumer warpgroup owns
+  // products b and c: at stride 1 the two warpgroups split the tile's two
+  // m64 row tiles; at stride 2 (one row tile) they split the columns
+  constexpr bool SPLIT_M = G::MQ == 2;
+  constexpr int NB = SPLIT_M ? CI : CI / 2;          // b's columns a warpgroup
+  constexpr int NC = SPLIT_M ? PASS : PASS / 2;      // c's columns a warpgroup, a pass
+  static_assert(G::MQ == 1 || G::MQ == 2, "one or two row tiles");
   const int tid = threadIdx.x, wg = tid / 128;
   const uint32_t base = saddr(smem);
   const uint32_t full0 = base, empty0 = base + 16, wbar = base + 32;  // mbarriers
@@ -314,6 +392,8 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_bf16_kernel(
   // ---- consumers: two warpgroups ----------------------------------------------
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int half = wg, warp = (tid % 128) / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+  const int mrow = SPLIT_M ? half : 0;                // b's and c's row tile
+  const int nb0 = SPLIT_M ? 0 : half * NB, nc0 = SPLIT_M ? 0 : half * NC;
   const uint32_t abuf = base + p.off_a;
   unsigned char* const abuf_p = smem + p.off_a;
   const bf16_t* const xn0 = p.x;
@@ -328,12 +408,28 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_bf16_kernel(
     const bf16_t* xn = xn0 + (size_t)frame * p.H * p.W * p.Cin;
 
     // 1. a = bf16(relu(x . aw + ab)) on the region's NAM rows, this
-    // warpgroup's NW columns
+    // warpgroup's NW columns. Every product's sums start from its bias, so
+    // no epilogue loads one.
+    // the identity shortcut of product c's first pass, for each of this
+    // thread's rows 8 channels a quad slot (see quad_transpose): read from
+    // the stages as they pass, where the tile's pixels are region pixels
+    uint4 xs[2][NC / 32];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < NC / 32; ++j) xs[h][j] = make_uint4(0u, 0u, 0u, 0u);
     float acc_a[G::MA][NW / 2];
 #pragma unroll
-    for (int m = 0; m < G::MA; ++m)
+    for (int k = 0; k < NW / 8; ++k) {
+      const float2 bias = __ldg(reinterpret_cast<const float2*>(p.ab + half * NW + 8 * k + 2 * t4));
 #pragma unroll
-      for (int j = 0; j < NW / 2; ++j) acc_a[m][j] = 0.f;
+      for (int m = 0; m < G::MA; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          acc_a[m][4 * k + 2 * h] = bias.x;
+          acc_a[m][4 * k + 2 * h + 1] = bias.y;
+        }
+    }
     for (int k0 = 0; k0 < p.Kp; k0 += p.KX) {
       const int rows = min(p.KX, p.Kp - k0);
       const uint32_t stage = base + p.off_stage + st * p.stage_bytes;
@@ -350,6 +446,23 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_bf16_kernel(
       }
       wgmma_commit();
       wgmma_wait_all();
+      if constexpr (S == 1) {
+        if (p.pw == nullptr) {
+          const unsigned char* stage_p = smem + p.off_stage + st * p.stage_bytes;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int q = mrow * 64 + warp * 16 + 8 * h + g;
+            const int row = (q / G::TW + 1) * G::AWS + q % G::TW + 1;
+#pragma unroll
+            for (int j = 0; j < NC / 32; ++j) {
+              const int plane = nc0 / 8 + 4 * j + t4 - k0 / 8;
+              if (plane >= 0 && plane < rows / 8)
+                xs[h][j] = *reinterpret_cast<const uint4*>(stage_p + plane * G::NAM * 16 +
+                                                           row * 16);
+            }
+          }
+        }
+      }
       mbar_arrive(empty0 + 8 * st);
       next_stage();
     }
@@ -366,79 +479,95 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_bf16_kernel(
 #pragma unroll
         for (int k = 0; k < NW / 8; ++k) {
           const int n = half * NW + 8 * k + 2 * t4;
-          const float2 bias = __ldg(reinterpret_cast<const float2*>(p.ab + n));
-          uint32_t v = 0u;
-          if (inside)
-            v = pack_bf16(fmaxf(acc_a[m][4 * k + 2 * h] + bias.x, 0.f),
-                          fmaxf(acc_a[m][4 * k + 2 * h + 1] + bias.y, 0.f));
+          const uint32_t v = inside ? pack_bf16(fmaxf(acc_a[m][4 * k + 2 * h], 0.f),
+                                                fmaxf(acc_a[m][4 * k + 2 * h + 1], 0.f))
+                                    : 0u;
           *reinterpret_cast<uint32_t*>(abuf_p + (n / 8) * G::NAM * 16 + pix * 16 + (n % 8) * 2) = v;
         }
       }
     fence_async_smem();
     consumers_sync();  // a is whole
 
+    // the identity shortcut of the passes after the first, from x
+    auto load_identity = [&](int pass) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = mrow * 64 + warp * 16 + 8 * h + g;
+        const int oy = oy0 + q / G::TW, ox = ox0 + q % G::TW;
+        const bf16_t* xq = xn + ((size_t)(S * oy) * p.W + S * ox) * p.Cin;
+#pragma unroll
+        for (int j = 0; j < NC / 32; ++j) {
+          const int n = pass * PASS + nc0 + 8 * (4 * j + t4);
+          xs[h][j] = oy < p.Ho && ox < p.Wo && n < p.Cout
+                         ? __ldg(reinterpret_cast<const uint4*>(xq + n))
+                         : make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    };
+
     // 2. b = bf16(relu(conv3x3(a, stride S) + bb)) on the tile, an implicit
     // GEMM over the 9 taps: tap (dy, dx) reads a at each pixel's region row
     // shifted by the tap
-    float acc_b[G::MQ][NW / 2];
+    float acc_b[NB / 2];
 #pragma unroll
-    for (int m = 0; m < G::MQ; ++m)
+    for (int k = 0; k < NB / 8; ++k) {
+      const float2 bias = __ldg(reinterpret_cast<const float2*>(p.bb + nb0 + 8 * k + 2 * t4));
 #pragma unroll
-      for (int j = 0; j < NW / 2; ++j) acc_b[m][j] = 0.f;
+      for (int h = 0; h < 2; ++h) {
+        acc_b[4 * k + 2 * h] = bias.x;
+        acc_b[4 * k + 2 * h + 1] = bias.y;
+      }
+    }
     wgmma_fence();
 #pragma unroll 1
     for (int tap = 0; tap < 9; ++tap) {
       const int dy = tap / 3, dx = tap % 3;
       const int shift = dy * G::AWS + (S == 1 ? dx : ((dx + 1) & 1) * G::AWP + (dx + 1) / 2);
 #pragma unroll
-      for (int ks = 0; ks < CI / 16; ++ks) {
-        const uint64_t db = make_desc(base + p.off_bw + (tap * (CI / 8) + 2 * ks) * CI * 16 +
-                                          half * NW * 16, CI * 16, 128);
-#pragma unroll
-        for (int m = 0; m < G::MQ; ++m)
-          wgmma<NW>(acc_b[m], make_desc(abuf + 2 * ks * G::NAM * 16 +
-                                            (S * 8 * m * G::AWS + shift) * 16,
-                                        G::NAM * 16, S * G::AWS * 16), db);
-      }
+      for (int ks = 0; ks < CI / 16; ++ks)
+        wgmma<NB>(acc_b,
+                  make_desc(abuf + 2 * ks * G::NAM * 16 + (S * 8 * mrow * G::AWS + shift) * 16,
+                            G::NAM * 16, S * G::AWS * 16),
+                  make_desc(base + p.off_bw + (tap * (CI / 8) + 2 * ks) * CI * 16 + nb0 * 16,
+                            CI * 16, 128));
     }
     wgmma_commit();
     wgmma_wait_all();
     consumers_sync();  // every warpgroup is done with a
 #pragma unroll
-    for (int m = 0; m < G::MQ; ++m)
+    for (int h = 0; h < 2; ++h) {
+      const int q = mrow * 64 + warp * 16 + 8 * h + g;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int q = m * 64 + warp * 16 + 8 * h + g;
-#pragma unroll
-        for (int k = 0; k < NW / 8; ++k) {
-          const int n = half * NW + 8 * k + 2 * t4;
-          const float2 bias = __ldg(reinterpret_cast<const float2*>(p.bb + n));
-          *reinterpret_cast<uint32_t*>(abuf_p + (n / 8) * G::NQ * 16 + q * 16 + (n % 8) * 2) =
-              pack_bf16(fmaxf(acc_b[m][4 * k + 2 * h] + bias.x, 0.f),
-                        fmaxf(acc_b[m][4 * k + 2 * h + 1] + bias.y, 0.f));
-        }
+      for (int k = 0; k < NB / 8; ++k) {
+        const int n = nb0 + 8 * k + 2 * t4;
+        *reinterpret_cast<uint32_t*>(abuf_p + (n / 8) * G::NQ * 16 + q * 16 + (n % 8) * 2) =
+            pack_bf16(fmaxf(acc_b[4 * k + 2 * h], 0.f), fmaxf(acc_b[4 * k + 2 * h + 1], 0.f));
       }
+    }
     fence_async_smem();
     consumers_sync();  // b is whole
 
     // 3. y = bf16(relu(b . cw (+ x[::s, ::s] . pw) + cb (+ pb | f32(x)))),
-    // a pass of 256 columns at a time, 128 a warpgroup
+    // a pass of 256 columns at a time (pb is folded into cb by the wrapper)
     for (int pass = 0; pass < p.P; ++pass) {
-      float acc_c[G::MQ][64];
+      if (pass > 0 && p.pw == nullptr) load_identity(pass);
+      float acc_c[NC / 2];
 #pragma unroll
-      for (int m = 0; m < G::MQ; ++m)
+      for (int k = 0; k < NC / 8; ++k) {
+        const int n = min(pass * PASS + nc0 + 8 * k + 2 * t4, p.Cout - 2);
+        const float2 bias = __ldg(reinterpret_cast<const float2*>(p.cb + n));
 #pragma unroll
-        for (int j = 0; j < 64; ++j) acc_c[m][j] = 0.f;
+        for (int h = 0; h < 2; ++h) {
+          acc_c[4 * k + 2 * h] = bias.x;
+          acc_c[4 * k + 2 * h + 1] = bias.y;
+        }
+      }
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < CI / 16; ++ks) {
-        const uint64_t db = make_desc(base + p.off_cw + (pass * (CI / 8) + 2 * ks) * PASS * 16 +
-                                          half * 128 * 16, PASS * 16, 128);
-#pragma unroll
-        for (int m = 0; m < G::MQ; ++m)
-          wgmma<128>(acc_c[m], make_desc(abuf + 2 * ks * G::NQ * 16 + m * 64 * 16,
-                                         G::NQ * 16, 128), db);
-      }
+      for (int ks = 0; ks < CI / 16; ++ks)
+        wgmma<NC>(acc_c, make_desc(abuf + 2 * ks * G::NQ * 16 + mrow * 64 * 16, G::NQ * 16, 128),
+                  make_desc(base + p.off_cw + (pass * (CI / 8) + 2 * ks) * PASS * 16 + nc0 * 16,
+                            PASS * 16, 128));
       wgmma_commit();
       if (p.pw != nullptr) {
         for (int k0 = 0; k0 < p.Kp; k0 += p.KX) {
@@ -449,14 +578,11 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_bf16_kernel(
           for (int ks = 0; ks < rows / 16; ++ks) {
             const uint64_t db = p.pw_res
                 ? make_desc(base + p.off_pw + (pass * (p.Kp / 8) + k0 / 8 + 2 * ks) * PASS * 16 +
-                                half * 128 * 16, PASS * 16, 128)
-                : make_desc(stage + p.stage_w + 2 * ks * PASS * 16 + half * 128 * 16,
-                            PASS * 16, 128);
-#pragma unroll
-            for (int m = 0; m < G::MQ; ++m)
-              wgmma<128>(acc_c[m], make_desc(stage + 2 * ks * G::NAM * 16 +
-                                                 ((S * 8 * m + 1) * G::AWS + 1) * 16,
-                                             G::NAM * 16, S * G::AWS * 16), db);
+                                nc0 * 16, PASS * 16, 128)
+                : make_desc(stage + p.stage_w + 2 * ks * PASS * 16 + nc0 * 16, PASS * 16, 128);
+            wgmma<NC>(acc_c, make_desc(stage + 2 * ks * G::NAM * 16 +
+                                           ((S * 8 * mrow + 1) * G::AWS + 1) * 16,
+                                       G::NAM * 16, S * G::AWS * 16), db);
           }
           wgmma_commit();
           wgmma_wait_all();
@@ -466,28 +592,34 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_bf16_kernel(
       }
       wgmma_wait_all();
 #pragma unroll
-      for (int m = 0; m < G::MQ; ++m)
+      for (int h = 0; h < 2; ++h) {
+        const int q = mrow * 64 + warp * 16 + 8 * h + g;
+        const int oy = oy0 + q / G::TW, ox = ox0 + q % G::TW;
+        bf16_t* dst = p.out + (((size_t)frame * p.Ho + oy) * p.Wo + ox) * p.Cout;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int q = m * 64 + warp * 16 + 8 * h + g;
-          const int oy = oy0 + q / G::TW, ox = ox0 + q % G::TW;
-          if (oy >= p.Ho || ox >= p.Wo) continue;
-          const bf16_t* xq = xn + ((size_t)(S * oy) * p.W + S * ox) * p.Cin;  // identity
-          bf16_t* dst = p.out + (((size_t)frame * p.Ho + oy) * p.Wo + ox) * p.Cout;
+        for (int j = 0; j < NC / 32; ++j) {
+          float v[8];
 #pragma unroll
-          for (int k = 0; k < 16; ++k) {
-            const int n = pass * PASS + half * 128 + 8 * k + 2 * t4;
-            if (n >= p.Cout) break;
-            const float2 bias = __ldg(reinterpret_cast<const float2*>(p.cb + n));
-            const float2 sc =
-                p.pw != nullptr
-                    ? __ldg(reinterpret_cast<const float2*>(p.pb + n))
-                    : unpack_bf16(__ldg(reinterpret_cast<const unsigned int*>(xq + n)));
-            *reinterpret_cast<uint32_t*>(dst + n) =
-                pack_bf16(fmaxf(acc_c[m][4 * k + 2 * h] + bias.x + sc.x, 0.f),
-                          fmaxf(acc_c[m][4 * k + 2 * h + 1] + bias.y + sc.y, 0.f));
+          for (int e = 0; e < 8; ++e) v[e] = acc_c[4 * (4 * j + e / 2) + 2 * h + e % 2];
+          quad_transpose(v, t4);
+          const int n = pass * PASS + nc0 + 8 * (4 * j + t4);
+          if (oy >= p.Ho || ox >= p.Wo || n >= p.Cout) continue;
+          if (p.pw == nullptr) {
+            const uint32_t u[4] = {xs[h][j].x, xs[h][j].y, xs[h][j].z, xs[h][j].w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 f = unpack_bf16(u[e]);
+              v[2 * e] += f.x;
+              v[2 * e + 1] += f.y;
+            }
           }
+          uint32_t o[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[e] = pack_bf16(fmaxf(v[2 * e], 0.f), fmaxf(v[2 * e + 1], 0.f));
+          *reinterpret_cast<uint4*>(dst + n) = make_uint4(o[0], o[1], o[2], o[3]);
         }
+      }
     }
   }
 }
@@ -605,11 +737,12 @@ static int launch(Params p, bool proj, cudaStream_t stream) {
 }
 
 // Weights come packed (see the layout note above and the wrapper's
-// pack_block_bf16); biases are float32; pw and pb null for the identity.
+// pack_block_bf16); biases are float32, with the projection's pb already
+// added to cb; pw null for the identity shortcut.
 extern "C" int bottleneck_block_bf16(
     const void* x, int N, int H, int W, int Cin, const void* aw, const void* ab,
-    const void* bw, const void* bb, const void* cw, const void* cb,
-    const void* pw, const void* pb, int Ci, int Cout, int s, void* out, void* stream) {
+    const void* bw, const void* bb, const void* cw, const void* cb, const void* pw,
+    int Ci, int Cout, int s, void* out, void* stream) {
   if (Cin % 8 || Cout % 32 || (Ci != 32 && Ci != 64) || (s != 1 && s != 2) || H % s || W % s)
     return (int)cudaErrorInvalidValue;
   if (pw == nullptr && (Cin != Cout || s != 1)) return (int)cudaErrorInvalidValue;
@@ -619,7 +752,7 @@ extern "C" int bottleneck_block_bf16(
   p.aw = (const bf16_t*)aw; p.ab = (const float*)ab;
   p.bw = (const bf16_t*)bw; p.bb = (const float*)bb;
   p.cw = (const bf16_t*)cw; p.cb = (const float*)cb;
-  p.pw = (const bf16_t*)pw; p.pb = (const float*)pb;
+  p.pw = (const bf16_t*)pw;
   p.Cout = Cout; p.P = (Cout + PASS - 1) / PASS;
   p.out = (bf16_t*)out; p.Ho = H / s; p.Wo = W / s;
   const bool proj = pw != nullptr;

@@ -127,20 +127,24 @@ def pack_block_bf16(blk: Dict[str, Tensor]) -> Dict[str, Tensor]:
     """A block's bf16 weight matrices in the order the bf16 kernel's wgmma
     reads them from shared memory (``csrc/bottleneck_stage_bf16.cu``):
     ``aw`` (Cin rounded up to 16, zeros past Cin) and each of ``bw``'s nine
-    taps as ``_pack_k``, ``cw`` and ``pw`` as ``_pack_passes``."""
+    taps as ``_pack_k``, ``cw`` and ``pw`` as ``_pack_passes``; and ``cb``,
+    the float32 bias the kernel adds after product c, with the projection's
+    ``pb`` added in."""
     cin, inner = blk["aw"].shape
     kp = -(-cin // 16) * 16
     out = {"aw": _pack_k(blk["aw"], kp),
            "bw": torch.stack([_pack_k(blk["bw"][dy, dx], inner)
                               for dy in range(3) for dx in range(3)]),
            "cw": _pack_passes(blk["cw"], inner)}
+    out["cb"] = blk["cb"]
     if "pw" in blk:
         out["pw"] = _pack_passes(blk["pw"], kp)
+        out["cb"] = blk["cb"] + blk["pb"]
     return out
 
 
 def unpack_block_bf16(packed: Dict[str, Tensor], cin: int, cout: int) -> Dict[str, Tensor]:
-    """The inverse of ``pack_block_bf16``: the weight matrices as given."""
+    """The inverse of ``pack_block_bf16`` on the weight matrices."""
     inner = packed["aw"].shape[1]
     out = {"aw": _unpack_k(packed["aw"], cin),
            "bw": torch.stack([_unpack_k(t, inner) for t in packed["bw"]]).reshape(
@@ -167,8 +171,10 @@ def bind(lib: ctypes.CDLL, entry: str = "bottleneck_block", tile: Optional[bool]
     fn = getattr(lib, entry)
     if tile is None:
         tile = entry == "bottleneck_block"
+    # the bf16 form's takes cb with pb added, and no pb
+    weights = [ctypes.c_void_p] * (8 if tile else 7)
     tile = [ctypes.c_int] * 2 if tile else []
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4 + weights
                    + [ctypes.c_int] * 3 + tile + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
@@ -218,12 +224,14 @@ def _check_packed(w: Dict[str, Tensor], cin: int, inner: int, cout: int, dev) ->
     """Raise unless ``w`` is ``pack_block_bf16`` of a block of these widths."""
     kp, passes = -(-cin // 16) * 16, -(-cout // PASS)
     shapes = {"aw": (kp // 8, inner, 8), "bw": (9, inner // 8, inner, 8),
-              "cw": (passes, inner // 8, PASS, 8), "pw": (passes, kp // 8, PASS, 8)}
+              "cw": (passes, inner // 8, PASS, 8), "pw": (passes, kp // 8, PASS, 8),
+              "cb": (cout,)}
     for key, t in w.items():
-        if (tuple(t.shape) != shapes[key] or t.dtype != torch.bfloat16 or t.device != dev
+        want = torch.float32 if key == "cb" else torch.bfloat16
+        if (tuple(t.shape) != shapes[key] or t.dtype != want or t.device != dev
                 or not t.is_contiguous() or t.data_ptr() % 16):
-            raise ValueError(f"packed {key} must be a contiguous bf16 {shapes[key]} tensor "
-                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+            raise ValueError(f"packed {key} must be a contiguous {want} {shapes[key]} "
+                             f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _launch(x: Tensor, blocks: Sequence[Dict[str, Tensor]], stride: int, counter,
@@ -253,8 +261,7 @@ def _launch(x: Tensor, blocks: Sequence[Dict[str, Tensor]], stride: int, counter
             if bf16:
                 w = packed[i] if packed is not None else pack_block_bf16(blk)
                 _check_packed(w, cin, inner, cout, x.device)
-                args = (w["aw"], blk["ab"], w["bw"], blk["bb"], w["cw"], blk["cb"],
-                        w.get("pw"), blk.get("pb"))
+                args = (w["aw"], blk["ab"], w["bw"], blk["bb"], w["cw"], w["cb"], w.get("pw"))
                 tile = ()
             else:
                 args = tuple(blk[k] for k in _KEYS) + (blk.get("pw"), blk.get("pb"))

@@ -147,3 +147,65 @@ def test_bf16_form_refuses_float32_frames():
     x = torch.zeros((1, 4, 4, 80))
     with pytest.raises(ValueError):
         tbk.fused_stage_bf16(x, [_block(80, 64, 256, True, torch.bfloat16)])
+
+
+@pytest.mark.parametrize("cin,inner,cout,proj", [
+    (80, 64, 256, True),    # s2 slow, block 0: no padding
+    (256, 64, 256, False),  # s2 slow, blocks 1 and 2
+    (88, 32, 64, True),     # Cin padded to 96, Cout to one pass of 256
+    (96, 64, 544, True),    # three passes of 256 output columns
+])
+def test_bf16_pack_is_a_permutation_and_round_trips(cin, inner, cout, proj):
+    blk = _block(cin, inner, cout, proj, torch.bfloat16)
+    packed = tbk.pack_block_bf16(blk)
+    back = tbk.unpack_block_bf16(packed, cin, cout)
+    assert set(back) == {k for k in blk if k.endswith("w")}
+    for key, mat in back.items():
+        assert mat.dtype == torch.bfloat16 and torch.equal(mat, blk[key])
+        # the pack holds each value once, and zeros for the padding
+        pad = packed[key].numel() - blk[key].numel()
+        want = torch.cat([blk[key].flatten(), torch.zeros(pad, dtype=torch.bfloat16)])
+        assert torch.equal(packed[key].flatten().float().sort().values,
+                           want.float().sort().values)
+    # element (k, n) of a K-major plane sits at [k // 8, n, k % 8]
+    kp = -(-cin // 16) * 16
+    assert packed["aw"].shape == (kp // 8, inner, 8)
+    k, n = cin - 1, inner - 3
+    assert packed["aw"][k // 8, n, k % 8] == blk["aw"][k, n]
+    tap, k, n = 5, 9, inner - 1
+    assert packed["bw"][tap, k // 8, n, k % 8] == blk["bw"][tap // 3, tap % 3, k, n]
+    k, n = inner - 1, cout - 1
+    assert packed["cw"][n // tbk.PASS, k // 8, n % tbk.PASS, k % 8] == blk["cw"][k, n]
+    # cb carries the projection's bias, added in float32
+    want_cb = blk["cb"] + blk["pb"] if proj else blk["cb"]
+    assert packed["cb"].dtype == torch.float32 and torch.equal(packed["cb"], want_cb)
+
+
+def test_bf16_pack_is_cached_with_the_folded_weights_and_dropped_with_them():
+    from acav100m_torch.models import slowfast as tsf
+
+    torch.manual_seed(0)
+    model = tsf.LayerSlowFast(pallas_stages=True).eval()
+    stage, bf16 = model.s2, torch.bfloat16
+    packed = stage._packed(bf16)
+    assert stage._packed(bf16) is packed
+    assert ("packed", bf16) in stage._folded_cache and bf16 in stage._folded_cache
+    for got, blk in zip(packed, stage._folded(bf16)):
+        want = tbk.pack_block_bf16(blk)
+        assert set(got) == set(want)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+
+    def repacked_after(change):
+        change()
+        assert stage._folded_cache is None
+        fresh = stage._packed(bf16)
+        assert fresh is not packed
+        return fresh
+
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    sd["s2.pathway0_res0.branch2.a.weight"] *= 2
+    fresh = repacked_after(lambda: model.load_state_dict(sd))
+    assert not torch.equal(fresh[0]["aw"], packed[0]["aw"])
+    packed = fresh
+    packed = repacked_after(lambda: model.train().eval())
+    packed = repacked_after(lambda: model.to(torch.float32))
