@@ -21,20 +21,28 @@
 //     each one chunk of KX input channels of the tile's input region (the
 //     tile's pixels plus a 1-pixel halo) by TMA, with zeros outside the
 //     frame and past Cin. Every stage is completed on an mbarrier (full)
-//     and handed back on another (empty): no per-step __syncthreads.
+//     and handed back on another (empty): no per-step __syncthreads. Where
+//     a tile has more chunks than the ring has stages, a's buffer (idle
+//     from product c's end to product a's) takes the first one past the
+//     ring, on its own pair of mbarriers.
 //   * two consumer warpgroups that run the three products on wgmma
 //     (m64nNk16, bf16 in, f32 sums, A and B from shared memory by
-//     descriptor), each owning half of every product's output columns:
+//     descriptor), every sum starting from its bias:
 //       1. a on the region's rows (M = the region padded to 64), K = Cin
-//          chunk by chunk from the ring; zero outside the frame, which is
-//          the 3x3's 'same' padding;
+//          chunk by chunk from the ring, half of a's columns each; zero
+//          outside the frame, which is the 3x3's 'same' padding;
 //       2. b on the tile as an implicit GEMM over the 9 taps of bw: tap
 //          (dy, dx) reads a at each pixel's region row shifted by the tap;
 //       3. y = b . cw (+ x[::s, ::s] . pw, whose x comes through the ring
 //          again, read at the tile's pixels) in passes of 256 columns, then
-//          the biases, the shortcut and ReLU in f32, rounded to bf16.
-//     a and b live in shared memory in bf16 (b over a); four named
-//     barriers of the two consumer warpgroups a tile order them.
+//          the shortcut and ReLU in f32, rounded to bf16. The identity
+//          shortcut is read from the ring's stages during product a.
+//     At stride 1 the warpgroups split b and c by the tile's two 64-pixel
+//     row tiles (wgmma n64 and n256), at stride 2 by columns. a and b live
+//     in shared memory in bf16 (b over a); four named barriers of the two
+//     consumer warpgroups a tile order them. Product c's epilogue swaps
+//     accumulator pairs within each quad of lanes, so every lane stores 16
+//     bytes of 8 consecutive channels.
 // Weights that do not fit beside the ring (pw when Cin is large, aw when it
 // is larger still) stream through the ring's stages with x instead.
 //
@@ -57,7 +65,9 @@
 // 21 + 67 = 88 MB, 0.026 ms at 3.35 TB/s. One launch per block moves the
 // two block outputs between blocks through device memory, another 0.27 GB
 // (0.08 ms), and product a recomputes the halo (180 region pixels for
-// 128 output pixels at stride 1).
+// 128 output pixels at stride 1). With the products on wgmma the kernel is
+// held back by memory: x's loads in product a and the output's stores in
+// product c's epilogue are not overlapped with the products.
 //
 // Plain C interface for ctypes; the launcher allocates nothing and returns
 // cudaGetLastError().
@@ -71,7 +81,7 @@ typedef uint16_t bf16_t;   // bf16 bits; arithmetic is in f32
 
 #define NCONS 256          // consumer threads: two warpgroups
 #define NT 384             // and one producer warpgroup
-#define PASS 256           // output columns of product c a pass (128 a warpgroup)
+#define PASS 256           // output columns of product c a pass
 
 extern __shared__ __align__(128) unsigned char smem[];
 
@@ -317,6 +327,7 @@ struct Params {
   bf16_t* out;
   int Ho, Wo, tiles_x, tiles_y, tiles;
   int KX, NS, aw_res, pw_res;          // ring: KX channels a stage, NS stages
+  int a_chunk;                         // product a's chunk that lands in a's buffer, or -1
   uint32_t off_bw, off_cw, off_aw, off_pw, off_a, off_stage, stage_bytes, stage_w;
 };
 
@@ -334,6 +345,8 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_bf16_kernel(
   const int tid = threadIdx.x, wg = tid / 128;
   const uint32_t base = saddr(smem);
   const uint32_t full0 = base, empty0 = base + 16, wbar = base + 32;  // mbarriers
+  // a's buffer, idle from product c to product a's end, as one more stage
+  const uint32_t afull = base + 40, aempty = base + 48;
   const int tiles_frame = p.tiles_y * p.tiles_x;
   if (tid == 0) {
     for (int s = 0; s < p.NS; ++s) {
@@ -341,6 +354,8 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_bf16_kernel(
       mbar_init(empty0 + 8 * s, NCONS);
     }
     mbar_init(wbar, 1);
+    mbar_init(afull, 1);
+    mbar_init(aempty, NCONS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -361,10 +376,17 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_bf16_kernel(
     uint32_t ph = 0;
     // one stage: channels [k0, k0 + rows) of the region at output origin
     // (oy0, ox0) of frame, and a weight chunk that streams with it
-    auto chunk = [&](int frame, int oy0, int ox0, int k0, const bf16_t* w, uint32_t wrow) {
-      mbar_wait(empty0 + 8 * st, ph ^ 1);
+    // (or, with in_a, into a's buffer once product c of the tile before is
+    // done with it: i counts this CTA's tiles)
+    auto chunk = [&](int frame, int oy0, int ox0, int k0, const bf16_t* w, uint32_t wrow,
+                     bool in_a = false, int i = 0) {
+      if (in_a)
+        mbar_wait(aempty, (i & 1) ^ 1);
+      else
+        mbar_wait(empty0 + 8 * st, ph ^ 1);
       const int rows = min(p.KX, p.Kp - k0);
-      const uint32_t bar = full0 + 8 * st, dst = base + p.off_stage + st * p.stage_bytes;
+      const uint32_t bar = in_a ? afull : full0 + 8 * st;
+      const uint32_t dst = in_a ? base + p.off_a : base + p.off_stage + st * p.stage_bytes;
       const uint32_t wbytes = w != nullptr ? rows * wrow * 2 : 0;
       mbar_expect_tx(bar, (rows / 8) * G::NA * 16 + wbytes);
       for (int j = 0; j < rows / 8; ++j) {
@@ -374,13 +396,13 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_bf16_kernel(
           tma_5d(dst + j * G::NAM * 16, &xmap, k0 + 8 * j, ox0 - 1, 0, 2 * oy0 - 1, frame, bar);
       }
       if (w != nullptr) bulk_copy(dst + p.stage_w, w + (size_t)k0 * wrow, wbytes, bar);
-      if (++st == p.NS) { st = 0; ph ^= 1; }
+      if (!in_a && ++st == p.NS) { st = 0; ph ^= 1; }
     };
-    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    for (int t = blockIdx.x, i = 0; t < p.tiles; t += gridDim.x, ++i) {
       const int frame = t / tiles_frame, r = t % tiles_frame;
       const int oy0 = (r / p.tiles_x) * G::TH, ox0 = (r % p.tiles_x) * G::TW;
-      for (int k0 = 0; k0 < p.Kp; k0 += p.KX)
-        chunk(frame, oy0, ox0, k0, p.aw_res ? nullptr : p.aw, CI);
+      for (int k0 = 0, c = 0; k0 < p.Kp; k0 += p.KX, ++c)
+        chunk(frame, oy0, ox0, k0, p.aw_res ? nullptr : p.aw, CI, c == p.a_chunk, i);
       if (p.pw != nullptr)
         for (int q = 0; q < p.P; ++q)
           for (int k0 = 0; k0 < p.Kp; k0 += p.KX)
@@ -402,7 +424,7 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_bf16_kernel(
   auto next_stage = [&]() { if (++st == p.NS) { st = 0; ph ^= 1; } };
   mbar_wait(wbar, 0);
 
-  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+  for (int t = blockIdx.x, i = 0; t < p.tiles; t += gridDim.x, ++i) {
     const int frame = t / tiles_frame, r = t % tiles_frame;
     const int oy0 = (r / p.tiles_x) * G::TH, ox0 = (r % p.tiles_x) * G::TW;
     const bf16_t* xn = xn0 + (size_t)frame * p.H * p.W * p.Cin;
@@ -430,10 +452,11 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_bf16_kernel(
           acc_a[m][4 * k + 2 * h + 1] = bias.y;
         }
     }
-    for (int k0 = 0; k0 < p.Kp; k0 += p.KX) {
+    for (int k0 = 0, c = 0; k0 < p.Kp; k0 += p.KX, ++c) {
       const int rows = min(p.KX, p.Kp - k0);
-      const uint32_t stage = base + p.off_stage + st * p.stage_bytes;
-      mbar_wait(full0 + 8 * st, ph);
+      const bool in_a = c == p.a_chunk;
+      const uint32_t off = in_a ? p.off_a : p.off_stage + st * p.stage_bytes, stage = base + off;
+      mbar_wait(in_a ? afull : full0 + 8 * st, in_a ? i & 1 : ph);
       wgmma_fence();
       for (int ks = 0; ks < rows / 16; ++ks) {
         const uint64_t db = p.aw_res
@@ -448,7 +471,7 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_bf16_kernel(
       wgmma_wait_all();
       if constexpr (S == 1) {
         if (p.pw == nullptr) {
-          const unsigned char* stage_p = smem + p.off_stage + st * p.stage_bytes;
+          const unsigned char* stage_p = smem + off;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int q = mrow * 64 + warp * 16 + 8 * h + g;
@@ -463,8 +486,10 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_bf16_kernel(
           }
         }
       }
-      mbar_arrive(empty0 + 8 * st);
-      next_stage();
+      if (!in_a) {
+        mbar_arrive(empty0 + 8 * st);
+        next_stage();
+      }
     }
     consumers_sync();  // the last tile's product c is done with b, which lies over a
 #pragma unroll
@@ -591,6 +616,8 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_bf16_kernel(
         }
       }
       wgmma_wait_all();
+      // product c is done with b: a's buffer may take the next tile's x
+      if (pass == p.P - 1 && p.a_chunk >= 0) mbar_arrive(aempty);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int q = mrow * 64 + warp * 16 + 8 * h + g;
@@ -705,6 +732,9 @@ static size_t plan_smem(Params* p, bool proj, size_t limit) {
       p->off_stage = p->off_pw + (pw_res ? pw_b : 0);
       p->stage_bytes = stage;
       p->stage_w = (ring[0] / 8) * 16 * G::NAM;
+      // a's buffer takes the first chunk past the ring where it holds one
+      const int chunks = (p->Kp + ring[0] - 1) / ring[0];
+      p->a_chunk = aw_res && CI >= ring[0] && chunks > ring[1] ? ring[1] : -1;
       return total;
     }
   }

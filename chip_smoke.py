@@ -108,7 +108,12 @@ from acav100m_torch.models import init_weights, zoo
 from acav100m_torch.models.slowfast import LayerSlowFast, ResBlock
 from acav100m_torch.models.vggish import LayerVggish
 from acav100m_torch.ops import cuda_build
-from acav100m_torch.ops.bottleneck_kernel import fused_stage, fused_stage_bf16, fused_stage_ref
+from acav100m_torch.ops.bottleneck_kernel import (
+    fused_stage,
+    fused_stage_bf16,
+    fused_stage_ref,
+    pack_block_bf16,
+)
 from acav100m_torch.ops.kmeans_kernel import (
     discounted_distances,
     fused_assign_update,
@@ -322,9 +327,10 @@ def check_k2_bf16(gen: torch.Generator) -> dict:
         blocks = random_blocks(cin, stride, gen)
         with torch.no_grad():
             folded = to_bf16([blk.folded() for blk in blocks])
+            packed = [pack_block_bf16(blk) for blk in folded]  # as the model caches them
             x = torch.randn((n, hw, hw, cin), generator=gen).cuda().to(torch.bfloat16)
-            out = fused_stage_bf16(x, folded, stride)
-            again = fused_stage_bf16(x, folded, stride)
+            out = fused_stage_bf16(x, folded, stride, packed)
+            again = fused_stage_bf16(x, folded, stride, packed)
             torch.cuda.synchronize()
             ref = fused_stage_ref(x, folded, stride)
             # the float32 form on the same values, widened
@@ -355,7 +361,7 @@ def check_k2_bf16(gen: torch.Generator) -> dict:
             check(err_f32 <= 3e-2, f"K2-bf16 vs float32 K2 at {hw}x{hw} stride {stride}")
             check(err_can <= 5e-2, f"K2-bf16 vs canonical bf16 stage at {hw}x{hw}")
             if stride == 1:
-                ms = time_ms(lambda: fused_stage_bf16(x, folded, stride))
+                ms = time_ms(lambda: fused_stage_bf16(x, folded, stride, packed))
                 plain = time_ms(lambda: fused_stage_ref(x, folded, stride))
                 library = time_ms(canonical)
                 px = n * hw * hw
@@ -365,12 +371,16 @@ def check_k2_bf16(gen: torch.Generator) -> dict:
                           + sum(v.numel() * v.element_size()
                                 for blk in folded for v in blk.values()))
                 bound_ms, bound_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+                # one launch a block writes and reads back each inner block output
+                between = 2 * 2 * out.numel() * (len(folded) - 1)
+                floor_ms = (nbytes + between) / HBM_BYTES_PER_S * 1e3
                 result = dict(max_abs_err=float(diff.max()), ms=ms, plain_ms=plain,
                               bound_ms=bound_ms, bound_by=bound_by, library_ms=library)
                 log(f"K2-bf16 s2_slow at {n} frames (4 clips) 64x64, 80->256: {ms:.4f} ms, "
                     f"plain {plain:.4f} ms, canonical cuDNN stage in bf16 {library:.4f} ms, "
                     f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, "
-                    f"{nbytes / 1e6:.1f} MB)")
+                    f"{nbytes / 1e6:.1f} MB); bytes floor of one launch a block "
+                    f"{floor_ms:.4f} ms ({(nbytes + between) / 1e9:.3f} GB)")
     return result
 
 
