@@ -106,10 +106,6 @@ def _pack_k(w: Tensor, kp: int) -> Tensor:
     return w.reshape(kp // 8, 8, n).transpose(1, 2).contiguous()
 
 
-def _unpack_k(p: Tensor, k: int) -> Tensor:
-    return p.transpose(1, 2).reshape(-1, p.shape[1])[:k]
-
-
 def _pack_passes(w: Tensor, kp: int) -> Tensor:
     """(K, Cout) -> (P, kp/8, 256, 8): ``_pack_k`` of each pass of 256
     output columns, columns past Cout zero."""
@@ -117,10 +113,6 @@ def _pack_passes(w: Tensor, kp: int) -> Tensor:
     passes = -(-cout // PASS)
     w = F.pad(w, (0, passes * PASS - cout, 0, kp - k))
     return torch.stack([_pack_k(w[:, i * PASS:(i + 1) * PASS], kp) for i in range(passes)])
-
-
-def _unpack_passes(p: Tensor, k: int, cout: int) -> Tensor:
-    return torch.cat([_unpack_k(q, k) for q in p], dim=1)[:, :cout]
 
 
 def pack_block_bf16(blk: Dict[str, Tensor]) -> Dict[str, Tensor]:
@@ -140,18 +132,6 @@ def pack_block_bf16(blk: Dict[str, Tensor]) -> Dict[str, Tensor]:
     if "pw" in blk:
         out["pw"] = _pack_passes(blk["pw"], kp)
         out["cb"] = blk["cb"] + blk["pb"]
-    return out
-
-
-def unpack_block_bf16(packed: Dict[str, Tensor], cin: int, cout: int) -> Dict[str, Tensor]:
-    """The inverse of ``pack_block_bf16`` on the weight matrices."""
-    inner = packed["aw"].shape[1]
-    out = {"aw": _unpack_k(packed["aw"], cin),
-           "bw": torch.stack([_unpack_k(t, inner) for t in packed["bw"]]).reshape(
-               3, 3, inner, inner),
-           "cw": _unpack_passes(packed["cw"], inner, cout)}
-    if "pw" in packed:
-        out["pw"] = _unpack_passes(packed["pw"], cin, cout)
     return out
 
 

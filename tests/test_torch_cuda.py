@@ -139,6 +139,7 @@ def test_k2_matches_plain(card, n, hw, stride, cin, big):
     (3, 13, 1, 256, False),   # identity shortcut in block 0, ragged edges
     (33, 64, 1, 80, True),    # 1056 tiles: not a multiple of the persistent grid
     (2, 24, 1, 256, True),    # Cin 256 with the projection in block 0 (pw streams)
+    (2, 16, 1, 1024, True),   # Cin 1024 with the projection: aw streams too
 ])
 def test_k2_bf16_matches_plain(card, n, hw, stride, cin, proj):
     gen = torch.Generator().manual_seed(hw + stride)

@@ -149,6 +149,27 @@ def test_bf16_form_refuses_float32_frames():
         tbk.fused_stage_bf16(x, [_block(80, 64, 256, True, torch.bfloat16)])
 
 
+def _unpack_k(p, k):
+    """The inverse of ``bottleneck_kernel._pack_k``: (kp/8, N, 8) -> (k, N)."""
+    return p.transpose(1, 2).reshape(-1, p.shape[1])[:k]
+
+
+def _unpack_block_bf16(packed, cin, cout):
+    """The inverse of ``pack_block_bf16`` on the weight matrices."""
+    inner = packed["aw"].shape[1]
+
+    def passes(p, k):
+        return torch.cat([_unpack_k(q, k) for q in p], dim=1)[:, :cout]
+
+    out = {"aw": _unpack_k(packed["aw"], cin),
+           "bw": torch.stack([_unpack_k(t, inner) for t in packed["bw"]]).reshape(
+               3, 3, inner, inner),
+           "cw": passes(packed["cw"], inner)}
+    if "pw" in packed:
+        out["pw"] = passes(packed["pw"], cin)
+    return out
+
+
 @pytest.mark.parametrize("cin,inner,cout,proj", [
     (80, 64, 256, True),    # s2 slow, block 0: no padding
     (256, 64, 256, False),  # s2 slow, blocks 1 and 2
@@ -158,7 +179,7 @@ def test_bf16_form_refuses_float32_frames():
 def test_bf16_pack_is_a_permutation_and_round_trips(cin, inner, cout, proj):
     blk = _block(cin, inner, cout, proj, torch.bfloat16)
     packed = tbk.pack_block_bf16(blk)
-    back = tbk.unpack_block_bf16(packed, cin, cout)
+    back = _unpack_block_bf16(packed, cin, cout)
     assert set(back) == {k for k in blk if k.endswith("w")}
     for key, mat in back.items():
         assert mat.dtype == torch.bfloat16 and torch.equal(mat, blk[key])
