@@ -23,7 +23,9 @@ form, ``wgmma`` bf16 for the bf16 form, and ``mma.sync`` bf16) is measured.
 
 also builds OLD.cu, the bf16 form of an earlier checkout whose launcher
 takes raw weights and the output tile, and times it beside this one in
-turns (parent, this, this, parent).
+turns (parent, this, this, parent); ``--timeline`` prints only the bf16
+kernel's time by phase of a tile, from %globaltimer stamps
+(``TIMELINE_BF16``).
 """
 
 from __future__ import annotations
@@ -122,6 +124,64 @@ VARIANTS_BF16 = {
                     ("wgmma<NB>(acc_b", "if (false) wgmma<NB>(acc_b"),
                     ("wgmma<NC>(acc_c", "if (false) wgmma<NC>(acc_c")],
 }
+
+
+# ``--timeline``: the bf16 kernel with a %globaltimer stamp taken by each
+# CTA's first consumer thread at the boundaries of a tile's phases, for the
+# CTA's first 8 tiles, read back through read_timeline(). Stamp k ends
+# phase k - 1.
+TIMELINE_PHASES = ("product a", "epilogue a", "product b", "epilogue b", "product c",
+                   "wait for c", "epilogue c")
+_DECL = "extern __shared__ __align__(128) unsigned char smem[];\n"
+_LOOP = ("  for (int t = blockIdx.x, i = 0; t < p.tiles; t += gridDim.x, ++i) {\n"
+         "    const int frame = t / tiles_frame, r = t % tiles_frame;\n"
+         "    const int oy0 = (r / p.tiles_x) * G::TH, ox0 = (r % p.tiles_x) * G::TW;\n"
+         "    const bf16_t* xn")
+TIMELINE_BF16 = [
+    (_DECL, _DECL + "__device__ unsigned long long g_tl[256 * 8 * 8];\n"
+     "#define STAMP(k) if (threadIdx.x == 0 && blockIdx.x < 256 && i < 8) { "
+     "unsigned long long v_; asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(v_)); "
+     "g_tl[(blockIdx.x * 8 + i) * 8 + (k)] = v_; }\n"),
+    (_LOOP, _LOOP.replace("{\n", "{\n    STAMP(0)\n", 1)),
+    ("    consumers_sync();  // the last tile's",
+     "    STAMP(1)\n    consumers_sync();  // the last tile's"),
+    ("    consumers_sync();  // a is whole\n", "    consumers_sync();  // a is whole\n    STAMP(2)\n"),
+    ("    consumers_sync();  // every warpgroup",
+     "    STAMP(3)\n    consumers_sync();  // every warpgroup"),
+    ("    consumers_sync();  // b is whole\n", "    consumers_sync();  // b is whole\n    STAMP(4)\n"),
+    ("      wgmma_wait_all();\n      // product c is done with b",
+     "      STAMP(5)\n      wgmma_wait_all();\n      STAMP(6)\n      // product c is done with b"),
+    ("\n    }\n  }\n}\n\n// ---- the launcher", "\n    }\n    STAMP(7)\n  }\n}\n\n// ---- the launcher"),
+    ('extern "C" int bottleneck_block_bf16(',
+     'extern "C" int read_timeline(void* dst) {\n'
+     '  return (int)cudaMemcpyFromSymbol(dst, g_tl, sizeof(g_tl));\n}\n\n'
+     'extern "C" int bottleneck_block_bf16('),
+]
+
+
+def timeline(x, blocks, packed, outs, stream) -> None:
+    """Build the bf16 kernel with TIMELINE_BF16 and print the mean time of
+    each phase of a tile, for block 0 alone and for the stage's last
+    block, over every CTA's first 8 tiles."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    src, lib = OUT / "bf16_timeline.cu", OUT / "bf16_timeline.so"
+    src.write_text(variant_source(TIMELINE_BF16, SRC_BF16))
+    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                   check=True, capture_output=True)
+    dll = ctypes.CDLL(str(lib))
+    fn = bind(dll, "bottleneck_block_bf16")
+    for count in (1, len(blocks)):
+        for _ in range(3):
+            run_stage(fn, x, blocks[:count], outs[:count], stream, packed[:count])
+        torch.cuda.synchronize()
+        stamps = torch.zeros(256 * 8 * 8, dtype=torch.int64)
+        cuda_build.check(dll.read_timeline(ctypes.c_void_p(stamps.data_ptr())), "read_timeline")
+        tiles = stamps.view(256, 8, 8)
+        tiles = tiles[tiles[:, :, 7] > 0].double()  # tiles that ran to their end
+        mean = (tiles[:, 1:] - tiles[:, :-1]).mean(0)
+        print(f"bf16 timeline, block {count - 1} ({len(tiles)} tiles, ns a tile): "
+              + ", ".join(f"{name} {ns:.0f}" for name, ns in zip(TIMELINE_PHASES, mean.tolist()))
+              + f"; tile {float(mean.sum()):.0f}")
 
 
 # The card's own rate for the instruction each form issues: mma.sync
@@ -308,22 +368,9 @@ def sass_histogram(lib: Path, top: int = 24) -> str:
     return ", ".join(f"{op} {n}" for op, n in ops.most_common(top))
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--parent", type=Path, default=None,
-                        help="a bf16 kernel source of an earlier checkout (launcher "
-                             "bottleneck_block_bf16 taking raw weights and the tile), "
-                             "timed beside this one in turns: parent, this, this, parent")
-    args = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("ablate_k2: no CUDA device", file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(card())
-    built = build_all(args.parent)
+def stage_inputs(dev):
+    """Seeded float32 weights and frames at the main path's shape."""
     gen = torch.Generator().manual_seed(0)
-    dev = torch.device("cuda")
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
@@ -339,8 +386,35 @@ def main(argv=None) -> int:
         if i == 0:
             blk.update(pw=rnd(c_in, cout, scale=c_in ** -0.5), pb=rnd(cout, scale=0.1))
         blocks.append(blk)
-    x = rnd(n, hw, hw, cin)
+    return rnd(n, hw, hw, cin), blocks
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", type=Path, default=None,
+                        help="a bf16 kernel source of an earlier checkout (launcher "
+                             "bottleneck_block_bf16 taking raw weights and the tile), "
+                             "timed beside this one in turns: parent, this, this, parent")
+    parser.add_argument("--timeline", action="store_true",
+                        help="only the bf16 kernel's time by phase of a tile")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("ablate_k2: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card())
+    dev = torch.device("cuda")
+    x, blocks = stage_inputs(dev)
+    n, hw, _, cout = x.shape[0], x.shape[1], x.shape[3], blocks[0]["cw"].shape[1]
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if args.timeline:
+        bf = [{k: v.to(torch.bfloat16) if v.dim() > 1 else v for k, v in blk.items()}
+              for blk in blocks]
+        outs = [torch.empty((n, hw, hw, cout), device=dev, dtype=torch.bfloat16) for _ in bf]
+        timeline(x.to(torch.bfloat16), bf, [pack_block_bf16(blk) for blk in bf], outs, stream)
+        return 0
+    built = build_all(args.parent)
     for form, (_, _, entry, dtype) in FORMS.items():
         xf = x.to(dtype)
         bf = [{k: v.to(dtype) if v.dim() > 1 else v for k, v in blk.items()}

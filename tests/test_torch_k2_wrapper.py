@@ -72,6 +72,14 @@ def test_bf16_ablation_variant_applies_to_the_bf16_source(name):
     assert 'extern "C" int bottleneck_block_bf16(' in src
 
 
+def test_bf16_timeline_stamps_every_phase_of_the_bf16_source():
+    src = ablate_k2.variant_source(ablate_k2.TIMELINE_BF16, ablate_k2.SRC_BF16)
+    for k in range(len(ablate_k2.TIMELINE_PHASES) + 1):
+        assert src.count(f"STAMP({k})") == 1
+    assert 'extern "C" int read_timeline(' in src
+    assert 'extern "C" int bottleneck_block_bf16(' in src
+
+
 @pytest.mark.parametrize("cin,inner,cout,proj", [
     (80, 64, 256, True),    # s2 slow, block 0
     (256, 64, 256, False),  # s2 slow, blocks 1 and 2
