@@ -658,7 +658,7 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// cuTensorMapEncodeTiled looked up by cudaGetDriverEntryPoint, so the
 // library needs no -lcuda
 static EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;

@@ -163,6 +163,40 @@ def test_k2_bf16_matches_plain(card, n, hw, stride, cin, proj):
     assert diff.mean() <= 1e-3 * scale
 
 
+@pytest.mark.parametrize("n,hw,stride,cin,inner,cout", [
+    (2, 16, 1, 80, 32, 256),    # 32 inner channels
+    (3, 10, 2, 88, 32, 64),     # 32 inner channels at stride 2, Cin padded to 96
+    (2, 12, 1, 512, 64, 512),   # two passes of product c, the identity shortcut
+    (2, 8, 1, 96, 64, 768),     # three passes with the projection
+])
+def test_k2_bf16_other_widths_match_plain(card, n, hw, stride, cin, inner, cout):
+    gen = torch.Generator().manual_seed(cin + inner + cout)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(card)
+
+    blocks = []
+    for i in range(2):
+        c_in = cin if i == 0 else cout
+        blk = {"aw": rnd(c_in, inner, scale=c_in ** -0.5), "ab": rnd(inner, scale=0.1),
+               "bw": rnd(3, 3, inner, inner, scale=(9 * inner) ** -0.5),
+               "bb": rnd(inner, scale=0.1), "cw": rnd(inner, cout, scale=inner ** -0.5),
+               "cb": rnd(cout, scale=0.1)}
+        if i == 0 and (cin != cout or stride != 1):
+            blk.update(pw=rnd(c_in, cout, scale=c_in ** -0.5), pb=rnd(cout, scale=0.1))
+        blocks.append({k: v.to(torch.bfloat16) if v.dim() > 1 else v for k, v in blk.items()})
+    x = rnd(n, hw, hw, cin).to(torch.bfloat16)
+    before = fused_stage_bf16.launches
+    out = fused_stage_bf16(x, blocks, stride)
+    again = fused_stage_bf16(x, blocks, stride)
+    assert fused_stage_bf16.launches == before + 4
+    ref = fused_stage_ref(x, blocks, stride)
+    assert out.shape == ref.shape and torch.equal(out, again)
+    diff, scale = (out.float() - ref.float()).abs(), ref.float().abs().max()
+    assert diff.max() <= 1.6e-2 * scale
+    assert diff.mean() <= 1e-3 * scale
+
+
 def test_k2_bf16_refuses_what_it_cannot_take(card):
     gen = torch.Generator().manual_seed(0)
 
