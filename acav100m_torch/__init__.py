@@ -23,6 +23,10 @@ models      SlowFast 8x8 R50 and VGGish with PySlowFast/torchvggish names;
             flax npz format (the ``convert`` verb)
 pipeline    stage drivers: extract (4), cluster (5), select (6, with chunk
             mode and every measure), and contrastive selection
+retrieval   correspondence retrieval: paired views with a known matched
+            set, clustering (sgd k-means on kernel K1), greedy selection,
+            a ResNet-50 tap extractor, the option grid (the ``retrieval``
+            verb)
 """
 
 __version__ = "0.1.0"

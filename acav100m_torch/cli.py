@@ -10,6 +10,8 @@ positional arguments and dotted-key overrides:
     python -m acav100m_torch select data.path=... data.output.path=...
     python -m acav100m_torch reduce out.csv cache1.csv [cache2.csv ...]
     python -m acav100m_torch convert {slowfast,vggish} in_path out_path [--format ...]
+    python -m acav100m_torch retrieval [--dataset gaussian|resnet_pairs|mnist_sound]
+        [--grid grid.json] [--out_path ...] [key=value ...]
 
 ``filter``, ``download`` and ``segment`` are stages 1-3, host work with the
 JAX package's arguments and defaults (``download --source_dir`` copies
@@ -17,7 +19,10 @@ local files; without it youtube-dl or yt-dlp fetches, where installed).
 ``reduce`` appends the chunk caches that ``select chunk_size=N`` writes
 (``caches/cache_*``) to ``out.csv``, in sorted order. Stages 4-6 run on
 ``computation.device`` (default ``cuda``; pass
-``computation.device=cpu`` to run on the CPU).
+``computation.device=cpu`` to run on the CPU). ``retrieval`` runs a
+correspondence-retrieval experiment (or, with ``--grid``, a grid of them)
+and prints its precision, recall and F1; its ``key=value`` overrides are
+``run_experiment``'s keywords, ``device`` among them (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -95,6 +100,70 @@ def cmd_reduce(args):
 
     count = merge_csvs(args.caches, args.out_path)
     print(f"merged {count} lines into {args.out_path}")
+
+
+def cmd_retrieval(args):
+    """The JAX package's ``retrieval`` verb. Beyond its overrides:
+    ``layers`` (the ResNet taps of ``--dataset resnet_pairs``, default
+    [2, 3]) and ``num_workers`` (the ``--grid`` pool's size)."""
+    from .retrieval.runner import run_experiment
+
+    kwargs = {}
+    for key, val in _overrides(args.overrides).items():
+        if isinstance(val, str):  # literal coercion: 0.5 -> float, 3 -> int
+            try:
+                val = json.loads(val)
+            except (ValueError, TypeError):
+                pass
+        kwargs[key] = val
+    if args.dataset != "gaussian":
+        # real-data protocols (reference image_pair_data.py): synthetic
+        # digits stand in for MNIST/CIFAR/FSDD, which are not downloaded;
+        # loaders accept any (N,H,W[,3]) arrays
+        from .retrieval import features as rf
+
+        nclasses = int(kwargs.pop("nclasses", 6))
+        images, labels = rf.synthetic_digits(
+            nclasses=nclasses,
+            per_class=int(kwargs.pop("per_class", 12)),
+        )
+        device = kwargs.get("device")
+        if args.dataset == "resnet_pairs":
+            views = rf.resnet_pair_views(
+                images, labels, transform=kwargs.pop("transform", "rotate"),
+                layers=tuple(kwargs.pop("layers", (2, 3))), device=device)
+        else:
+            views = rf.mnist_sound_pair_views(images, labels, device=device)
+            kwargs.setdefault("pairing", "bipartite")
+        kwargs["views"] = views
+        kwargs.setdefault("ncentroids", nclasses)
+        kwargs.setdefault("clustering_method", "sklearn")
+    if args.grid:
+        # option-grid mode (reference grid_search.py over
+        # search_targets/**/*.json); results pickled per config
+        from .retrieval.runner import grid_search, load_option_grid
+
+        num_workers = kwargs.pop("num_workers", None)
+        jobs = load_option_grid(args.grid)
+        for job in jobs:
+            for k, v in kwargs.items():
+                if k != "views":
+                    job.setdefault(k, v)
+        results = grid_search(
+            job_kwargs=jobs, out_dir=args.out_path,
+            views=kwargs.get("views"), num_workers=num_workers,
+        )
+        for res in results:
+            print(
+                f"{res['config']}: precision={res['precision']:.4f} "
+                f"recall={res['recall']:.4f} f1={res['f1']:.4f}"
+            )
+        return
+    res = run_experiment(out_path=args.out_path, **kwargs)
+    print(
+        f"precision={res['precision']:.4f} recall={res['recall']:.4f} "
+        f"f1={res['f1']:.4f}"
+    )
 
 
 def cmd_convert(args):
@@ -178,9 +247,17 @@ def main(argv=None):
         ("extract", cmd_extract, "stage 4: feature extraction"),
         ("cluster", cmd_cluster, "stage 5: k-means clustering"),
         ("select", cmd_select, "stage 6: MI subset selection"),
+        ("retrieval", cmd_retrieval, "correspondence-retrieval experiment"),
     ):
         p = sub.add_parser(verb, help=help_)
         p.add_argument("overrides", nargs="*", help="dotted key=value overrides")
+        if verb == "retrieval":
+            p.add_argument("--out_path", default=None)
+            p.add_argument("--dataset", default="gaussian",
+                           choices=["gaussian", "resnet_pairs", "mnist_sound"])
+            p.add_argument("--grid", default=None,
+                           help="option-grid json (reference "
+                                "search_targets format or {kwarg: [values]})")
         p.set_defaults(fn=fn)
 
     p = sub.add_parser("reduce", help="merge chunk cache csvs")

@@ -73,7 +73,18 @@ Phases, each printing its own lines:
    and ``bundle_shards``, then ``extract`` (``data.decoder=opencv``, int8),
    ``cluster`` and ``select``, with the row counts checked at each stage.
    Stage 1 is host text work whose ``nltk`` this machine lacks: the CPU
-   tests hold it.
+   tests hold it;
+9. path G, correspondence retrieval (``retrieval`` through the port's
+   CLI): G0 K1 at the retrieval shapes (M=1, K=10, B 64 and 52, D 16,
+   1024, 2048, and 8 with a real width of 6) against its plain version and
+   timed; G1 gaussian views with sgd k-means (K1) and greedy MI on the card,
+   its picks equal to the same run on the CPU; G2 ResNet-50 at full width
+   on the digits stand-in (10 classes x 50, 32x32): its four taps card
+   against CPU (TF32 off), ``--dataset resnet_pairs`` with sgd (K1 at D 1024
+   and 2048) and with scipy's k-means, whose F1 must beat the constant
+   measure's; G3 ``--dataset mnist_sound`` (log-mel on the card) likewise;
+   G4 a 2-job ``--grid`` inline and on two spawned workers sharing the
+   card, with the same results.
 
 Then one JSON line of per-kernel results and, last, the device JSON line.
 Any failed check raises, so the script exits non-zero. Without a CUDA
@@ -172,6 +183,48 @@ def counts():
 
 # -- phase 2: kernels against their plain versions --------------------------------
 
+def k1_compare(args, dims, label: str) -> float:
+    """K1 on ``args`` (centers, counts, batch, threshold) told ``dims``,
+    against its plain version: argmin equal on every row whose two nearest
+    centers are more than 1e-4 apart, counts, deltas and the mean min-distance
+    within 1e-4 relative of those of K1's own argmin, two launches bitwise
+    equal and equal to the launch without ``dims``. Returns the deltas'
+    largest absolute error."""
+    centers, cnt, batch, threshold = args
+    m, k, _ = centers.shape
+    b = batch.shape[1]
+    underused = int((cnt < threshold).sum())
+    check(0 < underused < m * k, f"K1 at {label}: some centers underused")
+    best, c_add, deltas, mean = out = fused_assign_update(*args, dims=dims)
+    again = fused_assign_update(*args, dims=dims)
+    padded = fused_assign_update(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(u, v) for u, v in zip(out, again)),
+          f"K1 at {label}: two launches bitwise equal")
+    check(all(torch.equal(u, v) for u, v in zip(out, padded)),
+          f"K1 at {label}: the same bytes with dims as on the padded input")
+    best_p, _, _, mean_p = fused_assign_update_ref(*args)
+    dist = discounted_distances(centers, cnt, batch, threshold)
+    two = dist.topk(2, dim=-1, largest=False).values
+    decisive = (two[..., 1] - two[..., 0]) > 1e-4 * two[..., 0].abs()
+    flips = int(((best != best_p) & decisive).sum())
+    onehot = torch.nn.functional.one_hot(best.long(), k).float()
+    own_counts = onehot.sum(1)
+    own_deltas = torch.bmm(onehot.transpose(1, 2), batch)
+    err_c = float((c_add - own_counts).abs().max() / own_counts.abs().max())
+    abs_d = float((deltas - own_deltas).abs().max())
+    err_d = abs_d / float(own_deltas.abs().max())
+    err_m = float(((mean - mean_p).abs() / mean_p.abs()).max())
+    log(f"K1 {label}: best differs on {flips} of {int(decisive.sum())} decisive "
+        f"rows ({int((best != best_p).sum())} of {m * b} in all); counts rel err "
+        f"{err_c:.2e}, deltas rel err {err_d:.2e}, mean min-dist rel err {err_m:.2e}; "
+        f"{underused} of {m * k} centers underused; two launches bitwise equal, and "
+        f"equal to the launch without dims")
+    check(flips == 0, f"K1 argmin at {label}")
+    check(err_c <= 1e-4 and err_d <= 1e-4 and err_m <= 1e-4, f"K1 sums at {label}")
+    return abs_d
+
+
 def check_k1(gen: torch.Generator) -> dict:
     """K1 at the shapes both main paths give it: path B's K=32, B=1024 (timed)
     and its ragged B=1000, and path A's K=4, B=4 (one tile, one partial);
@@ -183,37 +236,8 @@ def check_k1(gen: torch.Generator) -> dict:
     # counts drawn below twice it, marks about half the centers underused
     for k, b, seen in ((32, 1024, 20000), (32, 1000, 20000), (4, 4, 48)):
         args = k1_inputs(gen, k, b, dims, seen=seen)
-        centers, cnt, batch, threshold = args
-        m, _, d = centers.shape
-        underused = int((cnt < threshold).sum())
-        check(0 < underused < m * k, f"K1 at K={k} B={b}: some centers underused")
-        best, c_add, deltas, mean = out = fused_assign_update(*args, dims=dims)
-        again = fused_assign_update(*args, dims=dims)
-        padded = fused_assign_update(*args)
-        torch.cuda.synchronize()
-        check(all(torch.equal(u, v) for u, v in zip(out, again)),
-              f"K1 at K={k} B={b}: two launches bitwise equal")
-        check(all(torch.equal(u, v) for u, v in zip(out, padded)),
-              f"K1 at K={k} B={b}: the same bytes with dims as on the padded input")
-        best_p, _, _, mean_p = fused_assign_update_ref(*args)
-        dist = discounted_distances(centers, cnt, batch, threshold)
-        two = dist.topk(2, dim=-1, largest=False).values
-        decisive = (two[..., 1] - two[..., 0]) > 1e-4 * two[..., 0].abs()
-        flips = int(((best != best_p) & decisive).sum())
-        onehot = torch.nn.functional.one_hot(best.long(), k).float()
-        own_counts = onehot.sum(1)
-        own_deltas = torch.bmm(onehot.transpose(1, 2), batch)
-        err_c = float((c_add - own_counts).abs().max() / own_counts.abs().max())
-        abs_d = float((deltas - own_deltas).abs().max())
-        err_d = abs_d / float(own_deltas.abs().max())
-        err_m = float(((mean - mean_p).abs() / mean_p.abs()).max())
-        log(f"K1 K={k} B={b}: best differs on {flips} of {int(decisive.sum())} decisive "
-            f"rows ({int((best != best_p).sum())} of {m * b} in all); counts rel err "
-            f"{err_c:.2e}, deltas rel err {err_d:.2e}, mean min-dist rel err {err_m:.2e}; "
-            f"{underused} of {m * k} centers underused; two launches bitwise equal, and "
-            f"equal to the launch without dims")
-        check(flips == 0, f"K1 argmin at K={k} B={b}")
-        check(err_c <= 1e-4 and err_d <= 1e-4 and err_m <= 1e-4, f"K1 sums at K={k} B={b}")
+        m, _, d = args[0].shape
+        abs_d = k1_compare(args, dims, f"K={k} B={b}")
         if (k, b) == (32, 1024):
             sets = [args] + [k1_inputs(gen, k, b, dims) for _ in range(COLD_SETS - 1)]
             with_dims = [a + (dims,) for a in sets]
@@ -1792,6 +1816,206 @@ def main_path_f() -> dict:
     return launches
 
 
+# -- phase 9: path G, correspondence retrieval --------------------------------------
+
+# K1 at the retrieval shapes: sgd_kmeans runs one clustering (M=1) of K=10
+# centers in batches of 64 rows and a shorter tail (52 here), at a view's
+# width: 16 (gaussian), 1024 and 2048 (ResNet-50 layer3 and layer4 taps),
+# and 8 with a real width of 6 (a width that takes the padded route)
+G_K = 10
+G_SHAPES = [(b, d, real) for d, real in ((16, 16), (1024, 1024), (2048, 2048), (8, 6))
+            for b in (64, 52)]
+# the digits stand-in at views_for_data_name's scale
+G_DIGITS = ["nclasses=10", "per_class=50"]
+
+
+def path_g0_k1(gen: torch.Generator) -> None:
+    """G0: K1 at the retrieval shapes against its plain version (phase 2's
+    checks and tolerances), each shape timed as CUDA graph replays over
+    ``COLD_SETS`` input sets beside its plain version and its bytes bound."""
+    for b, d, real in G_SHAPES:
+        sets = []
+        for _ in range(COLD_SETS):
+            # seen 3000: mid-run of 20 epochs over 300 gaussian rows
+            centers, cnt, batch, threshold = k1_inputs(gen, G_K, b, (real,), seen=3000)
+            pad = (0, d - real)
+            sets.append((torch.nn.functional.pad(centers, pad).contiguous(), cnt,
+                         torch.nn.functional.pad(batch, pad).contiguous(), threshold))
+        label = f"M=1 K={G_K} B={b} D={d} (real {real})"
+        abs_d = k1_compare(sets[0], (real,), label)
+        cold = time_cold_ms(fused_assign_update, [a + ((real,),) for a in sets], graph=True)
+        plain = time_ms(lambda: fused_assign_update_ref(*sets[0]))
+        # rows and centers over the real columns, deltas, counts in and out,
+        # best, the mean; 3xTF32 issues three TF32 products for each fp32 one
+        nbytes = 4 * (b * real + G_K * real + G_K * d + 2 * G_K + b + 1)
+        bound_ms, bound_by = bound(nbytes, 3 * 2 * b * G_K * real, TF32_TENSOR_FLOPS)
+        log(f"G0 K1 at {label}: {cold:.4f} ms cold as graph replays, plain {plain:.4f} ms, "
+            f"bound {bound_ms:.6f} ms ({bound_by}, {nbytes} bytes), deltas max abs err "
+            f"{abs_d:.2e}")
+
+
+@contextlib.contextmanager
+def k1_widths():
+    """Records the width of each batch that ``train_step`` hands K1 on the
+    card; the wrapper's own launch count is untouched."""
+    from acav100m_torch.ops import kmeans as km
+
+    widths = []
+    real = km.fused_assign_update
+
+    def spy(centers, *args, **kw):
+        if centers.is_cuda:
+            widths.append(int(centers.shape[-1]))
+        return real(centers, *args, **kw)
+
+    km.fused_assign_update = spy
+    try:
+        yield widths
+    finally:
+        km.fused_assign_update = real
+
+
+def run_retrieval(out: Path, *args) -> tuple:
+    """``retrieval`` through the port's CLI, its results written under
+    ``out``; returns (printed lines, wall seconds, K1 launches in the run)."""
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["retrieval", *args, "--out_path", str(out)])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  {line}")
+    return lines, wall, counts()["kmeans_assign_update"]
+
+
+def retrieval(name: str, *args) -> tuple:
+    """One experiment through the CLI; returns (result dict, wall seconds,
+    K1 launches)."""
+    out = WORK / "g" / f"{name}.pkl"
+    _, wall, launches = run_retrieval(out, *args)
+    return load_pickle(out), wall, launches
+
+
+def path_g1_gaussian() -> int:
+    """G1: gaussian views through the CLI on the card (sgd, efficient_greedy,
+    mi), against the same run on the CPU. One cluster pair (``layer_0``) at
+    seed 3: every greedy step's maximum is shared only by candidates with
+    the same cells' counts, which any device scores to the same bits, and
+    stands above the rest by 2.7e-4 in float64, so the picks are not
+    rounding's (``tests/test_torch_retrieval.py``); the sgd clusterings of
+    all four views run K1."""
+    args = ["seed=3", "pairing=layer_0", "clustering_method=sgd",
+            "optimizer=efficient_greedy", "measure=mi"]
+    card_res, wall, launches = retrieval("g1", *args)
+    cpu_res, cpu_wall, _ = retrieval("g1_cpu", *args, "device=cpu")
+    log(f"G1 gaussian on the card: {wall:.2f} s wall, K1 {launches} launches; on the "
+        f"CPU {cpu_wall:.2f} s; f1 {card_res['f1']:.4f} (CPU {cpu_res['f1']:.4f}); "
+        f"{len(card_res['selection'])} picks")
+    check(launches > 0, "G1: K1 launched")
+    check(card_res["selection"] == cpu_res["selection"], "G1: the card's picks are the CPU's")
+    return launches
+
+
+def path_g2_resnet() -> int:
+    """G2: ResNet-50 at full width on the card. Its four taps on the digits
+    stand-in (10 classes x 50, 32x32) card against CPU with TF32 off; the
+    ``resnet_pairs`` CLI with all four taps on sgd (K1 at D 256, 512, 1024
+    and 2048), and on scipy against the constant measure's F1 on the same
+    views. sgd's mini-batch k-means leaves these uncentered, whitened taps
+    in one cluster, in the JAX package too, so its F1 is printed, not
+    gated."""
+    from acav100m_torch.retrieval import features as rf
+
+    images, _ = rf.synthetic_digits(10, 50)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t0 = time.time()
+        on_card = rf.ImageFeatureExtractor(device="cuda").extract(images)
+        torch.cuda.synchronize()
+        t_card = time.time() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    on_cpu = rf.ImageFeatureExtractor(device="cpu").extract(images)
+    errs = [float(np.abs(on_card[k] - on_cpu[k]).max() / np.abs(on_cpu[k]).max())
+            for k in sorted(on_cpu)]
+    log(f"G2 ResNet-50 taps of 500 images, card (TF32 off, {t_card:.2f} s with its "
+        f"first call) against CPU, rel err " + ", ".join(f"{e:.2e}" for e in errs))
+    check(max(errs) <= 1e-4, "G2: the ResNet-50 taps on the card within 1e-4 of the CPU's")
+    base = ["--dataset", "resnet_pairs", *G_DIGITS, "layers=[0,1,2,3]"]
+    with k1_widths() as widths:
+        sgd, wall, launches = retrieval("g2_sgd", *base, "clustering_method=sgd")
+    sgd_const, _, more = retrieval("g2_sgd_constant", *base, "clustering_method=sgd",
+                                   "measure=constant")
+    launches += more
+    mi_res, wall_scipy, _ = retrieval("g2_scipy", *base, "clustering_method=scipy")
+    const, _, _ = retrieval("g2_scipy_constant", *base, "clustering_method=scipy",
+                            "measure=constant")
+    log(f"G2 resnet_pairs: sgd {wall:.2f} s wall, K1 launches {launches} at widths "
+        f"{sorted(set(widths))}, f1 {sgd['f1']:.4f} (constant {sgd_const['f1']:.4f}); "
+        f"scipy {wall_scipy:.2f} s, f1 {mi_res['f1']:.4f} against the constant "
+        f"measure's {const['f1']:.4f}")
+    check({1024, 2048} <= set(widths), "G2: K1 launched at D=1024 and 2048")
+    check(mi_res["f1"] > const["f1"], "G2: F1 above the constant measure's")
+    return launches
+
+
+def path_g3_mnist_sound() -> int:
+    """G3: the digits' ResNet taps against spoken-digit log-mels computed on
+    the card, bipartite pairing; sgd (K1) and scipy, F1 against the constant
+    measure's (gated on scipy, as in G2)."""
+    base = ["--dataset", "mnist_sound", *G_DIGITS]
+    with k1_widths() as widths:
+        sgd, wall, launches = retrieval("g3_sgd", *base, "clustering_method=sgd")
+    mi_res, wall_scipy, _ = retrieval("g3_scipy", *base, "clustering_method=scipy")
+    const, _, _ = retrieval("g3_scipy_constant", *base, "clustering_method=scipy",
+                            "measure=constant")
+    log(f"G3 mnist_sound: sgd {wall:.2f} s wall, K1 launches {launches} at widths "
+        f"{sorted(set(widths))}, f1 {sgd['f1']:.4f}; scipy {wall_scipy:.2f} s, f1 "
+        f"{mi_res['f1']:.4f} against the constant measure's {const['f1']:.4f}")
+    check(launches > 0 and 32 in widths, "G3: K1 launched, on the log-mel width too")
+    check(mi_res["f1"] > const["f1"], "G3: F1 above the constant measure's")
+    return launches
+
+
+def path_g4_grid() -> int:
+    """G4: a 2-job dict grid on the card through ``--grid``, inline and on a
+    pool of two spawned workers sharing the card: the same results."""
+    grid = WORK / "g" / "grid.json"
+    grid.parent.mkdir(parents=True, exist_ok=True)
+    grid.write_text(json.dumps({"seed": [3, 4], "pairing": ["layer_0"],
+                                "clustering_method": ["sgd"]}))
+
+    def run(workers: int):
+        out = WORK / "g" / f"grid_{workers}"
+        lines, wall, launches = run_retrieval(out, "--grid", str(grid),
+                                              f"num_workers={workers}")
+        return ([load_pickle(p) for p in sorted(out.glob("result_*.pkl"))], lines, wall,
+                launches)
+
+    inline, lines, wall, launches = run(1)
+    pooled, pooled_lines, pooled_wall, _ = run(2)
+    log(f"G4 grid of {len(inline)} jobs: inline {wall:.2f} s (K1 {launches} launches), "
+        f"2 spawned workers on the card {pooled_wall:.2f} s with their start-up")
+    check(len(inline) == 2 and pooled == inline and pooled_lines == lines,
+          "G4: the pool's results are the inline run's")
+    check(launches > 0, "G4: K1 launched")
+    return launches
+
+
+def main_path_g(gen: torch.Generator) -> int:
+    """Path G; returns its K1 launches."""
+    path_g0_k1(gen)
+    launches = 0
+    for phase in (path_g1_gaussian, path_g2_resnet, path_g3_mnist_sound, path_g4_grid):
+        t0 = time.time()
+        launches += phase()
+        log(f"{phase.__name__} {time.time() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1835,6 +2059,10 @@ def main() -> int:
     for name, n in main_path_f().items():
         launches[name] += n
     log(f"path F total {time.time() - t0:.1f} s")
+    t0 = time.time()
+    g_launches = main_path_g(gen)
+    launches["kmeans_assign_update"] += g_launches
+    log(f"path G total {time.time() - t0:.1f} s; K1 {g_launches} launches")
     shutil.rmtree(WORK, ignore_errors=True)
     kernels = []
     for name, _, replaces in KERNELS:

@@ -28,7 +28,8 @@ import chip_smoke
 import tests.torch_dist_workers
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "acav100m_tpu"))
-print(json.dumps({"modules": names, "bad": bad}))
+print(json.dumps({"modules": names, "bad": bad,
+                  "sklearn_loaded": sorted({m.split(".")[0] for m in sys.modules} & {"sklearn"})}))
 """
 
 
@@ -52,6 +53,11 @@ def test_port_imports_no_jax():
                 "acav100m_torch.pipeline.clip_segmentation",
                 "acav100m_torch.pipeline.bundling"):
         assert mod in res["modules"]
+    for name in ("clustering", "derangement", "features", "measures", "optimizers",
+                 "pair_weights", "pca_optim", "runner", "sharded", "start_indices"):
+        assert f"acav100m_torch.retrieval.{name}" in res["modules"]
+    # scikit-learn is imported only inside the functions that use it
+    assert "sklearn" not in res["sklearn_loaded"]
 
 
 def test_data_imports_no_torch():

@@ -209,3 +209,25 @@ def test_k2_bf16_refuses_what_it_cannot_take(card):
     with pytest.raises(ValueError):  # input channels not a multiple of 8
         fused_stage(rnd(2, 8, 8, 84).to(torch.bfloat16),
                     _random_blocks(rnd, 84, 1, torch.bfloat16))
+
+
+@pytest.mark.parametrize("d", [16, 6, 1024])
+def test_retrieval_sgd_kmeans_on_card_matches_cpu(card, d):
+    """The retrieval frontend's k-means (M=1, K=10, batches of 64 and a tail
+    of 44 over 20 epochs; D=6 zero-padded to 8 with K1 told 6): K1 on the
+    card against the plain steps on the CPU, from the same seeded draws."""
+    import numpy as np
+
+    from acav100m_torch.retrieval import clustering as tc
+
+    rng = np.random.RandomState(d)
+    means = rng.randn(10, d) * 2.0
+    x = tc.whiten((means[rng.randint(0, 10, 300)] + 0.3 * rng.randn(300, d))
+                  .astype(np.float32))
+    before = fused_assign_update.launches
+    on_card = tc.sgd_kmeans(x, 10, seed=3, device=card)
+    # warmup is 100 samples: the first two steps of each run assign at random
+    assert fused_assign_update.launches == before + 20 * 5 - 2
+    on_cpu = tc.sgd_kmeans(x, 10, seed=3, device="cpu")
+    assert np.array_equal(on_card.assignments, on_cpu.assignments)
+    np.testing.assert_allclose(on_card.centers, on_cpu.centers, rtol=1e-5, atol=1e-5)

@@ -113,10 +113,32 @@ def _float16_block():
     (_bf16_biases, 80),       # a bias in bf16
     (_float16_block, 80),     # a form the kernel does not have
     (lambda: _block(84, 64, 256, True, torch.bfloat16), 84),  # bf16 Cin not a multiple of 8
+    # bf16 Cout past the 768 whose cw the kernel keeps resident in shared memory
+    (lambda: _block(80, 64, 800, True, torch.bfloat16), 80),
 ])
 def test_check_block_refuses_other_dtype_mixes(make, cin):
     with pytest.raises(ValueError):
         tbk._check_block(make(), cin, torch.device("cpu"))
+
+
+def test_bf16_cout_limit_is_768_and_cpu_tensors_run_past_it():
+    """K2's bf16 form takes Cout up to ``BF16_MAX_COUT`` = 768 (three
+    passes of 256 columns) and refuses 800; CPU tensors take the plain
+    version at any Cout, 800 included."""
+    assert tbk.BF16_MAX_COUT == 768
+    cpu = torch.device("cpu")
+    assert tbk._check_block(_block(80, 64, 768, True, torch.bfloat16), 80, cpu) == torch.bfloat16
+    with pytest.raises(ValueError, match="at most 768 output channels"):
+        tbk._check_block(_block(80, 64, 800, True, torch.bfloat16), 80, cpu)
+    assert tbk._check_block(_block(80, 64, 800, True), 80, cpu) == torch.float32
+    blocks = [_block(80, 64, 800, True, torch.bfloat16)]
+    x = torch.from_numpy(np.random.RandomState(2).randn(1, 4, 4, 80).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    before = tbk.fused_stage_bf16.launches
+    out = tbk.fused_stage_bf16(x, blocks, stride=1)
+    assert tbk.fused_stage_bf16.launches == before
+    assert out.shape == (1, 4, 4, 800) and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out, tbk.fused_stage_ref(x, blocks, stride=1), rtol=0, atol=0)
 
 
 def test_cpu_bf16_tensors_take_the_plain_version():
