@@ -104,8 +104,8 @@ def cmd_reduce(args):
 
 def cmd_retrieval(args):
     """The JAX package's ``retrieval`` verb. Beyond its overrides:
-    ``layers`` (the ResNet taps of ``--dataset resnet_pairs``, default
-    [2, 3]) and ``num_workers`` (the ``--grid`` pool's size)."""
+    ``num_workers`` (the ``--grid`` pool's size), which only ``--grid``
+    takes."""
     from .retrieval.runner import run_experiment
 
     kwargs = {}
@@ -116,6 +116,9 @@ def cmd_retrieval(args):
             except (ValueError, TypeError):
                 pass
         kwargs[key] = val
+    if "num_workers" in kwargs and not args.grid:
+        raise SystemExit("retrieval: num_workers sizes the --grid pool; "
+                         "give it with --grid")
     if args.dataset != "gaussian":
         # real-data protocols (reference image_pair_data.py): synthetic
         # digits stand in for MNIST/CIFAR/FSDD, which are not downloaded;
@@ -131,7 +134,7 @@ def cmd_retrieval(args):
         if args.dataset == "resnet_pairs":
             views = rf.resnet_pair_views(
                 images, labels, transform=kwargs.pop("transform", "rotate"),
-                layers=tuple(kwargs.pop("layers", (2, 3))), device=device)
+                device=device)
         else:
             views = rf.mnist_sound_pair_views(images, labels, device=device)
             kwargs.setdefault("pairing", "bipartite")

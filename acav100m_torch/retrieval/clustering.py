@@ -56,7 +56,6 @@ class Clustering:
 
 def sgd_kmeans(features: np.ndarray, ncentroids: int, seed: int = 0,
                epochs: int = 20, batch_size: int = 64, device=None,
-               use_pallas: bool = True,
                init_centers: Optional[np.ndarray] = None,
                warmup_draws: Optional[Sequence[np.ndarray]] = None) -> Clustering:
     """Single-view SGD k-means through ``ops.kmeans`` on ``device``.
@@ -99,8 +98,7 @@ def sgd_kmeans(features: np.ndarray, ncentroids: int, seed: int = 0,
             if warmup_draws is not None and step < len(warmup_draws):
                 rand = torch.tensor(np.asarray(warmup_draws[step], np.float32))
             batch = x[order[i : i + batch_size]][None]
-            state, _ = kmeans.train_step(state, batch, lr, rand=rand, generator=gen,
-                                         use_pallas=use_pallas)
+            state, _ = kmeans.train_step(state, batch, lr, rand=rand, generator=gen)
             step += 1
     centers = state.centers[0, :, :d].cpu().numpy()
     assignments = kmeans.assign_step(state, x[None])[0].cpu().numpy()

@@ -75,16 +75,18 @@ Phases, each printing its own lines:
    Stage 1 is host text work whose ``nltk`` this machine lacks: the CPU
    tests hold it;
 9. path G, correspondence retrieval (``retrieval`` through the port's
-   CLI): G0 K1 at the retrieval shapes (M=1, K=10, B 64 and 52, D 16,
-   1024, 2048, and 8 with a real width of 6) against its plain version and
-   timed; G1 gaussian views with sgd k-means (K1) and greedy MI on the card,
-   its picks equal to the same run on the CPU; G2 ResNet-50 at full width
-   on the digits stand-in (10 classes x 50, 32x32): its four taps card
-   against CPU (TF32 off), ``--dataset resnet_pairs`` with sgd (K1 at D 1024
-   and 2048) and with scipy's k-means, whose F1 must beat the constant
-   measure's; G3 ``--dataset mnist_sound`` (log-mel on the card) likewise;
-   G4 a 2-job ``--grid`` inline and on two spawned workers sharing the
-   card, with the same results.
+   CLI): G0 K1 at every shape path G gives it (M=1, K=10, B 64 and its
+   tails 44 and 52, D 16, 32, 256, 512, 1024 and 2048, and 8 with a real
+   width of 6) against its plain version and timed; G1 gaussian views with
+   sgd k-means (K1) and greedy MI on the card, its picks equal to the same
+   run on the CPU; G2 ResNet-50 at full width on the digits stand-in (10
+   classes x 50, 32x32): its four taps card against CPU (TF32 off),
+   ``--dataset resnet_pairs`` with sgd (K1 at D 1024 and 2048) card against
+   CPU, and with scipy's k-means, whose F1 must beat the constant measure's;
+   G3 ``--dataset mnist_sound`` (all four taps, log-mel on the card)
+   likewise; G4 a 2-job ``--grid`` inline and on two spawned workers
+   sharing the card, with the same results. Every shape K1 met in G1-G4 must
+   be one that G0 checked.
 
 Then one JSON line of per-kernel results and, last, the device JSON line.
 Any failed check raises, so the script exits non-zero. Without a CUDA
@@ -1819,12 +1821,15 @@ def main_path_f() -> dict:
 # -- phase 9: path G, correspondence retrieval --------------------------------------
 
 # K1 at the retrieval shapes: sgd_kmeans runs one clustering (M=1) of K=10
-# centers in batches of 64 rows and a shorter tail (52 here), at a view's
-# width: 16 (gaussian), 1024 and 2048 (ResNet-50 layer3 and layer4 taps),
-# and 8 with a real width of 6 (a width that takes the padded route)
+# centers in batches of 64 rows and a tail, at a view's width: 16 (gaussian,
+# 300 rows: a tail of 44), 256, 512, 1024 and 2048 (the ResNet-50 taps) and
+# 32 (log-mel), 500 rows of the digits (a tail of 52); and 8 with a real width
+# of 6 (a width that takes the padded route). Every (rows, width, real width)
+# that path G hands K1 on the card must be among these
 G_K = 10
-G_SHAPES = [(b, d, real) for d, real in ((16, 16), (1024, 1024), (2048, 2048), (8, 6))
-            for b in (64, 52)]
+G_SHAPES = sorted({(b, d, d) for d, tail in ((16, 44), (32, 52), (256, 52), (512, 52),
+                                             (1024, 52), (2048, 52)) for b in (64, tail)}
+                  | {(b, 8, 6) for b in (64, 52)})
 # the digits stand-in at views_for_data_name's scale
 G_DIGITS = ["nclasses=10", "per_class=50"]
 
@@ -1855,134 +1860,151 @@ def path_g0_k1(gen: torch.Generator) -> None:
 
 
 @contextlib.contextmanager
-def k1_widths():
-    """Records the width of each batch that ``train_step`` hands K1 on the
-    card; the wrapper's own launch count is untouched."""
+def k1_shapes():
+    """Records (rows, width, real width) of each batch that ``train_step``
+    hands K1 on the card in this process; the wrapper's own launch count is
+    untouched."""
     from acav100m_torch.ops import kmeans as km
 
-    widths = []
+    shapes = []
     real = km.fused_assign_update
 
-    def spy(centers, *args, **kw):
+    def spy(centers, counts, batch, threshold, dims=None):
         if centers.is_cuda:
-            widths.append(int(centers.shape[-1]))
-        return real(centers, *args, **kw)
+            d = int(centers.shape[-1])
+            shapes.append((int(batch.shape[1]), d, int(dims[0]) if dims else d))
+        return real(centers, counts, batch, threshold, dims=dims)
 
     km.fused_assign_update = spy
     try:
-        yield widths
+        yield shapes
     finally:
         km.fused_assign_update = real
 
 
+@contextlib.contextmanager
+def no_tf32():
+    """Full float32 convolutions and products, for a card-against-CPU
+    comparison."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def run_retrieval(out: Path, *args) -> tuple:
     """``retrieval`` through the port's CLI, its results written under
-    ``out``; returns (printed lines, wall seconds, K1 launches in the run)."""
+    ``out``; returns (printed lines, wall seconds, K1 launches in the run,
+    the shapes K1 met in this process)."""
     buf = io.StringIO()
     reset_counts()
     t0 = time.time()
-    with contextlib.redirect_stdout(buf):
+    with k1_shapes() as shapes, contextlib.redirect_stdout(buf):
         cli.main(["retrieval", *args, "--out_path", str(out)])
     torch.cuda.synchronize()
     wall = time.time() - t0
     lines = buf.getvalue().strip().splitlines()
     for line in lines:
         log(f"  {line}")
-    return lines, wall, counts()["kmeans_assign_update"]
+    return lines, wall, counts()["kmeans_assign_update"], shapes
 
 
 def retrieval(name: str, *args) -> tuple:
     """One experiment through the CLI; returns (result dict, wall seconds,
-    K1 launches)."""
+    K1 launches, K1's shapes)."""
     out = WORK / "g" / f"{name}.pkl"
-    _, wall, launches = run_retrieval(out, *args)
-    return load_pickle(out), wall, launches
+    _, wall, launches, shapes = run_retrieval(out, *args)
+    return load_pickle(out), wall, launches, shapes
 
 
-def path_g1_gaussian() -> int:
+def card_against_cpu(tag: str, name: str, *args) -> tuple:
+    """One sgd experiment through the CLI on the card with TF32 off, and the
+    same on the CPU: the card's picks must be the CPU's. Returns the card's
+    (result, wall seconds, K1 launches, K1's shapes)."""
+    with no_tf32():
+        card_res, wall, launches, shapes = retrieval(name, *args, "clustering_method=sgd")
+    cpu_res, cpu_wall, _, _ = retrieval(f"{name}_cpu", *args, "clustering_method=sgd",
+                                        "device=cpu")
+    log(f"{tag} sgd on the card: {wall:.2f} s wall, K1 {launches} launches at (rows, "
+        f"width, real) {sorted(set(shapes))}; on the CPU {cpu_wall:.2f} s; f1 "
+        f"{card_res['f1']:.4f} (CPU {cpu_res['f1']:.4f}); {len(card_res['selection'])} picks")
+    check(launches > 0, f"{tag}: K1 launched")
+    check(card_res["selection"] == cpu_res["selection"],
+          f"{tag}: the card's sgd picks are the CPU's")
+    return card_res, wall, launches, shapes
+
+
+def path_g1_gaussian() -> tuple:
     """G1: gaussian views through the CLI on the card (sgd, efficient_greedy,
     mi), against the same run on the CPU. One cluster pair (``layer_0``) at
     seed 3: every greedy step's maximum is shared only by candidates with
     the same cells' counts, which any device scores to the same bits, and
     stands above the rest by 2.7e-4 in float64, so the picks are not
     rounding's (``tests/test_torch_retrieval.py``); the sgd clusterings of
-    all four views run K1."""
-    args = ["seed=3", "pairing=layer_0", "clustering_method=sgd",
-            "optimizer=efficient_greedy", "measure=mi"]
-    card_res, wall, launches = retrieval("g1", *args)
-    cpu_res, cpu_wall, _ = retrieval("g1_cpu", *args, "device=cpu")
-    log(f"G1 gaussian on the card: {wall:.2f} s wall, K1 {launches} launches; on the "
-        f"CPU {cpu_wall:.2f} s; f1 {card_res['f1']:.4f} (CPU {cpu_res['f1']:.4f}); "
-        f"{len(card_res['selection'])} picks")
-    check(launches > 0, "G1: K1 launched")
-    check(card_res["selection"] == cpu_res["selection"], "G1: the card's picks are the CPU's")
-    return launches
+    all four views run K1. Returns (K1 launches, K1's shapes)."""
+    _, _, launches, shapes = card_against_cpu(
+        "G1 gaussian", "g1", "seed=3", "pairing=layer_0", "optimizer=efficient_greedy",
+        "measure=mi")
+    return launches, shapes
 
 
-def path_g2_resnet() -> int:
+def path_g2_resnet() -> tuple:
     """G2: ResNet-50 at full width on the card. Its four taps on the digits
     stand-in (10 classes x 50, 32x32) card against CPU with TF32 off; the
-    ``resnet_pairs`` CLI with all four taps on sgd (K1 at D 256, 512, 1024
-    and 2048), and on scipy against the constant measure's F1 on the same
-    views. sgd's mini-batch k-means leaves these uncentered, whitened taps
-    in one cluster, in the JAX package too, so its F1 is printed, not
-    gated."""
+    ``resnet_pairs`` CLI (taps layer3 and layer4) on sgd, card against CPU
+    (K1 at D 1024 and 2048), and on scipy against the constant measure's F1
+    on the same views. sgd's mini-batch k-means leaves these uncentered,
+    whitened taps in one cluster, in the JAX package too
+    (``tests/test_torch_retrieval.py``), so its F1 is not gated."""
     from acav100m_torch.retrieval import features as rf
 
     images, _ = rf.synthetic_digits(10, 50)
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with no_tf32():
         t0 = time.time()
         on_card = rf.ImageFeatureExtractor(device="cuda").extract(images)
         torch.cuda.synchronize()
         t_card = time.time() - t0
-    finally:
-        torch.backends.cudnn.allow_tf32 = True
     on_cpu = rf.ImageFeatureExtractor(device="cpu").extract(images)
     errs = [float(np.abs(on_card[k] - on_cpu[k]).max() / np.abs(on_cpu[k]).max())
             for k in sorted(on_cpu)]
     log(f"G2 ResNet-50 taps of 500 images, card (TF32 off, {t_card:.2f} s with its "
         f"first call) against CPU, rel err " + ", ".join(f"{e:.2e}" for e in errs))
     check(max(errs) <= 1e-4, "G2: the ResNet-50 taps on the card within 1e-4 of the CPU's")
-    base = ["--dataset", "resnet_pairs", *G_DIGITS, "layers=[0,1,2,3]"]
-    with k1_widths() as widths:
-        sgd, wall, launches = retrieval("g2_sgd", *base, "clustering_method=sgd")
-    sgd_const, _, more = retrieval("g2_sgd_constant", *base, "clustering_method=sgd",
-                                   "measure=constant")
-    launches += more
-    mi_res, wall_scipy, _ = retrieval("g2_scipy", *base, "clustering_method=scipy")
-    const, _, _ = retrieval("g2_scipy_constant", *base, "clustering_method=scipy",
-                            "measure=constant")
-    log(f"G2 resnet_pairs: sgd {wall:.2f} s wall, K1 launches {launches} at widths "
-        f"{sorted(set(widths))}, f1 {sgd['f1']:.4f} (constant {sgd_const['f1']:.4f}); "
-        f"scipy {wall_scipy:.2f} s, f1 {mi_res['f1']:.4f} against the constant "
-        f"measure's {const['f1']:.4f}")
-    check({1024, 2048} <= set(widths), "G2: K1 launched at D=1024 and 2048")
+    base = ["--dataset", "resnet_pairs", *G_DIGITS]
+    _, _, launches, shapes = card_against_cpu("G2 resnet_pairs", "g2_sgd", *base)
+    mi_res, wall_scipy, _, _ = retrieval("g2_scipy", *base, "clustering_method=scipy")
+    const, _, _, _ = retrieval("g2_scipy_constant", *base, "clustering_method=scipy",
+                               "measure=constant")
+    log(f"G2 resnet_pairs scipy: {wall_scipy:.2f} s, f1 {mi_res['f1']:.4f} against the "
+        f"constant measure's {const['f1']:.4f}")
+    check({1024, 2048} <= {d for _, d, _ in shapes}, "G2: K1 launched at D=1024 and 2048")
     check(mi_res["f1"] > const["f1"], "G2: F1 above the constant measure's")
-    return launches
+    return launches, shapes
 
 
-def path_g3_mnist_sound() -> int:
-    """G3: the digits' ResNet taps against spoken-digit log-mels computed on
-    the card, bipartite pairing; sgd (K1) and scipy, F1 against the constant
-    measure's (gated on scipy, as in G2)."""
+def path_g3_mnist_sound() -> tuple:
+    """G3: the digits' four ResNet taps against spoken-digit log-mels
+    computed on the card, bipartite pairing; sgd (K1) card against CPU, and
+    scipy's F1 against the constant measure's (gated on scipy, as in G2)."""
     base = ["--dataset", "mnist_sound", *G_DIGITS]
-    with k1_widths() as widths:
-        sgd, wall, launches = retrieval("g3_sgd", *base, "clustering_method=sgd")
-    mi_res, wall_scipy, _ = retrieval("g3_scipy", *base, "clustering_method=scipy")
-    const, _, _ = retrieval("g3_scipy_constant", *base, "clustering_method=scipy",
-                            "measure=constant")
-    log(f"G3 mnist_sound: sgd {wall:.2f} s wall, K1 launches {launches} at widths "
-        f"{sorted(set(widths))}, f1 {sgd['f1']:.4f}; scipy {wall_scipy:.2f} s, f1 "
-        f"{mi_res['f1']:.4f} against the constant measure's {const['f1']:.4f}")
-    check(launches > 0 and 32 in widths, "G3: K1 launched, on the log-mel width too")
+    _, _, launches, shapes = card_against_cpu("G3 mnist_sound", "g3_sgd", *base)
+    mi_res, wall_scipy, _, _ = retrieval("g3_scipy", *base, "clustering_method=scipy")
+    const, _, _, _ = retrieval("g3_scipy_constant", *base, "clustering_method=scipy",
+                               "measure=constant")
+    log(f"G3 mnist_sound scipy: {wall_scipy:.2f} s, f1 {mi_res['f1']:.4f} against the "
+        f"constant measure's {const['f1']:.4f}")
+    check(32 in {d for _, d, _ in shapes}, "G3: K1 launched on the log-mel width")
     check(mi_res["f1"] > const["f1"], "G3: F1 above the constant measure's")
-    return launches
+    return launches, shapes
 
 
-def path_g4_grid() -> int:
+def path_g4_grid() -> tuple:
     """G4: a 2-job dict grid on the card through ``--grid``, inline and on a
-    pool of two spawned workers sharing the card: the same results."""
+    pool of two spawned workers sharing the card: the same results. Returns
+    the inline run's (K1 launches, K1's shapes); the workers' are not seen
+    here."""
     grid = WORK / "g" / "grid.json"
     grid.parent.mkdir(parents=True, exist_ok=True)
     grid.write_text(json.dumps({"seed": [3, 4], "pairing": ["layer_0"],
@@ -1990,29 +2012,35 @@ def path_g4_grid() -> int:
 
     def run(workers: int):
         out = WORK / "g" / f"grid_{workers}"
-        lines, wall, launches = run_retrieval(out, "--grid", str(grid),
-                                              f"num_workers={workers}")
+        lines, wall, launches, shapes = run_retrieval(out, "--grid", str(grid),
+                                                      f"num_workers={workers}")
         return ([load_pickle(p) for p in sorted(out.glob("result_*.pkl"))], lines, wall,
-                launches)
+                launches, shapes)
 
-    inline, lines, wall, launches = run(1)
-    pooled, pooled_lines, pooled_wall, _ = run(2)
+    inline, lines, wall, launches, shapes = run(1)
+    pooled, pooled_lines, pooled_wall, _, _ = run(2)
     log(f"G4 grid of {len(inline)} jobs: inline {wall:.2f} s (K1 {launches} launches), "
         f"2 spawned workers on the card {pooled_wall:.2f} s with their start-up")
     check(len(inline) == 2 and pooled == inline and pooled_lines == lines,
           "G4: the pool's results are the inline run's")
     check(launches > 0, "G4: K1 launched")
-    return launches
+    return launches, shapes
 
 
 def main_path_g(gen: torch.Generator) -> int:
-    """Path G; returns its K1 launches."""
+    """Path G; returns its K1 launches. Fails if K1 met a shape on the card
+    that G0 did not hold against its plain version."""
     path_g0_k1(gen)
-    launches = 0
+    launches, seen = 0, set()
     for phase in (path_g1_gaussian, path_g2_resnet, path_g3_mnist_sound, path_g4_grid):
         t0 = time.time()
-        launches += phase()
+        n, shapes = phase()
+        launches += n
+        seen.update(shapes)
         log(f"{phase.__name__} {time.time() - t0:.1f} s")
+    log(f"path G: K1 met (rows, width, real width) {sorted(seen)}")
+    check(seen <= set(G_SHAPES), f"path G: K1 met only shapes that G0 checked "
+          f"(not checked: {sorted(seen - set(G_SHAPES))})")
     return launches
 
 

@@ -89,7 +89,9 @@ def test_sgd_kmeans_matches_jax(d, monkeypatch):
     assert got.centers.shape == want.centers.shape == (k, d)
     np.testing.assert_allclose(got.centers, want.centers, rtol=1e-5, atol=1e-5)
     # the K1 route (its plain version on the CPU) against the plain steps
-    plain = replayed_sgd(x, k, seed=seed, device="cpu", use_pallas=False)
+    monkeypatch.setattr(tk, "train_step",
+                        lambda *a, **kw: train_step(*a, **kw, use_pallas=False))
+    plain = replayed_sgd(x, k, seed=seed, device="cpu")
     np.testing.assert_array_equal(plain.assignments, got.assignments)
     np.testing.assert_allclose(plain.centers, got.centers, rtol=1e-6, atol=1e-6)
 
@@ -127,6 +129,27 @@ def test_sgd_kmeans_is_seeded():
     b = tc.sgd_kmeans(x, 5, seed=4, device="cpu")
     np.testing.assert_array_equal(a.assignments, b.assignments)
     np.testing.assert_array_equal(a.centers, b.centers)
+
+
+def test_sgd_kmeans_leaves_the_digits_resnet_taps_in_one_cluster():
+    """The digits stand-in's ResNet-50 taps (``--dataset resnet_pairs`` at its
+    default 6 classes x 12, all four taps of the original view), whitened as
+    ``cluster_views`` does: with the JAX draws replayed, the port's
+    ``sgd_kmeans`` puts every row in one cluster, as the JAX package's does.
+    Assignments equal, centers within 1e-4."""
+    from acav100m_torch.retrieval import features as tf
+
+    images, labels = tf.synthetic_digits(nclasses=6, per_class=12)
+    views = tf.resnet_pair_views(images, labels, layers=(0, 1, 2, 3), device="cpu")
+    for i, d in enumerate((256, 512, 1024, 2048)):
+        view = views[f"orig-layer_{i}"]
+        x = tc.whiten(np.stack([view[key]["data"] for key in sorted(view)]))
+        assert x.shape == (72, d)
+        want = jc.sgd_kmeans(x, 6, seed=i)
+        got = replayed_sgd(x, 6, seed=i, device="cpu")
+        np.testing.assert_array_equal(got.assignments, want.assignments)
+        assert np.unique(got.assignments).size == 1
+        np.testing.assert_allclose(got.centers, want.centers, rtol=1e-4, atol=1e-4)
 
 
 def test_sgd_kmeans_default_device_raises_without_cuda():
@@ -368,6 +391,15 @@ def test_cli_prints_what_the_jax_cli_prints(tmp_path, capsys):
                                "--out_path", str(tmp_path / "jax")], capsys)
     assert len(got) == 2 and got == want
     assert len(list((tmp_path / "port").glob("result_*.pkl"))) == 2
+
+
+def test_cli_takes_num_workers_only_with_a_grid(tmp_path):
+    from acav100m_torch.cli import main
+
+    with pytest.raises(SystemExit, match="num_workers sizes the --grid pool"):
+        main(["retrieval", "device=cpu", "num_workers=2",
+              "--out_path", str(tmp_path / "r.pkl")])
+    assert not (tmp_path / "r.pkl").exists()
 
 
 def test_cli_default_device_raises_without_cuda():
