@@ -1,7 +1,7 @@
 """Command line for the port's stages, with the JAX package's verbs,
 positional arguments and dotted-key overrides:
 
-    python -m acav100m_torch fixtures out_dir [--num_shards=2 --size=64 ...]
+    python -m acav100m_torch fixtures out_dir [--num_shards=2 --size=64 --labels ...]
     python -m acav100m_torch filter in.tsv out.tsv [--keywords_dir=... --fasttext_model=...]
     python -m acav100m_torch download filtered.tsv out_dir [--source_dir=...]
     python -m acav100m_torch segment video_dir out_dir [--num_clips=3 --backend=auto ...]
@@ -12,6 +12,7 @@ positional arguments and dotted-key overrides:
     python -m acav100m_torch convert {slowfast,vggish} in_path out_path [--format ...]
     python -m acav100m_torch retrieval [--dataset gaussian|resnet_pairs|mnist_sound]
         [--grid grid.json] [--out_path ...] [key=value ...]
+    python -m acav100m_torch evaluate [--cfg FILE.yaml|FILE.json] [key=value ...]
 
 ``filter``, ``download`` and ``segment`` are stages 1-3, host work with the
 JAX package's arguments and defaults (``download --source_dir`` copies
@@ -23,6 +24,10 @@ local files; without it youtube-dl or yt-dlp fetches, where installed).
 correspondence-retrieval experiment (or, with ``--grid``, a grid of them)
 and prints its precision, recall and F1; its ``key=value`` overrides are
 ``run_experiment``'s keywords, ``device`` among them (default ``cuda``).
+``evaluate`` runs the evaluation suite (``task=pretrain``: contrastive
+pretraining on curated shards; ``task=linear_eval``: a linear head on a
+frozen backbone over the ``classify/`` dataset that ``fixtures --labels``
+writes) and prints one JSON line; it too runs on ``computation.device``.
 """
 
 from __future__ import annotations
@@ -178,10 +183,14 @@ def cmd_convert(args):
     print(json.dumps(manifest, indent=1))
 
 
-def write_fixtures(out_dir, num_shards=2, clips_per_shard=4, size=64, seed=0):
+def write_fixtures(out_dir, num_shards=2, clips_per_shard=4, size=64, seed=0,
+                   labels=False):
     """Synthetic npz clip shards (tar + json per shard), the same bytes as
     the JAX package's ``fixtures`` verb: 32 class-tinted noise frames of
-    size x size and 10 s of class-toned 16 kHz audio per clip."""
+    size x size and 10 s of class-toned 16 kHz audio per clip. With
+    ``labels``, also a flat ``ClipClassificationDataset`` in ``classify/``
+    (one npz clip of 12 frames and 2 s of audio per shard clip, 4 classes,
+    the last 4 clips the test split, and ``labels.json``)."""
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     rng = np.random.RandomState(seed)
@@ -208,13 +217,42 @@ def write_fixtures(out_dir, num_shards=2, clips_per_shard=4, size=64, seed=0):
                              "segment": [float(ci), float(ci) + 10.0]})
                 count += 1
         (out / f"shard-{si:06d}.json").write_text(json.dumps(meta))
+    if labels:
+        cls_dir = out / "classify"
+        cls_dir.mkdir(exist_ok=True)
+        items = []
+        n = num_shards * clips_per_shard
+        for i in range(n):
+            klass = i % 4
+            t = np.arange(int(16000 * 2.0)) / 16000.0
+            frames = rng.randint(0, 60, (12, size, size, 3)).astype(np.uint8)
+            frames[..., klass % 3] += np.uint8(120)
+            audio = (0.4 * np.sin(2 * np.pi * 220.0 * (1 + klass) * t)
+                     + 0.05 * rng.randn(len(t))).astype(np.float32)
+            fname = f"clip{i:04d}.npz"
+            np.savez(cls_dir / fname, frames=frames, audio=audio,
+                     sample_rate=16000, video_fps=6.0)
+            items.append({"file": fname, "label": klass,
+                          "split": "train" if i < max(n - 4, n // 2) else "test"})
+        (cls_dir / "labels.json").write_text(json.dumps(
+            {"classes": [f"c{k}" for k in range(4)], "items": items}))
     return count
 
 
 def cmd_fixtures(args):
     count = write_fixtures(args.out_dir, args.num_shards, args.clips_per_shard,
-                           args.size, args.seed)
+                           args.size, args.seed, labels=args.labels)
     print(f"wrote {args.num_shards} shards ({count} clips) to {args.out_dir}")
+
+
+def cmd_evaluate(args):
+    """Evaluation tasks from a YAML/JSON config and dotted overrides; prints
+    the result (without its history) as one JSON line."""
+    from .evaluation.config import load_config, run_task
+
+    result = run_task(load_config(args.cfg, _overrides(args.overrides)))
+    result.pop("history", None)
+    print(json.dumps(result, default=float))
 
 
 def main(argv=None):
@@ -274,7 +312,14 @@ def main(argv=None):
     p.add_argument("--clips_per_shard", type=int, default=4)
     p.add_argument("--size", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--labels", action="store_true",
+                   help="also write a classify/ ClipClassificationDataset")
     p.set_defaults(fn=cmd_fixtures)
+
+    p = sub.add_parser("evaluate", help="evaluation tasks (pretrain / linear_eval)")
+    p.add_argument("--cfg", default=None, help="YAML/JSON config file")
+    p.add_argument("overrides", nargs="*", help="dotted key=value overrides")
+    p.set_defaults(fn=cmd_evaluate)
 
     p = sub.add_parser("convert", help="convert a torch/caffe2 checkpoint to flax npz")
     p.add_argument("model", choices=["slowfast", "vggish"])

@@ -97,15 +97,19 @@ def _total_device_us(evt) -> float:
     return _device_us(evt, ("device_time_total", "cuda_time_total"))
 
 
+def _annotation(evt) -> bool:
+    """A span a ``record_function`` label put on the device's timeline
+    (``Optimizer.step#AdamW.step``, ``ProfilerStep#3``): it covers kernels
+    that have rows of their own."""
+    return bool(getattr(evt, "is_user_annotation", False)) or "#" in evt.key
+
+
 def _device_events(prof):
     """The profile's device rows (kernels and copies); the operator rows
-    (aten::...) repeat their kernels' time."""
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == DeviceType.CUDA and _device_us(e) > 0]
-    if not events:
-        events = [e for e in prof.key_averages()
-                  if _device_us(e) > 0 and not e.key.startswith("aten::")]
-    return events
+    (aten::...) and the annotated spans repeat their kernels' time."""
+    rows = [e for e in prof.key_averages() if _device_us(e) > 0 and not _annotation(e)]
+    events = [e for e in rows if getattr(e, "device_type", None) == DeviceType.CUDA]
+    return events or [e for e in rows if not e.key.startswith("aten::")]
 
 
 def device_busy(fn):

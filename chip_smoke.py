@@ -86,7 +86,24 @@ Phases, each printing its own lines:
    G3 ``--dataset mnist_sound`` (all four taps, log-mel on the card)
    likewise; G4 a 2-job ``--grid`` inline and on two spawned workers
    sharing the card, with the same results. Every shape K1 met in G1-G4 must
-   be one that G0 checked.
+   be one that G0 checked;
+10. path H, the evaluation suite (``evaluate`` through the port's CLI) at
+   full width, R3D-50 width 64 on 8 x 112^2 and the audio ResNet-50 width
+   32 on 80 x 128 log-mels: H0 one AdamW step at batch 2 from one seeded
+   numpy weight tree, card against CPU in float64 (loss 1e-4, every
+   parameter 1e-4 relative L2, running statistics 1e-5, accuracy equal),
+   and in float32 each device against the float64 CPU step (the card's
+   loss and params within 3 times the CPU's own float32 error); H1
+   ``fixtures --labels`` (4 shards
+   x 8 clips at 128^2); H2 ``evaluate`` with ``configs/acav_pretrain.yaml``'s
+   values as JSON, batch 4, 8 steps (every loss finite, checkpoints and
+   ``stats.jsonl`` written, peak memory), resumed to 12 (it must resume at
+   step 8, the card's busy share printed), then a warm step's operations,
+   ms and device time by kernel; H3 ``evaluate task=linear_eval`` on
+   ``classify/`` from H2's checkpoint, multimodal, 20 head steps, with and
+   without cached features (top-1/top-5), and the test views' frozen
+   features card against CPU (TF32 off, 1e-4). Path H launches none of the
+   three kernels.
 
 Then one JSON line of per-kernel results and, last, the device JSON line.
 Any failed check raises, so the script exits non-zero. Without a CUDA
@@ -103,12 +120,14 @@ import io
 import json
 import math
 import multiprocessing
+import os
 import pickle
 import shutil
 import socket
 import subprocess
 import sys
 import tarfile
+import threading
 import time
 from pathlib import Path
 
@@ -136,7 +155,8 @@ from acav100m_torch.ops import mi
 from acav100m_torch.pipeline import contrastive_selection as cs
 from acav100m_torch.pipeline import feature_extraction as fe
 from acav100m_torch.pipeline import subset_selection as ss
-from acav100m_torch.profiling import card, device_busy, time_cold_ms, time_ms
+from acav100m_torch.profiling import (card, device_busy, run as profile_run,
+                                      time_cold_ms, time_ms)
 from acav100m_torch.utils.io import dump_pickle, load_pickle, make_feature_row
 
 ROOT = Path(__file__).resolve().parent
@@ -2044,6 +2064,246 @@ def main_path_g(gen: torch.Generator) -> int:
     return launches
 
 
+# -- phase 10: path H, the evaluation suite ----------------------------------------
+
+# configs/acav_pretrain.yaml's values (the card's machine has no PyYAML, so
+# path H hands them to ``evaluate`` as JSON; a CPU test holds the two equal)
+H_PRETRAIN = {
+    "task": "pretrain",
+    "data": {"path": "data/curated/shard-{000000..000009}.tar", "batch_size": 4,
+             "num_frames": 8, "crop": 112},
+    "train": {"num_steps": 1000, "base_lr": 0.001, "warmup_steps": 100,
+              "save_period": 100},
+    "checkpoint": {"dir": "runs/acav_pretrain"},
+}
+H_TOL = {"loss": 1e-4, "params": 1e-4, "stats": 1e-5, "features": 1e-4}
+
+
+def evaluate(*args) -> dict:
+    """``evaluate`` through the port's CLI; returns its JSON line."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["evaluate", *args])
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def h_batch(rng: np.random.RandomState, b: int) -> tuple:
+    """A pretrain batch at full width: uint8 frames (b, 8, 112, 112, 3) and
+    log-mels (b, 80, 128, 1)."""
+    return (rng.randint(0, 256, (b, 8, 112, 112, 3)).astype(np.uint8),
+            rng.randn(b, 80, 128, 1).astype(np.float32))
+
+
+def h0_step(tree: dict, visual, audio, device: str, dtype) -> tuple:
+    """One adamw step (lr 1e-3, no warmup) of the full-width ``Contrast``
+    loaded with ``tree``, in ``dtype`` on ``device`` -> (loss, acc, wall
+    seconds, the state dict after the step on the CPU)."""
+    from acav100m_torch.evaluation import models as em
+    from acav100m_torch.evaluation import train as et
+
+    state = et.init_pretrain(0, et.lr_schedule("linear", 1e-3, 10), device)
+    state.model.load_state_dict(em.state_dict_from_flax(tree))
+    state.model.to(dtype)
+    state.optimizer = et.build_optimizer("adamw", state.model.named_parameters(),
+                                         state.schedule)
+    t0 = time.time()
+    state, metrics = et.make_pretrain_step(state)(state, visual, audio)
+    loss, acc = float(metrics["loss"]), float(metrics["acc"])
+    return loss, acc, time.time() - t0, {k: v.detach().cpu().double()
+                                         for k, v in state.model.state_dict().items()}
+
+
+def h0_errors(a: tuple, b: tuple, names) -> tuple:
+    """(loss relative error, largest relative L2 error of a parameter,
+    largest relative error of a running statistic) of step ``a`` against
+    ``b``."""
+    sa, sb = a[3], b[3]
+    p_err = max(float((sa[k] - sb[k]).norm() / sb[k].norm()) for k in names)
+    s_err = max(float((sa[k] - sb[k]).abs().max() / sb[k].abs().max())
+                for k in sb if k.endswith(("running_mean", "running_var")))
+    return abs(a[0] - b[0]) / abs(b[0]), p_err, s_err
+
+
+def path_h0_step() -> None:
+    """H0: one adamw step (lr 1e-3, no warmup) of the full-width ``Contrast``
+    on a batch of 2 at 8 x 112^2, from one seeded weight tree made with
+    numpy (random BN gammas and statistics), on the card and on the CPU,
+    TF32 off. Gated in float64: loss, accuracy, every updated parameter and
+    the running statistics. In float32, batch norm in train mode (the
+    projection heads' over 2 rows) turns rounding into differences of about
+    1e-3 on any device, so each device's float32 step is held against the
+    float64 CPU step: the card's loss and params may be off by at most 3
+    times the CPU's own float32 error (or by the float64 tolerance)."""
+    from acav100m_torch.evaluation import models as em
+    from tests.torch_parity import random_variables
+
+    tree = random_variables(em.flax_from_state_dict(em.Contrast().state_dict()), seed=12)
+    visual, audio = h_batch(np.random.RandomState(12), 2)
+    names = [k for k, _ in em.Contrast().named_parameters()]
+    with no_tf32():
+        runs = {(dev, str(dt).split(".")[-1]): h0_step(tree, visual, audio, dev, dt)
+                for dt in (torch.float64, torch.float32) for dev in ("cuda", "cpu")}
+    card, cpu = runs["cuda", "float64"], runs["cpu", "float64"]
+    l_err, p_err, s_err = h0_errors(card, cpu, names)
+    log(f"H0 one full-width train step, B=2, float64, card ({card[2]:.2f} s with its first "
+        f"call) against CPU ({cpu[2]:.2f} s): loss {card[0]:.9f} vs {cpu[0]:.9f} (rel err "
+        f"{l_err:.2e}), acc {card[1]:.1f} vs {cpu[1]:.1f}, params rel L2 err {p_err:.2e}, "
+        f"running stats rel err {s_err:.2e}")
+    f32 = {}
+    for dev in ("cuda", "cpu"):
+        run = runs[dev, "float32"]
+        f32[dev] = h0_errors(run, cpu, names)
+        log(f"H0 float32 (TF32 off) on {dev} ({run[2]:.2f} s) against the float64 CPU step: "
+            f"loss {run[0]:.6f} (rel err {f32[dev][0]:.2e}), acc {run[1]:.1f}, params rel L2 "
+            f"err {f32[dev][1]:.2e}, running stats rel err {f32[dev][2]:.2e}")
+    for i, what in enumerate(("loss", "params")):
+        check(f32["cuda"][i] <= max(3 * f32["cpu"][i], H_TOL[what]),
+              f"H0: the card's float32 {what} within 3 times the CPU's float32 error "
+              f"({f32['cuda'][i]:.2e} against {f32['cpu'][i]:.2e})")
+    check(l_err <= H_TOL["loss"], "H0: the card's loss within 1e-4 of the CPU's")
+    check(card[1] == cpu[1], "H0: the card's accuracy is the CPU's")
+    check(p_err <= H_TOL["params"], "H0: updated params within 1e-4 relative L2")
+    check(s_err <= H_TOL["stats"], "H0: running statistics within 1e-5")
+
+
+def path_h2_pretrain(clips: Path) -> Path:
+    """H2: ``evaluate`` pretraining with ``configs/acav_pretrain.yaml``'s
+    values (given as JSON) for 8 steps of batch 4 on the card, then resumed
+    to 12; then a warm train step on one batch: its ms in 3 runs of 5 steps
+    with the device synchronised around each, its operations
+    (``torch.utils.flop_counter``) and bound, and its device time by kernel.
+    Returns the run's directory."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from acav100m_torch.evaluation import data as ed
+    from acav100m_torch.evaluation import train as et
+    from acav100m_torch.data.meta import load_metadata
+
+    run = WORK / "h" / "run"
+    cfg = WORK / "h" / "acav_pretrain.json"
+    cfg.write_text(json.dumps(H_PRETRAIN))
+    args = ["--cfg", str(cfg), f"data.path={clips}/shard-{{000000..000003}}.tar",
+            "data.batch_size=4", "train.save_period=8", "train.log_every=1",
+            f"checkpoint.dir={run}"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    first = evaluate(*args, "train.num_steps=8")
+    t_first = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    second = {}
+    t_second, busy, copies = device_busy(
+        lambda: second.update(evaluate(*args, "train.num_steps=12")))
+    lines = [json.loads(x) for x in (run / "stats.jsonl").read_text().splitlines()]
+    iters = [x for x in lines if x["_type"] == "train_iter"]
+    steps = [x["step"] for x in iters]
+    walls = np.diff([0.0] + [x["time"] for x in iters[:8]]) * 1e3
+    log(f"H2 evaluate pretrain, 8 steps of batch 4 at 8 x 112^2: {t_first:.2f} s, peak "
+        f"device memory {peak:.2f} GiB, ms a step with its batch's decode and log-mels "
+        + ", ".join(f"{w:.1f}" for w in walls) + "; losses "
+        + ", ".join(f"{x['loss']:.4f}" for x in iters))
+    log(f"H2 resumed to 12 steps: {t_second:.2f} s, {second}; the card busy "
+        f"{busy:.3f} s with kernels and {copies:.3f} s with copies "
+        f"({100 * (busy + copies) / t_second:.1f}% of the call)")
+    check(first == {"task": "pretrain", "steps": 8}, f"H2: 8 steps ({first})")
+    check(second == {"task": "pretrain", "steps": 12}, f"H2: 12 steps ({second})")
+    check(steps == list(range(1, 13)), f"H2: the second call resumed at step 8 ({steps})")
+    check(all(math.isfinite(x["loss"]) for x in iters), "H2: the losses are finite")
+    check(all((run / n).is_file() for n in ("step_latest.ckpt", "epoch_latest.ckpt",
+                                             "stats.jsonl")), "H2: checkpoints and stats")
+    shards = sorted(clips.glob("shard-*.tar"))
+    batch = next(ed.pretrain_batches(shards, load_metadata(shards)[0], 4,
+                                     np.random.RandomState(0)))
+    state = et.init_pretrain(0, et.lr_schedule("linear", 1e-3, 100), "cuda")
+    step = et.make_pretrain_step(state)
+    for _ in range(2):
+        state, metrics = step(state, batch["visual"], batch["audio"])
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(5):
+            state, metrics = step(state, batch["visual"], batch["audio"])
+        torch.cuda.synchronize()
+        ms.append((time.time() - t0) / 5 * 1e3)
+    with FlopCounterMode(display=False) as flops:
+        state, metrics = step(state, batch["visual"], batch["audio"])
+    n = flops.get_total_flops()
+    log(f"H2 warm train step, batch 4 at 8 x 112^2 (cuDNN TF32 on): "
+        f"{', '.join(f'{x:.2f}' for x in ms)} ms (3 runs of 5 steps between "
+        f"synchronisations); "
+        f"{n / 1e9:.1f} GFLOP (torch.utils.flop_counter), bound "
+        f"{n / TF32_TENSOR_FLOPS * 1e3:.3f} ms at {TF32_TENSOR_FLOPS / 1e12:.0f} TFLOP/s TF32; "
+        f"{sum(p.numel() for p in state.model.parameters()) / 1e6:.2f} M parameters")
+    profile_run("H2 warm train step by kernel", lambda: step(state, batch["visual"],
+                                                             batch["audio"]), top=12)
+    return run
+
+
+def h_test_batches(classify: Path):
+    """The classify/ test split's views (2 ensemble views a clip), in
+    batches of 4, as ``evaluate`` builds them."""
+    from acav100m_torch.evaluation.config import _collate_classify
+    from acav100m_torch.evaluation.data import ClipClassificationDataset
+
+    exs = list(ClipClassificationDataset(classify, "test").examples(
+        np.random.RandomState(0)))
+    return [_collate_classify(exs[i:i + 4]) for i in range(0, len(exs), 4)]
+
+
+def path_h3_linear_eval(classify: Path, run: Path) -> None:
+    """H3: ``evaluate task=linear_eval`` on ``classify/`` from H2's
+    ``epoch_latest.ckpt`` (multimodal, 20 head steps), with the train
+    features computed each step and cached once; then the test views'
+    frozen features on the card against the CPU's (TF32 off)."""
+    from acav100m_torch.evaluation import train as et
+
+    ckpt = run / "epoch_latest.ckpt"
+    base = ["task=linear_eval", f"data.path={classify}", f"checkpoint.pretrained={ckpt}",
+            "eval.mode=multimodal", "eval.num_steps=20"]
+    for cache in ("false", "true"):
+        t0 = time.time()
+        res = evaluate(*base, f"eval.cache_features={cache}")
+        log(f"H3 linear eval, cache_features={cache}: top-1 {res['top1']:.1f}, "
+            f"top-5 {res['top5']:.1f}, {time.time() - t0:.2f} s")
+        check(set(res) == {"task", "top1", "top5"} and 0 <= res["top1"] <= res["top5"],
+              f"H3: a result ({res})")
+    backbone = et.load_pretrained_backbone(ckpt)
+    batches = h_test_batches(classify)
+    with no_tf32():
+        card = [et.make_feature_fn(backbone, "multimodal", "cuda")(b["visual"], b["audio"])
+                .cpu() for b in batches]
+    cpu = [et.make_feature_fn(backbone, "multimodal", "cpu")(b["visual"], b["audio"])
+           for b in batches]
+    err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(card, cpu))
+    n = sum(len(b["label"]) for b in batches)
+    log(f"H3 frozen features of the {n} test views (3072 each), card (TF32 off) against "
+        f"CPU: rel err {err:.2e}")
+    check(err <= H_TOL["features"], "H3: the card's features within 1e-4 of the CPU's")
+
+
+def main_path_h() -> dict:
+    """Path H; returns the kernels' launches in it (none of them runs)."""
+    log(f"path H starts with the host's load average {os.getloadavg()[0]:.2f}, "
+        f"{len(multiprocessing.active_children())} live child processes and "
+        f"{threading.active_count()} threads")
+    reset_counts()
+    t0 = time.time()
+    path_h0_step()
+    log(f"path_h0_step {time.time() - t0:.1f} s")
+    clips = WORK / "h" / "clips"
+    t0 = time.time()
+    cli.main(["fixtures", str(clips), "--num_shards=4", "--clips_per_shard=8",
+              "--size=128", "--labels"])
+    log(f"H1 fixtures --labels, 4 shards x 8 clips at 128^2: {time.time() - t0:.2f} s")
+    t0 = time.time()
+    run = path_h2_pretrain(clips)
+    log(f"path_h2_pretrain {time.time() - t0:.1f} s")
+    t0 = time.time()
+    path_h3_linear_eval(clips / "classify", run)
+    log(f"path_h3_linear_eval {time.time() - t0:.1f} s")
+    return counts()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2091,6 +2351,10 @@ def main() -> int:
     g_launches = main_path_g(gen)
     launches["kmeans_assign_update"] += g_launches
     log(f"path G total {time.time() - t0:.1f} s; K1 {g_launches} launches")
+    t0 = time.time()
+    h_launches = main_path_h()
+    log(f"path H total {time.time() - t0:.1f} s; launches {h_launches}")
+    check(not any(h_launches.values()), "path H launches none of the kernels")
     shutil.rmtree(WORK, ignore_errors=True)
     kernels = []
     for name, _, replaces in KERNELS:

@@ -56,6 +56,9 @@ def test_port_imports_no_jax():
     for name in ("clustering", "derangement", "features", "measures", "optimizers",
                  "pair_weights", "pca_optim", "runner", "sharded", "start_indices"):
         assert f"acav100m_torch.retrieval.{name}" in res["modules"]
+    for name in ("evaluation.config", "evaluation.data", "evaluation.models",
+                 "evaluation.train", "utils.profiling"):
+        assert f"acav100m_torch.{name}" in res["modules"]
     # scikit-learn is imported only inside the functions that use it
     assert "sklearn" not in res["sklearn_loaded"]
 
