@@ -23,9 +23,23 @@ Modules carry the reference's torch names (``visual_conv.s1.pathway0_stem
 head's ``projection``), the names ``convert_contrast_state_dict`` reads,
 so the reference's checkpoints load with ``load_state_dict`` and the
 weight-decay split by ``'bn' in name`` picks the reference's parameters.
-Batch norm is ``nn.BatchNorm{1,2,3}d`` with momentum 0.1 and eps 1e-5: the
-JAX package's ``TorchBatchNorm`` exists to give flax exactly these
-semantics (unbiased running variance, flax momentum 0.9).
+Batch norm is ``BatchNorm``, ``nn.BatchNorm{1,2,3}d``'s semantics and
+state-dict keys with momentum 0.1 and eps 1e-5: the JAX package's
+``TorchBatchNorm`` exists to give flax exactly these semantics (unbiased
+running variance, flax momentum 0.9).
+
+``dtype`` is flax's ``dtype`` with float32 ``param_dtype``: parameters and
+batch-norm buffers keep their dtype, each conv and dense layer casts its
+input and weight to ``dtype``, batch norm computes in at least float32 and
+returns ``dtype``, and the l2 normalisation and ``contrast_loss`` run in
+it. None means the parameters' dtype.
+
+Data parallelism (``set_group``): under the JAX package's ``jit`` with a
+batch-sharded input, batch norm's statistics and the InfoNCE logits are
+global. Here each rank of a ``runtime.Group`` holds its rows, so batch
+norm in train mode sums its statistics over the ranks (``BatchNorm`` with
+a group) and ``contrast_loss`` gathers the other ranks' embeddings, the
+reference's SyncBN and ``diff_all_gather`` with rank-offset labels.
 
 ``state_dict_from_flax`` and ``flax_from_state_dict`` carry the JAX
 package's ``{"params", "batch_stats"}`` trees (numpy) across, in both
@@ -44,6 +58,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..models import init_weights
+from ..runtime.mesh import Group, all_gather_rows, all_reduce_sum, sum_shares
 
 PROJECTION_SIZE = 128
 TEMPERATURE = 0.1
@@ -52,27 +67,145 @@ STAGE_BLOCKS = [3, 4, 6, 3]
 BN_MOMENTUM = 0.1  # torch convention: flax's 0.9 decay
 BN_EPS = 1e-5
 
-_BN = (nn.BatchNorm1d, nn.BatchNorm2d, nn.BatchNorm3d)
+
+def _distributed(group: Optional[Group]) -> bool:
+    return group is not None and group.distributed
 
 
-def _bn(cls, dim: int) -> nn.Module:
-    return cls(dim, eps=BN_EPS, momentum=BN_MOMENTUM)
+class _GroupBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over every rank's rows of ``group``: the
+    global mean, then the global biased variance from the sum of squared
+    deviations from it (two passes, as the JAX package's ``TorchBatchNorm``
+    computes them); the running variance takes the unbiased variance at the
+    global count. The backward sums ``dy`` and ``dy * x_hat`` over the
+    ranks for the input's gradient, and returns this rank's sums as the
+    weight's and bias's gradients (the gradient all-reduce adds the
+    ranks')."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum, eps, group):
+        c = x.shape[1]
+        dims = [0, *range(2, x.dim())]
+        shape = [1, c] + [1] * (x.dim() - 2)
+        sums = all_reduce_sum(torch.cat([x.sum(dims), x.new_full((1,), x.numel() // c)]),
+                              group)
+        count = sums[c]
+        mean = sums[:c] / count
+        xc = x - mean.view(shape)
+        var = all_reduce_sum(xc.square().sum(dims), group) / count
+        invstd = torch.rsqrt(var + eps)
+        x_hat = xc * invstd.view(shape)
+        with torch.no_grad():
+            running_mean.mul_(1 - momentum).add_(momentum * mean.to(running_mean.dtype))
+            unbiased = var * (count / (count - 1).clamp(min=1))
+            running_var.mul_(1 - momentum).add_(momentum * unbiased.to(running_var.dtype))
+        ctx.save_for_backward(x_hat, weight, invstd, count)
+        ctx.group = group
+        return x_hat * weight.view(shape) + bias.view(shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x_hat, weight, invstd, count = ctx.saved_tensors
+        c = dy.shape[1]
+        dims = [0, *range(2, dy.dim())]
+        shape = [1, c] + [1] * (dy.dim() - 2)
+        local = torch.cat([dy.sum(dims), (dy * x_hat).sum(dims)])
+        sums = all_reduce_sum(local.clone(), ctx.group) / count
+        dx = (dy - sums[:c].view(shape) - x_hat * sums[c:].view(shape)) \
+            * (weight * invstd).view(shape)
+        return dx, local[c:], local[:c], None, None, None, None, None
 
 
-def _conv3d(cin: int, cout: int, kernel, stride=1, padding=0) -> nn.Conv3d:
-    return nn.Conv3d(cin, cout, kernel, stride=stride, padding=padding, bias=False)
+class BatchNorm(nn.modules.batchnorm._BatchNorm):
+    """``nn.BatchNorm{1,2,3}d`` (their state-dict keys, momentum 0.1, eps
+    1e-5) for ``ndim``-dimensional inputs, computing in at least float32
+    and returning ``dtype`` (None: the weight's), as the JAX package's
+    ``TorchBatchNorm``. ``group`` (``set_group``): in train mode the
+    statistics are over every rank's rows of a distributed group."""
+
+    def __init__(self, num_features: int, ndim: int, dtype=None):
+        super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.ndim = ndim
+        self.compute_dtype = dtype
+        self.group: Optional[Group] = None
+
+    def _check_input_dim(self, x):
+        if x.dim() != self.ndim:
+            raise ValueError(f"expected a {self.ndim}-D input, got {x.dim()}-D")
+
+    def forward(self, x):
+        dtype = self.compute_dtype or self.weight.dtype
+        xs = x.to(torch.promote_types(dtype, torch.float32))
+        if not (self.training and _distributed(self.group)):
+            return super().forward(xs).to(dtype)
+        self._check_input_dim(xs)
+        self.num_batches_tracked.add_(1)
+        return _GroupBatchNorm.apply(xs, self.weight, self.bias, self.running_mean,
+                                     self.running_var, self.momentum, self.eps,
+                                     self.group).to(dtype)
 
 
-def _conv2d(cin: int, cout: int, kernel, stride=1, padding=0) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=padding, bias=False)
+def set_group(module: nn.Module, group: Optional[Group]) -> None:
+    """Every ``BatchNorm`` of ``module`` computes its train-mode statistics
+    over ``group``'s ranks (None: this process's rows alone)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+
+
+class _CastConv:
+    """A conv that casts its input and weight to ``compute_dtype`` (None:
+    the weight's), flax's ``dtype``."""
+
+    compute_dtype = None
+
+    def forward(self, x):
+        dtype = self.compute_dtype or self.weight.dtype
+        return self._conv_forward(x.to(dtype), self.weight.to(dtype), None)
+
+
+class _Conv3d(_CastConv, nn.Conv3d):
+    pass
+
+
+class _Conv2d(_CastConv, nn.Conv2d):
+    pass
+
+
+class _Linear(nn.Linear):
+    """``nn.Linear`` casting its input, weight and bias to ``compute_dtype``
+    (None: the weight's)."""
+
+    compute_dtype = None
+
+    def forward(self, x):
+        dtype = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+
+
+def _with_dtype(layer, dtype):
+    layer.compute_dtype = dtype
+    return layer
+
+
+def _conv3d(cin: int, cout: int, kernel, stride=1, padding=0, dtype=None) -> nn.Conv3d:
+    return _with_dtype(_Conv3d(cin, cout, kernel, stride=stride, padding=padding,
+                               bias=False), dtype)
+
+
+def _conv2d(cin: int, cout: int, kernel, stride=1, padding=0, dtype=None) -> nn.Conv2d:
+    return _with_dtype(_Conv2d(cin, cout, kernel, stride=stride, padding=padding,
+                               bias=False), dtype)
 
 
 @contextlib.contextmanager
 def _keep_running_stats(module: nn.Module):
     """Restores ``module``'s batch-norm buffers on exit: a rematerialized
     block's second forward must not update the running stats again (flax's
-    ``nn.remat`` recomputes without side effects)."""
-    saved = [(b, b.clone()) for m in module.modules() if isinstance(m, _BN)
+    ``nn.remat`` recomputes without side effects). Over a group the second
+    forward issues the first's collectives again, on every rank alike."""
+    saved = [(b, b.clone()) for m in module.modules() if isinstance(m, BatchNorm)
              for b in (m.running_mean, m.running_var, m.num_batches_tracked)]
     try:
         yield
@@ -91,15 +224,15 @@ def _run_block(block: nn.Module, x: torch.Tensor, remat: bool) -> torch.Tensor:
 
 
 class _Branch2Visual(nn.Module):
-    def __init__(self, dim_in: int, dim_inner: int, dim_out: int, kt: int, s: int):
+    def __init__(self, dim_in: int, dim_inner: int, dim_out: int, kt: int, s: int, dtype):
         super().__init__()
-        self.a = _conv3d(dim_in, dim_inner, (kt, 1, 1), padding=(kt // 2, 0, 0))
-        self.a_bn = _bn(nn.BatchNorm3d, dim_inner)
+        self.a = _conv3d(dim_in, dim_inner, (kt, 1, 1), padding=(kt // 2, 0, 0), dtype=dtype)
+        self.a_bn = BatchNorm(dim_inner, 5, dtype)
         self.b = _conv3d(dim_inner, dim_inner, (1, 3, 3), stride=(1, s, s),
-                         padding=(0, 1, 1))
-        self.b_bn = _bn(nn.BatchNorm3d, dim_inner)
-        self.c = _conv3d(dim_inner, dim_out, 1)
-        self.c_bn = _bn(nn.BatchNorm3d, dim_out)
+                         padding=(0, 1, 1), dtype=dtype)
+        self.b_bn = BatchNorm(dim_inner, 5, dtype)
+        self.c = _conv3d(dim_inner, dim_out, 1, dtype=dtype)
+        self.c_bn = BatchNorm(dim_out, 5, dtype)
 
     def forward(self, x):
         h = F.relu(self.a_bn(self.a(x)))
@@ -112,13 +245,13 @@ class Bottleneck3D(nn.Module):
     shortcut (``branch1``) where the width or the stride changes."""
 
     def __init__(self, dim_in: int, dim_out: int, dim_inner: int, temp_kernel: int,
-                 spatial_stride: int = 1):
+                 spatial_stride: int = 1, dtype=None):
         super().__init__()
         s = spatial_stride
         if dim_in != dim_out or s != 1:
-            self.branch1 = _conv3d(dim_in, dim_out, 1, stride=(1, s, s))
-            self.branch1_bn = _bn(nn.BatchNorm3d, dim_out)
-        self.branch2 = _Branch2Visual(dim_in, dim_inner, dim_out, temp_kernel, s)
+            self.branch1 = _conv3d(dim_in, dim_out, 1, stride=(1, s, s), dtype=dtype)
+            self.branch1_bn = BatchNorm(dim_out, 5, dtype)
+        self.branch2 = _Branch2Visual(dim_in, dim_inner, dim_out, temp_kernel, s, dtype)
 
     def forward(self, x):
         shortcut = self.branch1_bn(self.branch1(x)) if hasattr(self, "branch1") else x
@@ -126,11 +259,12 @@ class Bottleneck3D(nn.Module):
 
 
 class _VisualStem(nn.Module):
-    def __init__(self, width: int):
+    def __init__(self, width: int, dtype):
         super().__init__()
         kt = VISUAL_TEMP_KERNELS[0]
-        self.conv = _conv3d(3, width, (kt, 7, 7), stride=(2, 2, 2), padding=(kt // 2, 3, 3))
-        self.bn = _bn(nn.BatchNorm3d, width)
+        self.conv = _conv3d(3, width, (kt, 7, 7), stride=(2, 2, 2), padding=(kt // 2, 3, 3),
+                            dtype=dtype)
+        self.bn = BatchNorm(width, 5, dtype)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))
@@ -149,13 +283,13 @@ class VisualResNet3D(nn.Module):
     ``remat=True`` recomputes each bottleneck block on the backward pass
     (``torch.utils.checkpoint``), keeping only the blocks' inputs alive."""
 
-    def __init__(self, width: int = 64, remat: bool = False):
+    def __init__(self, width: int = 64, remat: bool = False, dtype=None):
         super().__init__()
         self.width = width
         self.remat = remat
         self.output_size = width * 32
         self.s1 = nn.Module()
-        self.s1.pathway0_stem = _VisualStem(width)
+        self.s1.pathway0_stem = _VisualStem(width, dtype)
         dims_out, dims_inner = _stage_dims(width)
         strides = [1, 2, 2, 2]
         dim_in = width
@@ -164,7 +298,7 @@ class VisualResNet3D(nn.Module):
             for bi in range(STAGE_BLOCKS[si]):
                 stage.add_module(f"pathway0_res{bi}", Bottleneck3D(
                     dim_in, dims_out[si], dims_inner[si], VISUAL_TEMP_KERNELS[si + 1],
-                    strides[si] if bi == 0 else 1))
+                    strides[si] if bi == 0 else 1, dtype))
                 dim_in = dims_out[si]
             self.add_module(f"s{si + 2}", stage)
 
@@ -181,21 +315,23 @@ class VisualResNet3D(nn.Module):
 
 class _Branch2Audio(nn.Module):
     def __init__(self, dim_in: int, dim_inner: int, dim_out: int, s: int,
-                 separable: bool):
+                 separable: bool, dtype):
         super().__init__()
         self.separable = separable
-        self.a = _conv2d(dim_in, dim_inner, 1)
-        self.a_bn = _bn(nn.BatchNorm2d, dim_inner)
+        self.a = _conv2d(dim_in, dim_inner, 1, dtype=dtype)
+        self.a_bn = BatchNorm(dim_inner, 4, dtype)
         if separable:
-            self.b1 = _conv2d(dim_inner, dim_inner, (3, 1), stride=(s, 1), padding=(1, 0))
-            self.b1_bn = _bn(nn.BatchNorm2d, dim_inner)
-            self.b2 = _conv2d(dim_inner, dim_inner, (1, 3), stride=(1, s), padding=(0, 1))
-            self.b2_bn = _bn(nn.BatchNorm2d, dim_inner)
+            self.b1 = _conv2d(dim_inner, dim_inner, (3, 1), stride=(s, 1), padding=(1, 0),
+                              dtype=dtype)
+            self.b1_bn = BatchNorm(dim_inner, 4, dtype)
+            self.b2 = _conv2d(dim_inner, dim_inner, (1, 3), stride=(1, s), padding=(0, 1),
+                              dtype=dtype)
+            self.b2_bn = BatchNorm(dim_inner, 4, dtype)
         else:
-            self.b = _conv2d(dim_inner, dim_inner, 3, stride=s, padding=1)
-            self.b_bn = _bn(nn.BatchNorm2d, dim_inner)
-        self.c = _conv2d(dim_inner, dim_out, 1)
-        self.c_bn = _bn(nn.BatchNorm2d, dim_out)
+            self.b = _conv2d(dim_inner, dim_inner, 3, stride=s, padding=1, dtype=dtype)
+            self.b_bn = BatchNorm(dim_inner, 4, dtype)
+        self.c = _conv2d(dim_inner, dim_out, 1, dtype=dtype)
+        self.c_bn = BatchNorm(dim_out, 4, dtype)
 
     def forward(self, x):
         h = F.relu(self.a_bn(self.a(x)))
@@ -213,12 +349,12 @@ class Bottleneck2D(nn.Module):
     convs, each followed by BN + ReLU."""
 
     def __init__(self, dim_in: int, dim_out: int, dim_inner: int, stride: int = 1,
-                 separable: bool = False):
+                 separable: bool = False, dtype=None):
         super().__init__()
         if dim_in != dim_out or stride != 1:
-            self.branch1 = _conv2d(dim_in, dim_out, 1, stride=stride)
-            self.branch1_bn = _bn(nn.BatchNorm2d, dim_out)
-        self.branch2 = _Branch2Audio(dim_in, dim_inner, dim_out, stride, separable)
+            self.branch1 = _conv2d(dim_in, dim_out, 1, stride=stride, dtype=dtype)
+            self.branch1_bn = BatchNorm(dim_out, 4, dtype)
+        self.branch2 = _Branch2Audio(dim_in, dim_inner, dim_out, stride, separable, dtype)
 
     def forward(self, x):
         shortcut = self.branch1_bn(self.branch1(x)) if hasattr(self, "branch1") else x
@@ -226,12 +362,12 @@ class Bottleneck2D(nn.Module):
 
 
 class _AudioStem(nn.Module):
-    def __init__(self, width: int):
+    def __init__(self, width: int, dtype):
         super().__init__()
-        self.conv1 = _conv2d(1, width, (9, 1), padding=(4, 0))
-        self.bn1 = _bn(nn.BatchNorm2d, width)
-        self.conv2 = _conv2d(width, width, (1, 9), padding=(0, 4))
-        self.bn2 = _bn(nn.BatchNorm2d, width)
+        self.conv1 = _conv2d(1, width, (9, 1), padding=(4, 0), dtype=dtype)
+        self.bn1 = BatchNorm(width, 4, dtype)
+        self.conv2 = _conv2d(width, width, (1, 9), padding=(0, 4), dtype=dtype)
+        self.bn2 = BatchNorm(width, 4, dtype)
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
@@ -242,12 +378,12 @@ class AudioResNet2D(nn.Module):
     """(B, 1, freq=80, time=128) log-mel -> (B, 32 * width), 1024 at the
     default width 32 (reference config.py:226)."""
 
-    def __init__(self, width: int = 32):
+    def __init__(self, width: int = 32, dtype=None):
         super().__init__()
         self.width = width
         self.output_size = width * 32
         self.s1 = nn.Module()
-        self.s1.stem = _AudioStem(width)
+        self.s1.stem = _AudioStem(width, dtype)
         dims_out, dims_inner = _stage_dims(width)
         dim_in = width
         for si in range(4):
@@ -255,7 +391,7 @@ class AudioResNet2D(nn.Module):
             for bi in range(STAGE_BLOCKS[si]):
                 stage.add_module(f"res{bi}", Bottleneck2D(
                     dim_in, dims_out[si], dims_inner[si], 2 if bi == 0 else 1,
-                    separable=si < 2))  # s2/s3 separable, s4/s5 full
+                    separable=si < 2, dtype=dtype))  # s2/s3 separable, s4/s5 full
                 dim_in = dims_out[si]
             self.add_module(f"s{si + 2}", stage)
 
@@ -271,11 +407,11 @@ class FFNLayer(nn.Module):
     """in -> hidden (BN + ReLU) -> out projection (models/utils.py:46-86);
     fc1 carries no bias, fc2 does."""
 
-    def __init__(self, dim_in: int, hidden: int, out: int):
+    def __init__(self, dim_in: int, hidden: int, out: int, dtype=None):
         super().__init__()
-        self.fc1 = nn.Linear(dim_in, hidden, bias=False)
-        self.bn = _bn(nn.BatchNorm1d, hidden)
-        self.fc2 = nn.Linear(hidden, out)
+        self.fc1 = _with_dtype(_Linear(dim_in, hidden, bias=False), dtype)
+        self.bn = BatchNorm(hidden, 2, dtype)
+        self.fc2 = _with_dtype(_Linear(hidden, out), dtype)
 
     def forward(self, x):
         return self.fc2(F.relu(self.bn(self.fc1(x))))
@@ -295,16 +431,16 @@ def init_eval_weights(module: nn.Module, generator: torch.Generator) -> None:
 
 class Contrast(nn.Module):
     """Audio-visual contrastive model: (visual (B, 3, T, H, W), audio (B, 1,
-    80, 128)) -> l2-normalized (B, 128) embeddings, each."""
+    80, 128)) -> l2-normalized (B, 128) embeddings, each, in ``dtype``."""
 
     def __init__(self, projection_size: int = PROJECTION_SIZE, remat: bool = False,
-                 visual_width: int = 64, audio_width: int = 32):
+                 visual_width: int = 64, audio_width: int = 32, dtype=None):
         super().__init__()
-        self.visual_conv = VisualResNet3D(visual_width, remat=remat)
-        self.audio_conv = AudioResNet2D(audio_width)
+        self.visual_conv = VisualResNet3D(visual_width, remat=remat, dtype=dtype)
+        self.audio_conv = AudioResNet2D(audio_width, dtype=dtype)
         dv, da = self.visual_conv.output_size, self.audio_conv.output_size
-        self.visual_mlp = FFNLayer(dv, dv, projection_size)
-        self.audio_mlp = FFNLayer(da, da, projection_size)
+        self.visual_mlp = FFNLayer(dv, dv, projection_size, dtype)
+        self.audio_mlp = FFNLayer(da, da, projection_size, dtype)
 
     def forward(self, visual, audio):
         zv = self.visual_mlp(self.visual_conv(visual))
@@ -312,34 +448,47 @@ class Contrast(nn.Module):
         return F.normalize(zv, dim=-1, eps=1e-12), F.normalize(za, dim=-1, eps=1e-12)
 
 
-def contrast_loss(zv: torch.Tensor, za: torch.Tensor,
-                  temperature: float = TEMPERATURE) -> Tuple[torch.Tensor, torch.Tensor]:
+def contrast_loss(zv: torch.Tensor, za: torch.Tensor, temperature: float = TEMPERATURE,
+                  group: Optional[Group] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric cross-modal InfoNCE over the batch -> (loss, top-1
-    accuracy in percent)."""
+    accuracy in percent), in the embeddings' dtype.
+
+    Over a distributed ``group`` the batch is every rank's rows: this
+    rank's rows against the gathered embeddings of all ranks, labels
+    offset by the rank's first row. The rank's loss is its rows' share of
+    the global loss (its cross-entropies over the global 2B);
+    ``sum_shares`` returns the global loss and accuracy on every rank and
+    passes the gradient to the share unchanged, so that summing the
+    parameters' gradients over the ranks gives the global loss's."""
     b = zv.shape[0]
-    logits_ab = zv @ za.T / temperature
-    logits_ba = za @ zv.T / temperature
-    labels = torch.arange(b, device=zv.device)
+    world, rank = (group.world_size, group.rank) if _distributed(group) else (1, 0)
+    logits_ab = zv @ all_gather_rows(za, group).T / temperature
+    logits_ba = za @ all_gather_rows(zv, group).T / temperature
+    labels = torch.arange(b, device=zv.device) + rank * b
     loss = (F.cross_entropy(logits_ab, labels, reduction="sum")
-            + F.cross_entropy(logits_ba, labels, reduction="sum")) / (2 * b)
+            + F.cross_entropy(logits_ba, labels, reduction="sum")) / (2 * b * world)
     correct = ((logits_ab.argmax(-1) == labels).sum()
                + (logits_ba.argmax(-1) == labels).sum())
-    return loss, correct / (2 * b) * 100.0
+    if _distributed(group):
+        total = sum_shares(torch.stack([loss.double(), correct.double()]), group)
+        loss, correct = total[0].to(loss.dtype), total[1].detach().long()
+    return loss, correct / (2 * b * world) * 100.0
 
 
 class ClassifyHead(nn.Module):
     """Linear-eval head over frozen backbone features
-    (models/classify.py:13-163): dropout, then ``projection``.
+    (models/classify.py:13-163): dropout, then ``projection`` in ``dtype``.
 
     ``forward(feats, mask)`` with a boolean keep ``mask`` of feats' shape
     applies that dropout mask in train mode (kept entries scaled by
     1 / (1 - rate), as flax's and torch's dropout do) instead of drawing
     one, so a caller can fix the draws."""
 
-    def __init__(self, in_features: int, num_classes: int, dropout_rate: float = 0.5):
+    def __init__(self, in_features: int, num_classes: int, dropout_rate: float = 0.5,
+                 dtype=None):
         super().__init__()
         self.dropout_rate = dropout_rate
-        self.projection = nn.Linear(in_features, num_classes)
+        self.projection = _with_dtype(_Linear(in_features, num_classes), dtype)
 
     def forward(self, feats, mask: Optional[torch.Tensor] = None):
         if not self.training or self.dropout_rate == 0:

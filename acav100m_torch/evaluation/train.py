@@ -12,6 +12,10 @@ reference's ``evaluation/code/{contrast_net,classify_net}.py``,
 * pretrain loop: batch InfoNCE with autograd through both backbones,
   preemptible ``epoch_latest`` / ``step_latest`` checkpoints
   (contrast_net.py:105-135, 252-270) in the JAX package's flax layout;
+  over a ``runtime.Group`` (the JAX package's ``mesh=``) every rank takes
+  the same global batch, keeps its rows and runs the global InfoNCE and
+  batch norm over the group, and the step sums the gradients over the
+  ranks before the optimizer's step (the reference's DDP and SyncBN);
 * linear eval: frozen backbone (eval mode under ``torch.inference_mode``),
   trainable ``ClassifyHead``, optimizer over the head only
   (classify_net.py:87), per-video score sums over the test views
@@ -34,9 +38,18 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..runtime.mesh import (
+    Group,
+    all_reduce_sum_flat,
+    barrier,
+    broadcast_flat,
+    group_device,
+    shard_rows,
+)
 from ..utils.io import dump_pickle, load_pickle
 from .models import (
     AudioResNet2D,
+    BatchNorm,
     ClassifyHead,
     Contrast,
     VisualResNet3D,
@@ -45,6 +58,7 @@ from .models import (
     flax_from_state_dict,
     head_flax_from_state_dict,
     init_eval_weights,
+    set_group,
     state_dict_from_flax,
     strip_heads,
 )
@@ -142,8 +156,10 @@ def normalize_visual(frames: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
 def model_inputs(visual, audio, device, dtype=torch.float32
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A batch's uint8 frames (B, T, H, W, 3) and log-mels (B, 80, 128, 1),
-    numpy or tensors -> the models' inputs in ``dtype`` on ``device``:
-    frames normalized there (NCDHW), log-mels as (B, 1, 80, 128)."""
+    numpy or tensors -> the models' inputs in ``dtype`` (the parameters',
+    whatever dtype the model computes in: its first convs cast them) on
+    ``device``: frames normalized there (NCDHW), log-mels as (B, 1, 80,
+    128)."""
     frames = visual if torch.is_tensor(visual) else torch.from_numpy(np.asarray(visual))
     lm = audio if torch.is_tensor(audio) else torch.from_numpy(np.asarray(audio))
     v = normalize_visual(frames.to(device), dtype)
@@ -154,35 +170,58 @@ def model_inputs(visual, audio, device, dtype=torch.float32
 
 
 def init_pretrain(seed: int = 0, schedule: Optional[Callable[[int], float]] = None,
-                  device=None) -> TrainState:
+                  device=None, dtype=None, group: Optional[Group] = None) -> TrainState:
     """A seeded ``Contrast`` (flax's default init from a CPU
     ``torch.Generator``, the same weights on every device) in train mode on
-    ``device``, with adamw on ``schedule`` (default: linear, lr 1e-3 over
-    10000 steps, 2000 of warmup, as the JAX package's)."""
-    device = resolve_device(device)
-    model = Contrast()
+    ``device``, computing in ``dtype`` (None: float32; the parameters stay
+    float32), with adamw on ``schedule`` (default: linear, lr 1e-3 over
+    10000 steps, 2000 of warmup, as the JAX package's).
+
+    With ``group`` the model runs on the group's device, its batch norms
+    over the group's ranks (``set_group``), and rank 0's weights are
+    broadcast to every rank, the replicated placement of the JAX
+    package's mesh step."""
+    device = group_device(device, group)
+    model = Contrast(dtype=dtype)
     init_eval_weights(model, torch.Generator().manual_seed(seed))
     model.to(device).train()
+    set_group(model, group)
+    broadcast_flat([*model.parameters(), *model.buffers()], group)
     schedule = schedule or lr_schedule("linear", 1e-3, 10000, warmup_steps=2000)
     return TrainState(model, build_optimizer("adamw", model.named_parameters(), schedule),
                       schedule)
 
 
-def make_pretrain_step(state: TrainState):
+def make_pretrain_step(state: TrainState, group: Optional[Group] = None):
     """The contrastive train step: (state, visual uint8 (B,T,H,W,3), audio
     (B,80,128,1)) -> (state, {"loss", "acc"}) after one train-mode forward,
     backward and optimizer step at lr ``schedule(state.step)``; the frames
-    are normalized on the model's device."""
+    are normalized on the model's device.
+
+    With ``group`` (the state's, from ``init_pretrain(group=)``) the step
+    takes the global batch, as the JAX package's mesh step does, and keeps
+    this rank's rows (``shard_rows``: B must split evenly over the ranks);
+    the loss and accuracy are the global batch's, and the gradients are
+    summed over the ranks in one flat all-reduce before the optimizer's
+    step, so every rank ends with the same parameters, statistics and
+    optimizer state."""
     param = next(state.model.parameters())
+    groups = {m.group for m in state.model.modules() if isinstance(m, BatchNorm)}
+    if groups != {group}:
+        raise ValueError(f"the step runs over {group} but the model's batch norms over "
+                         f"{groups}: build the state with init_pretrain(group=)")
+    params = list(state.model.parameters())
 
     def step(state: TrainState, visual, audio):
         model, optimizer = state.model, state.optimizer
         model.train()
-        v, a = model_inputs(visual, audio, param.device, param.dtype)
+        v, a = model_inputs(shard_rows(visual, group), shard_rows(audio, group),
+                            param.device, param.dtype)
         zv, za = model(v, a)
-        loss, acc = contrast_loss(zv, za)
+        loss, acc = contrast_loss(zv, za, group=group)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_sum_flat([p.grad for p in params if p.grad is not None], group)
         set_lr(optimizer, state.schedule(state.step))
         optimizer.step()
         state.step += 1
@@ -270,27 +309,41 @@ def pretrain(
     log_every: int = 10,
     tb_dir=None,
     device=None,
+    group: Optional[Group] = None,
 ) -> Tuple[TrainState, list]:
     """The contrast() pretrain loop (contrast_net.py:25-284), step-based,
     with the JAX package's meters: windowed median/average loss, iter
     timing and lr as json lines appended to ``out_dir/stats.jsonl`` and
     scalars to ``tb_dir`` when given. Unlike the JAX package's it takes no
-    ``num_frames``/``crop``: a torch module needs no input to initialize."""
+    ``num_frames``/``crop``: a torch module needs no input to initialize.
+
+    With ``group`` (the JAX package's ``mesh``) every rank iterates the
+    same global ``batches`` and steps on its rows (``make_pretrain_step``);
+    every rank resumes from ``step_latest.ckpt``, only rank 0 writes the
+    checkpoints, ``stats.jsonl`` and ``tb_dir``, and the ranks meet at a
+    barrier after each save."""
     from ..utils.profiling import IterTimer, Meters, TensorBoardWriter, log_json_stats
 
     schedule = lr_schedule("linear", base_lr, num_steps, warmup_steps=warmup_steps)
-    state = init_pretrain(seed, schedule, device)
+    state = init_pretrain(seed, schedule, device, group=group)
     start_epoch = 0
     if resume and out_dir is not None:
         latest = Path(out_dir) / "step_latest.ckpt"
         if latest.is_file():
             state, start_epoch = load_checkpoint(latest, state)
-    step_fn = make_pretrain_step(state)
+    step_fn = make_pretrain_step(state, group)
+    lead = group is None or group.rank == 0
+
+    def save(name: str) -> None:
+        if lead:
+            save_checkpoint(out_dir, state, epoch=start_epoch, name=name)
+        barrier(group)
+
     history = []
     meters = Meters(window_size=log_every)
     timer = IterTimer(window_size=max(log_every, 2))
-    writer = TensorBoardWriter(tb_dir, enabled=tb_dir is not None)
-    stats_path = Path(out_dir) / "stats.jsonl" if out_dir is not None else None
+    writer = TensorBoardWriter(tb_dir, enabled=tb_dir is not None and lead)
+    stats_path = Path(out_dir) / "stats.jsonl" if out_dir is not None and lead else None
     t0 = time.time()
     for i, batch in enumerate(batches):
         if state.step >= num_steps:
@@ -322,9 +375,9 @@ def pretrain(
                 step=state.step,
             )
         if out_dir is not None and (i + 1) % save_period == 0:
-            save_checkpoint(out_dir, state, epoch=start_epoch, name="step_latest")
+            save("step_latest")
     if out_dir is not None:
-        save_checkpoint(out_dir, state, epoch=start_epoch, name="epoch_latest")
+        save("epoch_latest")
         log_json_stats(
             {"_type": "train_done", "step": state.step,
              **{f"{k}_global": v for k, v in meters.global_avgs().items()}},

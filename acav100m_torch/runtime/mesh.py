@@ -8,6 +8,10 @@ ones) and launched by ``torchrun`` or ``torch.multiprocessing`` spawn. So
 the counterpart of ``get_mesh`` is a ``Group`` handle (rank, world size,
 device, backend) that ``initialize_runtime`` returns, and the stages call
 the collectives below where the JAX package's ``psum`` and all-gather sit.
+Where the JAX package shards a batch with ``P("data")`` under ``jit``,
+``shard_rows`` cuts this rank's block, and ``all_gather_rows`` and
+``sum_shares`` are the differentiable collectives of a sharded train
+step.
 The JAX ``cpu_mesh_env`` (virtual devices in one process) has no
 counterpart: a CPU run here is several gloo processes.
 
@@ -22,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -180,3 +184,89 @@ def barrier(group: Optional[Group]) -> None:
         dist.barrier(device_ids=[group.device.index])
     else:
         dist.barrier()
+
+
+def shard_rows(x, group: Optional[Group]):
+    """This rank's contiguous block of a global batch's rows (numpy or
+    tensor): rows ``[r*B/W, (r+1)*B/W)``, as ``P("data")`` places them. A
+    batch the ranks cannot split evenly raises ``ValueError``, as the JAX
+    package's ``jit`` refuses one; every rank raises before any collective."""
+    if group is None:
+        return x
+    b, world = len(x), group.world_size
+    if b % world:
+        raise ValueError(f"a global batch of {b} rows does not split evenly over "
+                         f"{world} ranks")
+    per = b // world
+    return x[group.rank * per:(group.rank + 1) * per]
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_gather_cat(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group = ctx.group
+        grad = all_reduce_sum(grad.clone(memory_format=torch.contiguous_format), group)
+        per = grad.shape[0] // group.world_size
+        return grad[group.rank * per:(group.rank + 1) * per], None
+
+
+def all_gather_rows(t: Tensor, group: Optional[Group]) -> Tensor:
+    """``all_gather_cat`` along the rows, differentiable: the backward sums
+    the gathered rows' gradients over the ranks and keeps this rank's rows
+    (the reference's ``diff_all_gather``). It all-reduces rather than
+    reduce-scatters, which gloo cannot do on CUDA tensors."""
+    if group is None or not group.distributed:
+        return t
+    return _GatherRows.apply(t, group)
+
+
+class _SumShares(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce_sum(t.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_shares(t: Tensor, group: Optional[Group]) -> Tensor:
+    """The sum of every rank's ``t``, whose gradient flows back to this
+    rank's ``t`` unchanged: ``t`` is the rank's share of a global sum, and
+    summing the parameters' gradients over the ranks then gives the global
+    sum's gradient."""
+    if group is None or not group.distributed:
+        return t
+    return _SumShares.apply(t, group)
+
+
+def _flat(tensors: Sequence[Tensor], op) -> None:
+    """``op`` in place on one flat copy of ``tensors`` a dtype (dtypes in
+    the order they first appear, alike on every rank), written back."""
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        part = [t for t in tensors if t.dtype == dtype]
+        with torch.no_grad():
+            flat = op(torch.cat([t.reshape(-1) for t in part]))
+            offset = 0
+            for t in part:
+                t.copy_(flat[offset:offset + t.numel()].view_as(t))
+                offset += t.numel()
+
+
+def all_reduce_sum_flat(tensors: Sequence[Tensor], group: Optional[Group]) -> None:
+    """Sum each of ``tensors`` over the ranks, in place, in one all-reduce
+    of one flat bucket a dtype (a train step's gradients)."""
+    if group is not None and group.distributed:
+        _flat(tensors, lambda flat: all_reduce_sum(flat, group))
+
+
+def broadcast_flat(tensors: Sequence[Tensor], group: Optional[Group], src: int = 0) -> None:
+    """Rank ``src``'s ``tensors`` on every rank, in place, in one broadcast
+    of one flat bucket a dtype."""
+    if group is not None and group.distributed:
+        _flat(tensors, lambda flat: broadcast(flat, group, src))

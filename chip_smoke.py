@@ -103,7 +103,21 @@ Phases, each printing its own lines:
    ``classify/`` from H2's checkpoint, multimodal, 20 head steps, with and
    without cached features (top-1/top-5), and the test views' frozen
    features card against CPU (TF32 off, 1e-4). Path H launches none of the
-   three kernels.
+   three kernels;
+11. paths H4 and H5 at the same widths. H4, the sharded pretrain step
+   (``make_pretrain_step(state, group)``): a float64 step (TF32 off) at a
+   global batch of 4 on 2 spawned gloo ranks sharing ``cuda:0``, on a
+   one-rank NCCL group and, with more cards, on 2 or 4 NCCL ranks, one a
+   card: the ranks bit-identical, each against the unsharded card step on
+   the same rows (params 1e-9 relative L2, loss 1e-10); then float32 at a
+   global batch of 8, each rank's warm step, its gradient all-reduce and
+   batch-norm collectives timed one by one, peak memory, beside the
+   unsharded step's. H5, bf16 (``init_pretrain(dtype=torch.bfloat16)``):
+   the card's eval-mode embeddings at batch 4 against its float64 ones
+   within 3 times the CPU's own bf16 error; a bf16 train step with finite
+   losses, float32 parameters and statistics, its warm ms, kernels and
+   peak memory beside the float32 step's. Neither launches a kernel of the
+   table.
 
 Then one JSON line of per-kernel results and, last, the device JSON line.
 Any failed check raises, so the script exits non-zero. Without a CUDA
@@ -155,7 +169,7 @@ from acav100m_torch.ops import mi
 from acav100m_torch.pipeline import contrastive_selection as cs
 from acav100m_torch.pipeline import feature_extraction as fe
 from acav100m_torch.pipeline import subset_selection as ss
-from acav100m_torch.profiling import (card, device_busy, run as profile_run,
+from acav100m_torch.profiling import (card, device_busy, profile_calls, run as profile_run,
                                       time_cold_ms, time_ms)
 from acav100m_torch.utils.io import dump_pickle, load_pickle, make_feature_row
 
@@ -1420,8 +1434,8 @@ def e4_check(results: list, root: Path) -> None:
 
 def path_e_rank(rank: int, world: int, address: str, backend: str, device: str,
                 scenarios, root: str) -> None:
-    """One rank of path E (a spawned process): joins the group, runs the
-    scenarios, writes its results."""
+    """One rank of path E or H4 (a spawned process): joins the group, runs
+    the scenarios, writes its results."""
     root = Path(root)
     group = runtime.initialize_runtime(address, world, rank, device=device, backend=backend,
                                        timeout_s=E_RANK_LIMIT_S)
@@ -1442,6 +1456,8 @@ def path_e_rank(rank: int, world: int, address: str, backend: str, device: str,
             out["e3"] = e3_rank(group)
         if "e4" in scenarios:
             out["e4"] = e4_rank(group)
+        if "h4" in scenarios:
+            out["h4"] = h4_rank(group, root)
     finally:
         runtime.shutdown_runtime(group)
     (root / f"rank{rank}.json").write_text(json.dumps(out))
@@ -2094,23 +2110,48 @@ def h_batch(rng: np.random.RandomState, b: int) -> tuple:
             rng.randn(b, 80, 128, 1).astype(np.float32))
 
 
-def h0_step(tree: dict, visual, audio, device: str, dtype) -> tuple:
-    """One adamw step (lr 1e-3, no warmup) of the full-width ``Contrast``
-    loaded with ``tree``, in ``dtype`` on ``device`` -> (loss, acc, wall
-    seconds, the state dict after the step on the CPU)."""
+def h_tree() -> dict:
+    """A seeded numpy weight tree (random BN gammas and statistics) of the full-width ``Contrast``."""
+    from acav100m_torch.evaluation import models as em
+    from tests.torch_parity import random_variables
+
+    return random_variables(em.flax_from_state_dict(em.Contrast().state_dict()), seed=12)
+
+
+def h_tree_state(tree: dict, device, dtype, group=None):
+    """The full-width ``Contrast`` loaded with ``tree``, in ``dtype`` on
+    ``device`` (over ``group``), with adamw at lr 1e-3, no warmup."""
     from acav100m_torch.evaluation import models as em
     from acav100m_torch.evaluation import train as et
 
-    state = et.init_pretrain(0, et.lr_schedule("linear", 1e-3, 10), device)
+    state = et.init_pretrain(0, et.lr_schedule("linear", 1e-3, 10), device, group=group)
     state.model.load_state_dict(em.state_dict_from_flax(tree))
     state.model.to(dtype)
     state.optimizer = et.build_optimizer("adamw", state.model.named_parameters(),
                                          state.schedule)
+    return state
+
+
+def h0_step(tree: dict, visual, audio, device, dtype, group=None) -> tuple:
+    """One adamw step (lr 1e-3, no warmup) of the full-width ``Contrast``
+    loaded with ``tree``, in ``dtype`` on ``device`` (over ``group``, on
+    the global batch) -> (loss, acc, wall seconds, the state dict after the
+    step on the CPU, a digest of the parameters, statistics and optimizer
+    state)."""
+    from acav100m_torch.evaluation import train as et
+
+    state = h_tree_state(tree, device, dtype, group)
     t0 = time.time()
-    state, metrics = et.make_pretrain_step(state)(state, visual, audio)
+    state, metrics = et.make_pretrain_step(state, group)(state, visual, audio)
     loss, acc = float(metrics["loss"]), float(metrics["acc"])
-    return loss, acc, time.time() - t0, {k: v.detach().cpu().double()
-                                         for k, v in state.model.state_dict().items()}
+    wall = time.time() - t0
+    opt = state.optimizer.state_dict()["state"]
+    digest = hashlib.sha256()
+    for t in [*state.model.state_dict().values(),
+              *(v for i in sorted(opt) for _, v in sorted(opt[i].items()))]:
+        digest.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return loss, acc, wall, {k: v.detach().cpu().double()
+                             for k, v in state.model.state_dict().items()}, digest.hexdigest()
 
 
 def h0_errors(a: tuple, b: tuple, names) -> tuple:
@@ -2135,9 +2176,8 @@ def path_h0_step() -> None:
     float64 CPU step: the card's loss and params may be off by at most 3
     times the CPU's own float32 error (or by the float64 tolerance)."""
     from acav100m_torch.evaluation import models as em
-    from tests.torch_parity import random_variables
 
-    tree = random_variables(em.flax_from_state_dict(em.Contrast().state_dict()), seed=12)
+    tree = h_tree()
     visual, audio = h_batch(np.random.RandomState(12), 2)
     names = [k for k, _ in em.Contrast().named_parameters()]
     with no_tf32():
@@ -2304,6 +2344,264 @@ def main_path_h() -> dict:
     return counts()
 
 
+# -- phase 11: paths H4 and H5, the sharded pretrain step and bf16 ----------------
+
+H4_BATCH = 4  # the float64 gate's global batch
+H4_TIMED_BATCH = 8  # the float32 timing's global batch
+H4_TOL = {"params": 1e-9, "loss": 1e-10}
+H5_FLOOR = 1e-3  # the card's bf16 error may reach 3x the CPU's, or this
+
+
+# the function of ``runtime.mesh`` or ``evaluation.models`` that called
+# ``all_reduce_sum`` or ``all_gather_cat`` -> the kind of collective
+COLLECTIVE_KINDS = {"all_reduce_sum_flat": "grads", "_GroupBatchNorm": "bn",
+                    "_GatherRows": "gather", "_SumShares": "loss"}
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Times each ``all_reduce`` and ``all_gather`` the port issues, the
+    device synchronized before and after each (host clock, ms), by kind
+    (``COLLECTIVE_KINDS``, from the caller of the port's collective): the
+    gradients' flat bucket, batch norm's statistics and gradient sums, the
+    embeddings' gathers and their gradients' all-reduces, the loss and
+    accuracy."""
+    import torch.distributed as dist
+
+    real = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+    times = {kind: [] for kind in (*COLLECTIVE_KINDS.values(), "other")}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            caller = sys._getframe(2).f_code.co_qualname
+            kind = next((k for part, k in COLLECTIVE_KINDS.items() if part in caller), "other")
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    for name in real:
+        setattr(dist, name, timed(name))
+    try:
+        yield times
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+def h4_timing(group) -> dict:
+    """Float32 steps (cuDNN TF32 as in H2) of a fresh full-width model at a
+    global batch of 8 over ``group`` (None: one process): 3 warm steps'
+    wall, one more step's collectives timed one by one, peak memory."""
+    from acav100m_torch.evaluation import train as et
+
+    state = et.init_pretrain(0, et.lr_schedule("linear", 1e-3, 100),
+                             "cuda" if group is None else None, group=group)
+    step = et.make_pretrain_step(state, group)
+    visual, audio = h_batch(np.random.RandomState(14), H4_TIMED_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        state, _ = step(state, visual, audio)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, visual, audio)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with timed_collectives() as calls:
+        state, metrics = step(state, visual, audio)
+    check(not calls["other"], "H4: every collective of the step is of a known kind")
+    return {"step_ms": walls, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "collectives": {k: [len(v), sum(v)] for k, v in calls.items()},
+            "timed_loss": float(metrics["loss"])}
+
+
+def h4_rank(group, root: Path) -> dict:
+    """One rank of H4: the float64 gate step (TF32 off) on the global batch
+    of 4 (rank 0 saves its state dict), then ``h4_timing``."""
+    reset_counts()
+    visual, audio = h_batch(np.random.RandomState(13), H4_BATCH)
+    with no_tf32():
+        loss, acc, wall, sd, digest = h0_step(h_tree(), visual, audio, None, torch.float64,
+                                              group)
+    if group.rank == 0:
+        torch.save(sd, root / "h4_rank0.pt")
+    del sd
+    out = {"loss": loss, "acc": acc, "digest": digest, "gate_s": wall, **h4_timing(group)}
+    out["launches"] = counts()
+    return out
+
+
+def h4_errors(loss: float, acc: float, sd: dict, one: tuple, names) -> tuple:
+    l_err, p_err, s_err = h0_errors((loss, acc, 0.0, sd), one, names)
+    check(p_err <= H4_TOL["params"] and l_err <= H4_TOL["loss"] and acc == one[1],
+          f"H4: the sharded step within {H4_TOL} of the unsharded step, accuracy equal "
+          f"(params {p_err:.2e}, loss {loss!r} vs {one[0]!r}, rel err {l_err:.2e}, acc {acc} "
+          f"vs {one[1]})")
+    return l_err, p_err, s_err
+
+
+def h4_ranks(label: str, results: list, root: Path, one: tuple, names) -> None:
+    """The ranks' gate steps: bit-identical, and rank 0's against the
+    unsharded step ``one``; then their timing, printed."""
+    check(len({(r["digest"], r["loss"], r["acc"], r["timed_loss"]) for r in results}) == 1,
+          f"H4 {label}: every rank ends with the same loss, accuracy, parameters, "
+          f"statistics and optimizer state")
+    check(all(not any(r["launches"].values()) for r in results),
+          f"H4 {label}: no kernel of the table launched ({[r['launches'] for r in results]})")
+    errs = h4_errors(results[0]["loss"], results[0]["acc"], torch.load(root / "h4_rank0.pt"),
+                     one, names)
+    log(f"H4 {label}, float64 step at a global batch of {H4_BATCH} (TF32 off): ranks "
+        f"bit-identical; against the unsharded card step: loss rel err {errs[0]:.2e}, params "
+        f"rel L2 {errs[1]:.2e}, running stats {errs[2]:.2e}; "
+        f"{[round(r['gate_s'], 2) for r in results]} s with the first call")
+    for r in results:
+        c = r["collectives"]
+        log(f"H4 {label}, float32 step at a global batch of {H4_TIMED_BATCH} "
+            f"({H4_TIMED_BATCH // len(results)} a rank, cuDNN TF32): warm walls "
+            f"{', '.join(f'{x:.2f}' for x in r['step_ms'])} ms; one step's collectives, each "
+            f"between synchronizations: gradient all-reduce {c['grads'][0]} x "
+            f"{c['grads'][1]:.2f} ms, batch norm {c['bn'][0]} all-reduces {c['bn'][1]:.2f} ms, "
+            f"the embeddings' gathers and their gradients {c['gather'][0]} "
+            f"{c['gather'][1]:.2f} ms, loss {c['loss'][0]} {c['loss'][1]:.2f} ms; peak "
+            f"{r['peak_gib']:.2f} GiB; {card()}")
+
+
+def path_h4_sharded() -> None:
+    """H4: the sharded pretrain step at full width, 8 x 112^2. The float64
+    gate (TF32 off): 2 gloo ranks sharing ``cuda:0``, a one-rank NCCL group
+    and, with more cards, one NCCL rank a card (2 or 4), each against the
+    unsharded card step on the same global batch of 4 and bit-identical
+    across ranks. Then float32 at a global batch of 8: each rank's warm
+    step, its gradient all-reduce and batch-norm collectives, peak memory,
+    beside the unsharded step's."""
+    from acav100m_torch.evaluation import models as em
+
+    root = WORK / "h4"
+    names = [k for k, _ in em.Contrast().named_parameters()]
+    tree = h_tree()
+    visual, audio = h_batch(np.random.RandomState(13), H4_BATCH)
+    with no_tf32():
+        one = h0_step(tree, visual, audio, "cuda", torch.float64)
+    t0 = time.time()
+    results = spawn_ranks(2, "gloo", ["cuda:0", "cuda:0"], ("h4",), root / "gloo")
+    log(f"H4, 2 ranks sharing cuda:0 over gloo: {time.time() - t0:.1f} s from spawn to exit")
+    h4_ranks("2 gloo ranks on cuda:0", [r["h4"] for r in results], root / "gloo", one, names)
+    group = runtime.initialize_runtime(free_address(), 1, 0, device="cuda:0")
+    try:
+        check(group.backend == "nccl", "H4's one-rank group runs over NCCL")
+        with no_tf32():
+            nccl = h0_step(tree, visual, audio, None, torch.float64, group)
+    finally:
+        runtime.shutdown_runtime(group)
+    errs = h4_errors(nccl[0], nccl[1], nccl[3], one, names)
+    log(f"H4 one-rank NCCL group, float64: against the unsharded card step loss rel err "
+        f"{errs[0]:.2e}, params rel L2 {errs[1]:.2e}, running stats {errs[2]:.2e}")
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        world = 4 if n_cards >= 4 else 2
+        results = spawn_ranks(world, "nccl", [f"cuda:{r}" for r in range(world)], ("h4",),
+                              root / "nccl")
+        h4_ranks(f"{world} NCCL ranks, one a card", [r["h4"] for r in results],
+                 root / "nccl", one, names)
+    t = h4_timing(None)
+    log(f"H4 unsharded float32 step at a batch of {H4_TIMED_BATCH} on one process: warm walls "
+        f"{', '.join(f'{x:.2f}' for x in t['step_ms'])} ms, peak {t['peak_gib']:.2f} GiB")
+
+
+def h5_embeddings(tree: dict, visual, audio, device: str, dtype) -> list:
+    """Eval-mode embeddings of the full-width ``Contrast`` computing in
+    ``dtype`` (float32 parameters; float64 ones for float64), as float64 on
+    the CPU."""
+    from acav100m_torch.evaluation import models as em
+    from acav100m_torch.evaluation import train as et
+
+    net = em.Contrast(dtype=None if dtype == torch.float64 else dtype)
+    net.load_state_dict(em.state_dict_from_flax(tree))
+    net.to(device, torch.float64 if dtype == torch.float64 else torch.float32).eval()
+    with torch.no_grad():
+        zs = net(*et.model_inputs(visual, audio, device, next(net.parameters()).dtype))
+    check(all(z.dtype == dtype for z in zs), f"H5: {dtype} embeddings")
+    return [z.double().cpu() for z in zs]
+
+
+def h5_step(dtype) -> dict:
+    """A fresh full-width model computing in ``dtype`` at batch 4, 8 x
+    112^2 (cuDNN TF32 as in H2): 3 runs of 5 warm steps, the device time of
+    its kernels a step, peak memory, the losses, and whether the parameters
+    and statistics after are float32 and finite."""
+    from acav100m_torch.evaluation import train as et
+
+    state = et.init_pretrain(0, et.lr_schedule("linear", 1e-3, 100), "cuda", dtype=dtype)
+    step = et.make_pretrain_step(state)
+    visual, audio = h_batch(np.random.RandomState(15), 4)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(2):
+        state, metrics = step(state, visual, audio)
+        losses.append(float(metrics["loss"]))
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            state, metrics = step(state, visual, audio)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) / 5 * 1e3)
+        losses.append(float(metrics["loss"]))
+    _, wall_us, rows = profile_calls(lambda: step(state, visual, audio))
+    float32 = all(v.dtype == torch.float32 and bool(torch.isfinite(v).all())
+                  for k, v in state.model.state_dict().items()
+                  if not k.endswith("num_batches_tracked"))
+    return {"ms": ms, "kernels_ms": sum(us for us, _, _ in rows) / 1e3,
+            "profiled_ms": wall_us / 1e3, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "losses": losses, "float32_state": float32}
+
+
+def path_h5_bf16() -> None:
+    """H5: the evaluation models in bf16 at full width. The card's bf16
+    eval-mode embeddings (batch 4, 8 x 112^2, H0's tree) against its
+    float64 ones may be off by at most 3 times the CPU's own bf16 error at
+    the same inputs; then a bf16 train step: finite losses, float32
+    parameters and statistics; its warm wall, kernels and peak memory
+    beside the float32 step's."""
+    tree = h_tree()
+    visual, audio = h_batch(np.random.RandomState(16), 4)
+    errs = {}
+    for dev in ("cuda", "cpu"):
+        ref = h5_embeddings(tree, visual, audio, dev, torch.float64)
+        bf16 = h5_embeddings(tree, visual, audio, dev, torch.bfloat16)
+        errs[dev] = max(float((b - r).norm() / r.norm()) for b, r in zip(bf16, ref))
+    log(f"H5 bf16 eval-mode embeddings, batch 4 at 8 x 112^2, against float64 on the same "
+        f"device: card rel L2 {errs['cuda']:.2e}, CPU {errs['cpu']:.2e}")
+    check(errs["cuda"] <= max(3 * errs["cpu"], H5_FLOOR),
+          "H5: the card's bf16 embeddings within 3 times the CPU's bf16 error")
+    runs = {str(dt).split(".")[-1]: h5_step(dt) for dt in (torch.bfloat16, torch.float32)}
+    check(all(math.isfinite(x) for x in runs["bfloat16"]["losses"]), "H5: finite bf16 losses")
+    check(runs["bfloat16"]["float32_state"],
+          "H5: the bf16 model's parameters and statistics stay float32 and finite")
+    for name, r in runs.items():
+        log(f"H5 {name} train step, batch 4 at 8 x 112^2 (cuDNN TF32 on): "
+            f"{', '.join(f'{x:.2f}' for x in r['ms'])} ms (3 runs of 5 steps between "
+            f"synchronisations); kernels {r['kernels_ms']:.2f} ms a step "
+            f"(torch.profiler, {r['profiled_ms']:.2f} ms profiled); peak {r['peak_gib']:.2f} GiB; "
+            f"losses {', '.join(f'{x:.4f}' for x in r['losses'])}; {card()}")
+
+
+def main_path_h45() -> dict:
+    """Paths H4 and H5; returns the kernels' launches in them (none runs)."""
+    reset_counts()
+    for phase in (path_h4_sharded, path_h5_bf16):
+        t0 = time.time()
+        phase()
+        log(f"{phase.__name__} {time.time() - t0:.1f} s")
+    return counts()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2355,6 +2653,10 @@ def main() -> int:
     h_launches = main_path_h()
     log(f"path H total {time.time() - t0:.1f} s; launches {h_launches}")
     check(not any(h_launches.values()), "path H launches none of the kernels")
+    t0 = time.time()
+    h45_launches = main_path_h45()
+    log(f"paths H4 and H5 total {time.time() - t0:.1f} s; launches {h45_launches}")
+    check(not any(h45_launches.values()), "paths H4 and H5 launch none of the kernels")
     shutil.rmtree(WORK, ignore_errors=True)
     kernels = []
     for name, _, replaces in KERNELS:
