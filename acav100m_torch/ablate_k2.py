@@ -13,19 +13,23 @@ what a variant removes makes this script fail instead of timing the wrong
 thing. It also prints ``ptxas``'s register and spill count for each
 variant and the full kernel's most frequent SASS instructions.
 
-K2's bf16 form (``csrc/bottleneck_stage_bf16.cu``) is timed beside it in
-the same way, on bf16 inputs of the same shape (its weights packed by
-``pack_block_bf16``), with its own variants; and the card's own rate of
-each form's tensor-core instruction (``mma.sync`` TF32 for the float32
-form, ``wgmma`` bf16 for the bf16 form, and ``mma.sync`` bf16) is measured.
+Each form runs on its weights packed as the model caches them
+(``pack_block_f32``, ``pack_block_bf16``). K2's bf16 form
+(``csrc/bottleneck_stage_bf16.cu``) is timed beside the float32 form in the
+same way, on bf16 inputs of the same shape, with its own variants; and the
+card's own rate of the tensor-core instructions the forms issue is
+measured: ``wgmma`` TF32 (from shared memory, and with A from registers as
+the float32 form issues it), ``wgmma`` bf16, and ``mma.sync`` TF32 and
+bf16 for comparison.
 
     python -m acav100m_torch.ablate_k2 --parent OLD.cu
 
-also builds OLD.cu, the bf16 form of an earlier checkout whose launcher
-takes raw weights and the output tile, and times it beside this one in
-turns (parent, this, this, parent); ``--timeline`` prints only the bf16
-kernel's time by phase of a tile, from %globaltimer stamps
-(``TIMELINE_BF16``).
+also builds OLD.cu, either form's source from an earlier checkout whose
+launcher takes raw weights and the output tile (e.g. the float32 form of
+``git show HEAD~1:acav100m_torch/csrc/bottleneck_stage.cu``), and times it
+beside this checkout's kernel of the same form in turns (parent, this,
+this, parent); ``--timeline`` prints only each form's time by phase of a
+tile, from %globaltimer stamps (``TIMELINE_F32``, ``TIMELINE_BF16``).
 """
 
 from __future__ import annotations
@@ -43,7 +47,8 @@ from typing import Optional
 import torch
 
 from .ops import cuda_build
-from .ops.bottleneck_kernel import _KEYS, _ptr, bind, fused_stage_ref, pack_block_bf16
+from .ops.bottleneck_kernel import (_KEYS, _ptr, bind, fused_stage_ref, pack_block_bf16,
+                                    pack_block_f32)
 from .profiling import card, time_ms
 
 SRC = cuda_build.CSRC / "bottleneck_stage.cu"
@@ -51,58 +56,60 @@ SRC_BF16 = cuda_build.CSRC / "bottleneck_stage_bf16.cu"
 OUT = cuda_build.BUILD_DIR / "ablate_k2"
 
 # name -> [(text in the source, replacement)]
+_MMA3_CALLS = ("mma3<CI, RA>(", "mma3<NB, RB>(", "mma3<PASS, RB>(")
 VARIANTS = {
     "full": [],
-    # 1xTF32: only the big.big product of each fragment pair
-    "one_mma": [("""#pragma unroll
-    for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-      for (int i = 0; i < MT; ++i) mma_tf32(acc[i][j0 + jj], as[i], bb[jj]);
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-      for (int i = 0; i < MT; ++i) mma_tf32(acc[i][j0 + jj], ab[i], bs[jj]);
-""", "")],
+    # staging, the ring, barriers and epilogues alone: no product, so the
+    # fragment loads and splits drop out with them
+    "no_products": [(c, "if (false) " + c) for c in _MMA3_CALLS],
+    # the wgmma instructions commented out of their asm, which keeps the
+    # fragment loads and splits that feed them
+    "no_mma": [('      "wgmma.mma_async.sync.aligned.m64n',
+                '      "// wgmma.mma_async.sync.aligned.m64n')],
+    # 1xTF32: only the big.big product of each k8 step
+    "one_product": [(
+        "  for (int m = 0; m < R; ++m) wgmma<N>(d[m], as[m], db_big, scale);\n"
+        "#pragma unroll\n"
+        "  for (int m = 0; m < R; ++m) wgmma<N>(d[m], ab[m], db_small, 1);\n"
+        "#pragma unroll\n"
+        "  for (int m = 0; m < R; ++m) wgmma<N>(d[m], ab[m], db_big, 1);\n",
+        "  for (int m = 0; m < R; ++m) wgmma<N>(d[m], ab[m], db_big, scale);\n")],
     # no split: the raw fp32 bits go in as big and small
     "no_split": [(
         "  big = tf32_rna(v);\n"
         "  small = tf32_rna(v - __uint_as_float(big));\n",
         "  big = small = __float_as_uint(v);\n")],
-    # no tensor-core work: operands are loaded and split, then dropped
-    "no_mma": [(
-        '      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "\n'
-        '      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"\n',
-        '      ""\n')],
-    # one product's fragment loads, splits and MMAs gone; staging stays
-    "skip_a": [("mma_chunk<3, 4, KA>(", "if (false) mma_chunk<3, 4, KA>(")],
-    "skip_b": [("mma_chunk<2, 4, KC>(part", "if (false) mma_chunk<2, 4, KC>(part")],
-    "skip_c": [("mma_chunk<2, 4, KC>(acc", "if (false) mma_chunk<2, 4, KC>(acc")],
-    # staging, barriers and epilogues alone
-    "no_products": [("mma_chunk<3, 4, KA>(", "if (false) mma_chunk<3, 4, KA>("),
-                    ("mma_chunk<2, 4, KC>(", "if (false) mma_chunk<2, 4, KC>(")],
-    # the MMAs alone: fragments are constants, so loads and splits drop out
-    "only_mma": [
-        ("const float2 lo = *reinterpret_cast<const float2*>(smem + ao[i][0] + 2 * t);",
-         "const float2 lo = make_float2(1.f, 2.f);"),
-        ("const float2 hi = *reinterpret_cast<const float2*>(smem + ao[i][1] + 2 * t);",
-         "const float2 hi = make_float2(3.f, 4.f);"),
-        ("split(smem[wo + 2 * t * ldw + 8 * (j0 + jj) + g], bb[jj][0], bs[jj][0]);",
-         "split(5.f, bb[jj][0], bs[jj][0]);"),
-        ("split(smem[wo + (2 * t + 1) * ldw + 8 * (j0 + jj) + g], bb[jj][1], bs[jj][1]);",
-         "split(6.f, bb[jj][1], bs[jj][1]);"),
-    ],
-    # product c's epilogue reads no bias and no shortcut ...
-    "c_epi_no_reads": [
-        ("const float2 bias = __ldg(reinterpret_cast<const float2*>(cb + n));\n"
-         "              const float2 sc = __ldg(reinterpret_cast<const float2*>(\n"
-         "                  pw != nullptr ? pb + n : xq + n));",
-         "const float2 bias = make_float2(0.f, 0.f), sc = bias;")],
-    # ... or writes nothing
-    "c_epi_no_stores": [("*reinterpret_cast<float2*>(dst + n) = v;",
-                         "if (v.x == -1.f) *reinterpret_cast<float2*>(dst + n) = v;")],
-    # staging keeps its shared-memory stores and barriers, reads nothing
-    "no_global": [("    const bool ok = k0 + kk < K;\n", "    const bool ok = false;\n"),
-                  ("const bool ok = xoff[r] >= 0 && k0 + c < Cin;", "const bool ok = false;")],
+    # the products alone: A's fragments are constants, so their shared
+    # memory loads and splits drop out
+    "only_mma": [("split(at(r0, 0), big[0], small[0]);", "split(1.f, big[0], small[0]);"),
+                 ("split(at(r1, 0), big[1], small[1]);", "split(2.f, big[1], small[1]);"),
+                 ("split(at(r0, 1), big[2], small[2]);", "split(3.f, big[2], small[2]);"),
+                 ("split(at(r1, 1), big[3], small[3]);", "split(4.f, big[3], small[3]);")],
+    # one product's loads, splits and wgmma gone; its stages still pass
+    "skip_a": [(_MMA3_CALLS[0], "if (false) " + _MMA3_CALLS[0])],
+    "skip_b": [(_MMA3_CALLS[1], "if (false) " + _MMA3_CALLS[1])],
+    "skip_c": [(_MMA3_CALLS[2], "if (false) " + _MMA3_CALLS[2])],
+    # product b summed in one accumulator, not one a tap: its error is the
+    # number to read (see ACCUMULATION in the source)
+    "b_one_acc": [("mma3<NB, RB>(part,", "mma3<NB, RB>(acc_b,"),
+                  ("make_desc(w + BWB, CI * 16, 128), ks > 0);",
+                   "make_desc(w + BWB, CI * 16, 128), 1);"),
+                  ("for (int i = 0; i < NB / 2; ++i) acc_b[m][i] += part[m][i];",
+                   "for (int i = 0; i < NB / 2; ++i) part[m][i] += 0.f;")],
+    # product c's epilogue reads no identity from its stages
+    "c_epi_no_reads": [("const float2 sc = *e;", "const float2 sc = make_float2(0.f, 0.f);")],
+    # ... or stores nothing (its TMA stores not issued)
+    "c_epi_no_stores": [("            tma_store_4d(&omap,", "            if (false) tma_store_4d(&omap,")],
+    # the ring turns with no copies: every stage completes at once, unfilled
+    "no_global": [("      mbar_expect_tx(bar, bytes);\n", "      mbar_arrive(bar);\n"),
+                  ('"cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes '
+                   '[%0], [%1], %2, [%3];\\n"', '""'),
+                  ('"cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "\n'
+                   '      "[%0], [%1, {%2, %3, %4, %5}], [%6];\\n"', '""'),
+                  ('"cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "\n'
+                   '      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\\n"', '""')],
+    # two stages in the ring instead of as many as fit
+    "ring2": [("p.NS = min(MAXNS, ", "p.NS = min(2, ")],
 }
 
 
@@ -126,22 +133,33 @@ VARIANTS_BF16 = {
 }
 
 
-# ``--timeline``: the bf16 kernel with a %globaltimer stamp taken by each
+# ``--timeline``: each form's kernel with a %globaltimer stamp taken by each
 # CTA's first consumer thread at the boundaries of a tile's phases, for the
 # CTA's first 8 tiles, read back through read_timeline(). Stamp k ends
 # phase k - 1.
 TIMELINE_PHASES = ("product a", "epilogue a", "product b", "epilogue b", "product c",
                    "wait for c", "epilogue c")
+TIMELINE_PHASES_F32 = ("product a", "epilogue a", "product b", "epilogue b",
+                       "product c and its epilogue")
 _DECL = "extern __shared__ __align__(128) unsigned char smem[];\n"
+_STAMPS = (_DECL + "__device__ unsigned long long g_tl[256 * 8 * 8];\n"
+           "#define STAMP(k) if (threadIdx.x == 0 && blockIdx.x < 256 && i < 8) { "
+           "unsigned long long v_; asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(v_)); "
+           "g_tl[(blockIdx.x * 8 + i) * 8 + (k)] = v_; }\n")
+
+
+def _read_timeline(entry):
+    return ('extern "C" int read_timeline(void* dst) {\n'
+            '  return (int)cudaMemcpyFromSymbol(dst, g_tl, sizeof(g_tl));\n}\n\n'
+            f'extern "C" int {entry}(')
+
+
 _LOOP = ("  for (int t = blockIdx.x, i = 0; t < p.tiles; t += gridDim.x, ++i) {\n"
          "    const int frame = t / tiles_frame, r = t % tiles_frame;\n"
          "    const int oy0 = (r / p.tiles_x) * G::TH, ox0 = (r % p.tiles_x) * G::TW;\n"
          "    const bf16_t* xn")
 TIMELINE_BF16 = [
-    (_DECL, _DECL + "__device__ unsigned long long g_tl[256 * 8 * 8];\n"
-     "#define STAMP(k) if (threadIdx.x == 0 && blockIdx.x < 256 && i < 8) { "
-     "unsigned long long v_; asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(v_)); "
-     "g_tl[(blockIdx.x * 8 + i) * 8 + (k)] = v_; }\n"),
+    (_DECL, _STAMPS),
     (_LOOP, _LOOP.replace("{\n", "{\n    STAMP(0)\n", 1)),
     ("    consumers_sync();  // the last tile's",
      "    STAMP(1)\n    consumers_sync();  // the last tile's"),
@@ -152,48 +170,72 @@ TIMELINE_BF16 = [
     ("      wgmma_wait_all();\n      // product c is done with b",
      "      STAMP(5)\n      wgmma_wait_all();\n      STAMP(6)\n      // product c is done with b"),
     ("\n    }\n  }\n}\n\n// ---- the launcher", "\n    }\n    STAMP(7)\n  }\n}\n\n// ---- the launcher"),
-    ('extern "C" int bottleneck_block_bf16(',
-     'extern "C" int read_timeline(void* dst) {\n'
-     '  return (int)cudaMemcpyFromSymbol(dst, g_tl, sizeof(g_tl));\n}\n\n'
-     'extern "C" int bottleneck_block_bf16('),
+    ('extern "C" int bottleneck_block_bf16(', _read_timeline("bottleneck_block_bf16")),
 ]
+_LOOP_F32 = ("    const int oy0 = (r / p.tiles_x) * G::TH, ox0 = (r % p.tiles_x) * G::TW;\n\n"
+             "    // 1. a = relu")
+TIMELINE_F32 = [
+    (_DECL, _STAMPS),
+    (_LOOP_F32, _LOOP_F32.replace(
+        "\n\n", "\n    const int i = (t - (int)blockIdx.x) / (int)gridDim.x;\n    STAMP(0)\n\n", 1)),
+    ("    consumers_sync();  // the last tile's",
+     "    STAMP(1)\n    consumers_sync();  // the last tile's"),
+    ("    consumers_sync();  // a is whole\n", "    consumers_sync();  // a is whole\n    STAMP(2)\n"),
+    ("    consumers_sync();  // every warpgroup",
+     "    STAMP(3)\n    consumers_sync();  // every warpgroup"),
+    ("    consumers_sync();  // b is whole\n", "    consumers_sync();  // b is whole\n    STAMP(4)\n"),
+    ("\n    }\n  }\n  if (tid == 0) bulk_wait();\n}",
+     "\n    }\n    STAMP(5)\n  }\n  if (tid == 0) bulk_wait();\n}"),
+    ('extern "C" int bottleneck_block(', _read_timeline("bottleneck_block")),
+]
+# form -> (stamps, phases, source, C entry point)
+TIMELINES = {"float32": (TIMELINE_F32, TIMELINE_PHASES_F32, SRC, "bottleneck_block"),
+             "bf16": (TIMELINE_BF16, TIMELINE_PHASES, SRC_BF16, "bottleneck_block_bf16")}
 
 
-def timeline(x, blocks, packed, outs, stream) -> None:
-    """Build the bf16 kernel with TIMELINE_BF16 and print the mean time of
+def timeline(form, x, blocks, packed, outs, stream) -> None:
+    """Build ``form``'s kernel with its stamps and print the mean time of
     each phase of a tile, for block 0 alone and for the stage's last
     block, over every CTA's first 8 tiles."""
+    subs, phases, base, entry = TIMELINES[form]
     OUT.mkdir(parents=True, exist_ok=True)
-    src, lib = OUT / "bf16_timeline.cu", OUT / "bf16_timeline.so"
-    src.write_text(variant_source(TIMELINE_BF16, SRC_BF16))
+    src, lib = OUT / f"{form}_timeline.cu", OUT / f"{form}_timeline.so"
+    src.write_text(variant_source(subs, base))
     subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib), str(src)],
                    check=True, capture_output=True)
     dll = ctypes.CDLL(str(lib))
-    fn = bind(dll, "bottleneck_block_bf16")
+    fn = bind(dll, entry)
+    last = len(phases)
     for count in (1, len(blocks)):
         for _ in range(3):
             run_stage(fn, x, blocks[:count], outs[:count], stream, packed[:count])
         torch.cuda.synchronize()
         stamps = torch.zeros(256 * 8 * 8, dtype=torch.int64)
         cuda_build.check(dll.read_timeline(ctypes.c_void_p(stamps.data_ptr())), "read_timeline")
-        tiles = stamps.view(256, 8, 8)
-        tiles = tiles[tiles[:, :, 7] > 0].double()  # tiles that ran to their end
+        tiles = stamps.view(256, 8, 8)[:, :, :last + 1]
+        tiles = tiles[tiles[:, :, last] > 0].double()  # tiles that ran to their end
         mean = (tiles[:, 1:] - tiles[:, :-1]).mean(0)
-        print(f"bf16 timeline, block {count - 1} ({len(tiles)} tiles, ns a tile): "
-              + ", ".join(f"{name} {ns:.0f}" for name, ns in zip(TIMELINE_PHASES, mean.tolist()))
+        print(f"{form} timeline, block {count - 1} ({len(tiles)} tiles, ns a tile): "
+              + ", ".join(f"{name} {ns:.0f}" for name, ns in zip(phases, mean.tolist()))
               + f"; tile {float(mean.sum()):.0f}")
 
 
-# The card's own rate for the instruction each form issues: mma.sync
+# The card's own rate for the instructions the forms issue: mma.sync
 # m16n8k8 TF32 and m16n8k16 bf16 from registers, 8 independent accumulators
-# a warp, two CTAs of 8 warps an SM, as K2 runs; and wgmma m64n256k16 bf16
-# from shared memory (WGMMA_RATE_SRC), three warpgroups an SM, each issuing
-# 8 a batch into its own accumulator. (name, PTX, FLOP an instruction)
+# a warp, two CTAs of 8 warps an SM; wgmma m64n256k16 bf16 and m64n256k8
+# TF32 from shared memory (WGMMA_RATE_SRC), and wgmma m64n128k8 TF32 with A
+# from registers (WGMMA_RS_RATE_SRC, as the float32 form's product c), three
+# warpgroups an SM, each issuing 8 a batch into its own accumulator.
+# (name, PTX, FLOP an instruction)
 MMA_SHAPES = {
     "m16n8k8 TF32": ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32", 2 * 16 * 8 * 8),
     "m16n8k16 bf16": ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32", 2 * 16 * 8 * 16),
     "wgmma m64n256k16 bf16": ("wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16",
                               2 * 64 * 256 * 16),
+    "wgmma m64n256k8 TF32": ("wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32",
+                             2 * 64 * 256 * 8),
+    "wgmma m64n128k8 TF32, A from registers": (
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32", 2 * 64 * 128 * 8),
 }
 MMA_RATE_SRC = r"""
 #include <cuda_runtime.h>
@@ -262,21 +304,68 @@ extern "C" int launch(void* out, int blocks, int iters, void* stream) {
 """
 
 
+WGMMA_RS_RATE_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+extern __shared__ __align__(128) unsigned char sm[];
+__global__ void __launch_bounds__(384, 1) wgmma_rate(float* out, int iters) {
+  for (int i = threadIdx.x; i < 8192 / 4; i += blockDim.x)
+    reinterpret_cast<float*>(sm)[i] = 0.f;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(sm);
+  // B: 128 rows x 8 TF32 channels, two planes of 4 KB
+  const uint64_t db = (uint64_t)((base & 0x3FFFF) >> 4) | ((uint64_t)(4096 >> 4) << 16) |
+                      ((uint64_t)(128 >> 4) << 32);
+  uint32_t a[4];
+  for (int r = 0; r < 4; ++r) a[r] = (threadIdx.x + r) << 13;
+  float d[64];
+  for (int j = 0; j < 64; ++j) d[j] = 0.f;
+  for (int it = 0; it < iters; ++it) {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                   "MMA {REGS}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+                   : OUTS : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  }
+  float s = 0.f;
+  for (int j = 0; j < 64; ++j) s += d[j];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int launch(void* out, int blocks, int iters, void* stream) {
+  cudaFuncSetAttribute(wgmma_rate, cudaFuncAttributeMaxDynamicSharedMemorySize, 8192);
+  wgmma_rate<<<blocks, 384, 8192, (cudaStream_t)stream>>>((float*)out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
 def rate_source(shape: str) -> str:
     """The timing kernel of ``shape`` (a key of MMA_SHAPES)."""
     ptx = MMA_SHAPES[shape][0]
     if not shape.startswith("wgmma"):
         return MMA_RATE_SRC.replace("MMA", ptx)
+    if "registers" in shape:
+        regs = "{" + ", ".join(f"%{i}" for i in range(64)) + "}"
+        outs = ", ".join(f'"+f"(d[{i}])' for i in range(64))
+        return (WGMMA_RS_RATE_SRC.replace("MMA", ptx).replace("{REGS}", regs)
+                .replace("OUTS", outs))
     regs = "{" + ", ".join(f"%{i}" for i in range(128)) + "}"
     outs = ", ".join(f'"+f"(d[{i}])' for i in range(128))
-    return WGMMA_RATE_SRC.replace("MMA", ptx).replace("{REGS}", regs).replace("OUTS", outs)
+    src = WGMMA_RATE_SRC.replace("MMA", ptx).replace("{REGS}", regs).replace("OUTS", outs)
+    if ".tf32" in ptx:  # TF32 takes no transpose flags
+        src = src.replace("p, 1, 1, 0, 0;", "p, 1, 1;")
+    return src
 
 
 def mma_rate_tflops(nvcc: str, shape: str) -> float:
     """TFLOP/s of the instruction ``shape`` (a key of MMA_SHAPES) alone on
     this card."""
     flop = MMA_SHAPES[shape][1]
-    tag = shape.replace(" ", "_")
+    tag = re.sub(r"\W+", "_", shape)
     src, lib = OUT / f"mma_rate_{tag}.cu", OUT / f"mma_rate_{tag}.so"
     src.write_text(rate_source(shape))
     subprocess.run([nvcc, *cuda_build.NVCC_FLAGS, "-o", str(lib), str(src)], check=True)
@@ -309,10 +398,15 @@ FORMS = {"float32": (SRC, VARIANTS, "bottleneck_block", torch.float32),
          "bf16": (SRC_BF16, VARIANTS_BF16, "bottleneck_block_bf16", torch.bfloat16)}
 
 
+def parent_form(parent: Path) -> str:
+    """The form of an earlier checkout's K2 source: its C entry point."""
+    return "bf16" if "bottleneck_block_bf16(" in parent.read_text() else "float32"
+
+
 def build_all(parent: Optional[Path] = None):
     """One nvcc per variant of each form, all started together, and for
-    ``parent`` (a bf16 source of an earlier checkout) the variant
-    ("bf16", "parent"); returns {(form, name): (lib, ptxas line)}."""
+    ``parent`` (either form's source from an earlier checkout) the variant
+    (its form, "parent"); returns {(form, name): (lib, ptxas line)}."""
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = cuda_build.find_nvcc()
     procs = {}
@@ -320,7 +414,7 @@ def build_all(parent: Optional[Path] = None):
                for form, (base, variants, _, _) in FORMS.items()
                for name, subs in variants.items()}
     if parent is not None:
-        sources["bf16", "parent"] = parent.read_text()
+        sources[parent_form(parent), "parent"] = parent.read_text()
     for (form, name), text in sources.items():
         src = OUT / f"{form}_{name}.cu"
         src.write_text(text)
@@ -339,9 +433,9 @@ def build_all(parent: Optional[Path] = None):
 
 
 def run_stage(fn, x, blocks, outs, stream, packed=None):
-    """The stage through launcher ``fn``: the bf16 kernel's on ``packed``
-    weights, else one that takes the weights as they are and the output
-    tile (the float32 form, or the bf16 form of an earlier checkout)."""
+    """The stage through launcher ``fn``: this checkout's kernel on
+    ``packed`` weights, else an earlier checkout's, which takes the
+    weights as they are and the output tile."""
     h = x
     for i, (blk, out) in enumerate(zip(blocks, outs)):
         n, hh, ww, cin = h.shape
@@ -392,11 +486,12 @@ def stage_inputs(dev):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", type=Path, default=None,
-                        help="a bf16 kernel source of an earlier checkout (launcher "
-                             "bottleneck_block_bf16 taking raw weights and the tile), "
-                             "timed beside this one in turns: parent, this, this, parent")
+                        help="a K2 source (either form) of an earlier checkout whose "
+                             "launcher takes raw weights and the tile, timed beside this "
+                             "checkout's kernel of its form in turns: parent, this, this, "
+                             "parent")
     parser.add_argument("--timeline", action="store_true",
-                        help="only the bf16 kernel's time by phase of a tile")
+                        help="only each form's time by phase of a tile")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("ablate_k2: no CUDA device", file=sys.stderr)
@@ -409,17 +504,20 @@ def main(argv=None) -> int:
     n, hw, _, cout = x.shape[0], x.shape[1], x.shape[3], blocks[0]["cw"].shape[1]
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     if args.timeline:
-        bf = [{k: v.to(torch.bfloat16) if v.dim() > 1 else v for k, v in blk.items()}
-              for blk in blocks]
-        outs = [torch.empty((n, hw, hw, cout), device=dev, dtype=torch.bfloat16) for _ in bf]
-        timeline(x.to(torch.bfloat16), bf, [pack_block_bf16(blk) for blk in bf], outs, stream)
+        for form, (_, _, _, dtype) in FORMS.items():
+            bf = [{k: v.to(dtype) if v.dim() > 1 else v for k, v in blk.items()}
+                  for blk in blocks]
+            pack = pack_block_bf16 if form == "bf16" else pack_block_f32
+            outs = [torch.empty((n, hw, hw, cout), device=dev, dtype=dtype) for _ in bf]
+            timeline(form, x.to(dtype), bf, [pack(blk) for blk in bf], outs, stream)
         return 0
     built = build_all(args.parent)
     for form, (_, _, entry, dtype) in FORMS.items():
         xf = x.to(dtype)
         bf = [{k: v.to(dtype) if v.dim() > 1 else v for k, v in blk.items()}
               for blk in blocks]
-        packed = [pack_block_bf16(blk) for blk in bf] if form == "bf16" else None
+        pack = pack_block_bf16 if form == "bf16" else pack_block_f32
+        packed = [pack(blk) for blk in bf]
         outs = [torch.empty((n, hw, hw, cout), device=dev, dtype=dtype) for _ in blocks]
         ref = fused_stage_ref(xf, bf, 1).float()
         full_ms = None

@@ -67,7 +67,7 @@ from torch import nn
 
 from . import compute_dtype, in_dtype, register_model
 from . import quant as q
-from ..ops.bottleneck_kernel import fold_bn, fused_stage, pack_block_bf16
+from ..ops.bottleneck_kernel import fold_bn, fused_stage, pack_block
 
 LAYER_DIMS = [88, 352, 704, 1408, 2304]
 
@@ -329,15 +329,15 @@ class ResStage(nn.Module):
         return self._folded_cache[dtype]
 
     def _packed(self, dtype: torch.dtype) -> List[Dict[str, torch.Tensor]]:
-        """The folded weights in ``dtype`` packed for K2's bf16 kernel
-        (``pack_block_bf16``), kept beside them and dropped with them."""
+        """The folded weights in ``dtype`` packed for K2's kernel of that
+        dtype (``pack_block``), kept beside them and dropped with them."""
         if self.training:
-            return [pack_block_bf16(blk) for blk in self._fold(dtype)]
+            return [pack_block(blk) for blk in self._fold(dtype)]
         folded = self._folded(dtype)
         key = ("packed", dtype)
         if key not in self._folded_cache:
             with torch.inference_mode(False), torch.no_grad():
-                self._folded_cache[key] = [pack_block_bf16(blk) for blk in folded]
+                self._folded_cache[key] = [pack_block(blk) for blk in folded]
         return self._folded_cache[key]
 
     def train(self, mode: bool = True):
@@ -356,8 +356,7 @@ class ResStage(nn.Module):
         """Kernel K2 on folded frames: (B,C,T,H,W) -> NHWC -> back."""
         b, c, t, h, w = x.shape
         frames = x.permute(0, 2, 3, 4, 1).reshape(b * t, h, w, c)
-        packed = (self._packed(x.dtype) if x.is_cuda and x.dtype == torch.bfloat16
-                  else None)
+        packed = self._packed(x.dtype) if x.is_cuda else None
         y = fused_stage(frames, self._folded(x.dtype), stride=self.stride, packed=packed)
         return y.reshape(b, t, *y.shape[1:]).permute(0, 4, 1, 2, 3)
 

@@ -16,30 +16,36 @@ The stage runs in the dtype of x, in one of two forms, as the TPU kernel
 does:
 
 * float32: everything in float32. The CUDA kernel runs the block's three
-  products on the tensor cores (``mma.sync`` TF32) in 3xTF32: each fp32
+  products on the tensor cores (``wgmma`` TF32) in 3xTF32: each fp32
   operand is split into two TF32 parts and each product issued three times,
   which keeps the result within a few 1e-6 of the fp32 plain version's max,
   where one TF32 product misses by about 4e-4 (TF32 off in the comparison).
+  It takes the weights split and packed once (``pack_block_f32``: K-major
+  planes of 4 channels, the TF32 big part and its TF32 remainder, cw and pw
+  in passes of 128 columns) and streams them through its ring, since they
+  do not fit in shared memory beside the activations.
 * bfloat16: x, the weight matrices (``aw``, ``bw``, ``cw``, ``pw``), ``a``,
   ``b`` and the output in bf16; the biases in float32; every product and
   the 3x3's nine taps summed in float32; the projection shortcut kept in
   float32 after its bias and the identity shortcut widened to float32.
   ``a`` and ``b`` are rounded to bf16 after bias and ReLU, the output after
-  the shortcut and ReLU (the TPU kernel's lines 91-101). The CUDA kernel
-  is persistent (one CTA an SM) with the block's weights resident in
-  shared memory, x brought in by TMA through an ``mbarrier`` ring, and
-  each product on ``wgmma`` with f32 sums. It takes the weights packed
-  (``pack_block_bf16``: K-major planes of 8 channels, cw and pw in passes
-  of 256 columns); the model caches the pack beside its folded weights.
+  the shortcut and ReLU (the TPU kernel's lines 91-101). It takes the
+  weights packed by ``pack_block_bf16`` (K-major planes of 8 channels, cw
+  and pw in passes of 256 columns) and keeps them resident in shared
+  memory.
+
+Both kernels are persistent (one CTA an SM), with x brought in by TMA
+through an ``mbarrier`` ring and each product on ``wgmma`` with f32 sums;
+the model caches each form's pack beside its folded weights.
 
 ``fused_stage`` launches the form's CUDA kernel once per block for CUDA
 tensors and runs ``fused_stage_ref``, the plain PyTorch version, for CPU
 tensors. The kernels take NHWC frames with input channels in multiples of
 4 (float32) or 8 (bf16), 32 or 64 inner channels and output channels in
-multiples of 32 (at most 768 in bf16, whose cw stays resident); the
-float32 form's CTA owns an 8 x 16 output tile (4 x 8 at stride 2), the
-bf16 form's tiles are 16 x 8 (8 x 8 at stride 2). They raise on anything
-else. Each form counts its own launches:
+multiples of 32 (at most 768 in bf16, whose cw stays resident), at
+stride 1 or 2; the float32 form's tiles are 16 x 16 output pixels (8 x 8
+at stride 2), the bf16 form's 16 x 8 (8 x 8 at stride 2). They raise on
+anything else. Each form counts its own launches:
 ``fused_stage.launches`` (float32) and ``fused_stage_bf16.launches``.
 """
 
@@ -94,25 +100,28 @@ def fused_stage_ref(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
 
 # output columns of a pass of the bf16 kernel's product c
 PASS = 256
+# output columns of a pass of the float32 kernel's product c (a warpgroup's)
+PASS_F32 = 128
 # the bf16 kernel keeps cw (inner x Cout) resident: at most 3 passes fit
 BF16_MAX_COUT = 3 * PASS
 
 
-def _pack_k(w: Tensor, kp: int) -> Tensor:
-    """(K, N) -> (kp/8, N, 8): K-major planes of 8 input channels, rows past
-    K zero."""
+def _pack_k(w: Tensor, kp: int, plane: int = 8) -> Tensor:
+    """(K, N) -> (kp/plane, N, plane): K-major planes of ``plane`` input
+    channels, rows past K zero."""
     k, n = w.shape
     w = F.pad(w, (0, 0, 0, kp - k))
-    return w.reshape(kp // 8, 8, n).transpose(1, 2).contiguous()
+    return w.reshape(kp // plane, plane, n).transpose(1, 2).contiguous()
 
 
-def _pack_passes(w: Tensor, kp: int) -> Tensor:
-    """(K, Cout) -> (P, kp/8, 256, 8): ``_pack_k`` of each pass of 256
-    output columns, columns past Cout zero."""
+def _pack_passes(w: Tensor, kp: int, width: int = PASS, plane: int = 8) -> Tensor:
+    """(K, Cout) -> (P, kp/plane, width, plane): ``_pack_k`` of each pass of
+    ``width`` output columns, columns past Cout zero."""
     k, cout = w.shape
-    passes = -(-cout // PASS)
-    w = F.pad(w, (0, passes * PASS - cout, 0, kp - k))
-    return torch.stack([_pack_k(w[:, i * PASS:(i + 1) * PASS], kp) for i in range(passes)])
+    passes = -(-cout // width)
+    w = F.pad(w, (0, passes * width - cout, 0, kp - k))
+    return torch.stack([_pack_k(w[:, i * width:(i + 1) * width], kp, plane)
+                        for i in range(passes)])
 
 
 def pack_block_bf16(blk: Dict[str, Tensor]) -> Dict[str, Tensor]:
@@ -135,6 +144,54 @@ def pack_block_bf16(blk: Dict[str, Tensor]) -> Dict[str, Tensor]:
     return out
 
 
+def tf32_rna(v: Tensor) -> Tensor:
+    """float32 ``v`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds (to
+    nearest, ties away from zero), for finite v: half a TF32 ulp added to
+    the magnitude bits and the 13 bits TF32 drops cleared."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(w: Tensor):
+    """(big, small): big = ``tf32_rna(w)``, small = ``tf32_rna(w - big)``;
+    big + small is w to within about 2^-22 of its magnitude."""
+    big = tf32_rna(w)
+    return big, tf32_rna(w - big)
+
+
+def pack_block_f32(blk: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """A block's float32 weight matrices split and packed once, in the order
+    the float32 kernel's wgmma reads them (``csrc/bottleneck_stage.cu``):
+    each matrix as (2, ...), its TF32 big part (``tf32_split``), then its
+    TF32 remainder, in K-major planes of 4 channels: ``aw`` (Cin rounded up
+    to 16, zeros past Cin) and each of ``bw``'s nine taps as ``_pack_k``,
+    ``cw`` and ``pw`` in passes of 128 output columns; and ``cb``, the
+    float32 bias the kernel adds after product c, with the projection's
+    ``pb`` added in, zero-padded to whole passes."""
+    cin, inner = blk["aw"].shape
+    cout = blk["cw"].shape[1]
+    kp = -(-cin // 16) * 16
+    mats = {"aw": _pack_k(blk["aw"], kp, 4),
+            "bw": torch.stack([_pack_k(blk["bw"][dy, dx], inner, 4)
+                               for dy in range(3) for dx in range(3)]),
+            "cw": _pack_passes(blk["cw"], inner, PASS_F32, 4)}
+    cb = blk["cb"]
+    if "pw" in blk:
+        mats["pw"] = _pack_passes(blk["pw"], kp, PASS_F32, 4)
+        cb = cb + blk["pb"]
+    out = {k: torch.stack(tf32_split(v)) for k, v in mats.items()}
+    out["cb"] = F.pad(cb, (0, -(-cout // PASS_F32) * PASS_F32 - cout))
+    return out
+
+
+def pack_block(blk: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """The pack of the kernel form that takes ``blk``'s weight matrices:
+    ``pack_block_bf16`` for bfloat16, ``pack_block_f32`` for float32."""
+    if blk["aw"].dtype == torch.bfloat16:
+        return pack_block_bf16(blk)
+    return pack_block_f32(blk)
+
+
 def _ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
@@ -144,14 +201,12 @@ _LAUNCHERS = {torch.float32: ("bottleneck_stage", "bottleneck_block"),
               torch.bfloat16: ("bottleneck_stage_bf16", "bottleneck_block_bf16")}
 
 
-def bind(lib: ctypes.CDLL, entry: str = "bottleneck_block", tile: Optional[bool] = None):
-    """``lib``'s C launcher ``entry`` with its signature. The float32 form's
-    takes the output tile (TH, TW) after the stride; the bf16 form's picks
-    its own (``tile`` True binds an older bf16 launcher that takes it)."""
+def bind(lib: ctypes.CDLL, entry: str = "bottleneck_block", tile: bool = False):
+    """``lib``'s C launcher ``entry`` with its signature. Both forms take
+    their packed weights and pick their own tile; ``tile`` True binds an
+    older launcher (of either form) that takes the raw weights, pb among
+    them, and the output tile (TH, TW) after the stride."""
     fn = getattr(lib, entry)
-    if tile is None:
-        tile = entry == "bottleneck_block"
-    # the bf16 form's takes cb with pb added, and no pb
     weights = [ctypes.c_void_p] * (8 if tile else 7)
     tile = [ctypes.c_int] * 2 if tile else []
     fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4 + weights
@@ -200,14 +255,23 @@ def _check_block(blk: Dict[str, Tensor], cin: int, dev) -> torch.dtype:
     return dtype
 
 
-def _check_packed(w: Dict[str, Tensor], cin: int, inner: int, cout: int, dev) -> None:
-    """Raise unless ``w`` is ``pack_block_bf16`` of a block of these widths."""
-    kp, passes = -(-cin // 16) * 16, -(-cout // PASS)
-    shapes = {"aw": (kp // 8, inner, 8), "bw": (9, inner // 8, inner, 8),
-              "cw": (passes, inner // 8, PASS, 8), "pw": (passes, kp // 8, PASS, 8),
-              "cb": (cout,)}
+def _check_packed(w: Dict[str, Tensor], cin: int, inner: int, cout: int, dev,
+                  dtype: torch.dtype) -> None:
+    """Raise unless ``w`` is ``pack_block`` of a block of these widths in
+    ``dtype``."""
+    kp = -(-cin // 16) * 16
+    if dtype == torch.bfloat16:
+        passes = -(-cout // PASS)
+        shapes = {"aw": (kp // 8, inner, 8), "bw": (9, inner // 8, inner, 8),
+                  "cw": (passes, inner // 8, PASS, 8), "pw": (passes, kp // 8, PASS, 8),
+                  "cb": (cout,)}
+    else:
+        passes = -(-cout // PASS_F32)
+        shapes = {"aw": (2, kp // 4, inner, 4), "bw": (2, 9, inner // 4, inner, 4),
+                  "cw": (2, passes, inner // 4, PASS_F32, 4),
+                  "pw": (2, passes, kp // 4, PASS_F32, 4), "cb": (passes * PASS_F32,)}
     for key, t in w.items():
-        want = torch.float32 if key == "cb" else torch.bfloat16
+        want = torch.float32 if key == "cb" else dtype
         if (tuple(t.shape) != shapes[key] or t.dtype != want or t.device != dev
                 or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"packed {key} must be a contiguous {want} {shapes[key]} "
@@ -217,10 +281,9 @@ def _check_packed(w: Dict[str, Tensor], cin: int, inner: int, cout: int, dev) ->
 def _launch(x: Tensor, blocks: Sequence[Dict[str, Tensor]], stride: int, counter,
             packed: Optional[Sequence[Dict[str, Tensor]]] = None) -> Tensor:
     """Launch the kernel of x's form once per block; ``counter.launches``
-    counts them. The bf16 form takes each block's ``pack_block_bf16``, from
+    counts them. Each form takes each block's ``pack_block``, from
     ``packed`` where the caller keeps it, else packed here."""
     fn = _bind(x.dtype)
-    bf16 = x.dtype == torch.bfloat16
     if packed is not None and len(packed) != len(blocks):
         raise ValueError(f"{len(packed)} packed blocks for {len(blocks)} blocks")
     h = x.contiguous()
@@ -238,16 +301,11 @@ def _launch(x: Tensor, blocks: Sequence[Dict[str, Tensor]], stride: int, counter
                                  f"got {blk['aw'].dtype}")
             inner, cout = blk["aw"].shape[1], blk["cw"].shape[1]
             out = torch.empty((n, hh // s, ww // s, cout), device=x.device, dtype=x.dtype)
-            if bf16:
-                w = packed[i] if packed is not None else pack_block_bf16(blk)
-                _check_packed(w, cin, inner, cout, x.device)
-                args = (w["aw"], blk["ab"], w["bw"], blk["bb"], w["cw"], w["cb"], w.get("pw"))
-                tile = ()
-            else:
-                args = tuple(blk[k] for k in _KEYS) + (blk.get("pw"), blk.get("pb"))
-                tile = (8, 16) if s == 1 else (4, 8)  # output tile; pixels a multiple of 32
+            w = packed[i] if packed is not None else pack_block(blk)
+            _check_packed(w, cin, inner, cout, x.device, x.dtype)
+            args = (w["aw"], blk["ab"], w["bw"], blk["bb"], w["cw"], w["cb"], w.get("pw"))
             err = fn(_ptr(h), n, hh, ww, cin, *(_ptr(t) for t in args),
-                     inner, cout, s, *tile, _ptr(out), stream)
+                     inner, cout, s, _ptr(out), stream)
             cuda_build.check(err, _LAUNCHERS[x.dtype][1])
             counter.launches += 1
             h, s = out, 1
@@ -267,15 +325,15 @@ def fused_stage(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
                 packed: Optional[Sequence[Dict[str, Tensor]]] = None) -> Tensor:
     """Run a kt=1 bottleneck stage over folded frames x (N, H, W, Cin) in
     x's dtype. CUDA tensors launch K2's form for that dtype once per block
-    (bfloat16 through ``fused_stage_bf16``, which takes ``packed``); CPU
-    tensors take the plain version."""
+    (bfloat16 through ``fused_stage_bf16``), on ``packed`` (each block's
+    ``pack_block``) where given; CPU tensors take the plain version."""
     if _device(x) == "cpu":
         return fused_stage_ref(x, blocks, stride)
     if x.dtype == torch.bfloat16:
         return fused_stage_bf16(x, blocks, stride, packed)
     if x.dtype != torch.float32:
         raise ValueError(f"kernel K2 takes float32 or bfloat16, got {x.dtype}")
-    return _launch(x, blocks, stride, fused_stage)
+    return _launch(x, blocks, stride, fused_stage, packed)
 
 
 def fused_stage_bf16(x: Tensor, blocks: Sequence[Dict[str, Tensor]],

@@ -9,7 +9,8 @@ carry the ``cuda`` marker and skip elsewhere. On a machine with the card:
 import pytest
 import torch
 
-from acav100m_torch.ops.bottleneck_kernel import fused_stage, fused_stage_bf16, fused_stage_ref
+from acav100m_torch.ops.bottleneck_kernel import (fused_stage, fused_stage_bf16, fused_stage_ref,
+                                                  pack_block_f32)
 from acav100m_torch.ops.kmeans_kernel import fused_assign_update, fused_assign_update_ref
 
 pytestmark = pytest.mark.cuda
@@ -131,6 +132,89 @@ def test_k2_matches_plain(card, n, hw, stride, cin, big):
     assert out.shape == ref.shape
     # 3xTF32 keeps the products near fp32; one TF32 product would miss this
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("n,hw,stride,cin,proj", [
+    (32, 64, 1, 80, True),    # the main path: s2 slow at 256^2 input, 4 clips of 8 frames
+    (33, 64, 1, 80, True),    # 528 tiles of 16 x 16: 4 a CTA on 132 SMs, a frame past 32
+    (2, 24, 1, 256, True),    # Cin 256 with the projection in block 0
+    (4, 10, 2, 80, True),     # stride 2 on a frame neither tile side cuts
+    (3, 13, 1, 256, False),   # identity shortcut in block 0, ragged edges
+])
+def test_k2_float32_path_shapes_match_plain(card, n, hw, stride, cin, proj):
+    """The float32 form at the main path's shape and around it, on weights
+    packed once (as the model caches them) and packed by the wrapper."""
+    gen = torch.Generator().manual_seed(n + hw + cin)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(card)
+
+    blocks = _random_blocks(rnd, cin, stride, proj=proj)
+    packed = [pack_block_f32(blk) for blk in blocks]
+    x = rnd(n, hw, hw, cin)
+    before = fused_stage.launches
+    out = fused_stage(x, blocks, stride, packed)
+    again = fused_stage(x, blocks, stride)
+    assert fused_stage.launches == before + 6
+    ref = fused_stage_ref(x, blocks, stride)
+    assert out.shape == ref.shape and torch.equal(out, again)
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("n,hw,stride,cin,inner,cout", [
+    (2, 16, 1, 80, 32, 256),    # 32 inner channels
+    (3, 10, 2, 88, 32, 64),     # 32 inner channels at stride 2, Cin padded to 96, one pass
+    (2, 12, 1, 512, 64, 512),   # four passes of product c, the identity shortcut
+    (2, 8, 1, 96, 64, 768),     # six passes with the projection
+    (2, 12, 2, 64, 64, 384),    # stride 2, three passes: the second warpgroup idles in one
+])
+def test_k2_float32_other_widths_match_plain(card, n, hw, stride, cin, inner, cout):
+    gen = torch.Generator().manual_seed(cin + inner + cout + stride)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(card)
+
+    blocks = []
+    for i in range(2):
+        c_in = cin if i == 0 else cout
+        blk = {"aw": rnd(c_in, inner, scale=c_in ** -0.5), "ab": rnd(inner, scale=0.1),
+               "bw": rnd(3, 3, inner, inner, scale=(9 * inner) ** -0.5),
+               "bb": rnd(inner, scale=0.1), "cw": rnd(inner, cout, scale=inner ** -0.5),
+               "cb": rnd(cout, scale=0.1)}
+        if i == 0 and (cin != cout or stride != 1):
+            blk.update(pw=rnd(c_in, cout, scale=c_in ** -0.5), pb=rnd(cout, scale=0.1))
+        blocks.append(blk)
+    x = rnd(n, hw, hw, cin)
+    before = fused_stage.launches
+    out = fused_stage(x, blocks, stride)
+    assert fused_stage.launches == before + 2
+    ref = fused_stage_ref(x, blocks, stride)
+    assert out.shape == ref.shape
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_k2_float32_refuses_what_it_cannot_take(card):
+    gen = torch.Generator().manual_seed(1)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(card)
+
+    blocks = _random_blocks(rnd, 80, 1)
+    x = rnd(2, 8, 8, 80)
+    before = fused_stage.launches
+    with pytest.raises(ValueError):  # bf16 weight matrices for float32 frames
+        fused_stage(x, [{k: v.to(torch.bfloat16) if v.dim() > 1 else v for k, v in blk.items()}
+                        for blk in blocks])
+    with pytest.raises(ValueError):  # input channels not a multiple of 4
+        fused_stage(rnd(2, 8, 8, 78), _random_blocks(rnd, 78, 1))
+    with pytest.raises(ValueError):  # a pack of other widths
+        fused_stage(x, blocks, 1, [pack_block_f32(blocks[1])] * 3)
+    with pytest.raises(ValueError):  # a pack of the bf16 form
+        fused_stage(x, blocks, 1, [{k: v.to(torch.bfloat16) if k != "cb" else v
+                                    for k, v in pack_block_f32(blk).items()} for blk in blocks])
+    with pytest.raises(ValueError):  # a frame the stride does not divide
+        fused_stage(rnd(2, 9, 9, 80), _random_blocks(rnd, 80, 2), 2)
+    assert fused_stage.launches == before
 
 
 @pytest.mark.parametrize("n,hw,stride,cin,proj", [

@@ -80,6 +80,22 @@ def test_bf16_timeline_stamps_every_phase_of_the_bf16_source():
     assert 'extern "C" int bottleneck_block_bf16(' in src
 
 
+def test_f32_timeline_stamps_every_phase_of_the_float32_source():
+    src = ablate_k2.variant_source(ablate_k2.TIMELINE_F32, ablate_k2.SRC)
+    for k in range(len(ablate_k2.TIMELINE_PHASES_F32) + 1):
+        assert src.count(f"STAMP({k})") == 1
+    assert 'extern "C" int read_timeline(' in src
+    assert 'extern "C" int bottleneck_block(' in src
+
+
+def test_ablation_parent_form_is_read_from_its_entry_point(tmp_path):
+    f32, bf16 = tmp_path / "f32.cu", tmp_path / "bf16.cu"
+    f32.write_text(ablate_k2.SRC.read_text())
+    bf16.write_text(ablate_k2.SRC_BF16.read_text())
+    assert ablate_k2.parent_form(f32) == "float32"
+    assert ablate_k2.parent_form(bf16) == "bf16"
+
+
 @pytest.mark.parametrize("cin,inner,cout,proj", [
     (80, 64, 256, True),    # s2 slow, block 0
     (256, 64, 256, False),  # s2 slow, blocks 1 and 2
@@ -260,3 +276,157 @@ def test_bf16_pack_is_cached_with_the_folded_weights_and_dropped_with_them():
     packed = fresh
     packed = repacked_after(lambda: model.train().eval())
     packed = repacked_after(lambda: model.to(torch.float32))
+
+
+def _unpack_block_f32(packed, cin, cout):
+    """The inverse of ``pack_block_f32`` on the weight matrices: each
+    matrix's big and small parts, unpacked and added."""
+    inner = packed["aw"].shape[2]
+
+    def passes(p, k):
+        return torch.cat([_unpack_k(q, k) for q in p], dim=1)[:, :cout]
+
+    out = {}
+    for key, part in packed.items():
+        if key == "cb":
+            continue
+        big, small = part
+        if key == "aw":
+            out[key] = (_unpack_k(big, cin), _unpack_k(small, cin))
+        elif key == "bw":
+            out[key] = tuple(torch.stack([_unpack_k(t, inner) for t in p]).reshape(
+                3, 3, inner, inner) for p in (big, small))
+        else:
+            k = inner if key == "cw" else cin
+            out[key] = (passes(big, k), passes(small, k))
+    return out
+
+
+@pytest.mark.parametrize("cin,inner,cout,proj", [
+    (80, 64, 256, True),    # s2 slow, block 0: no padding
+    (256, 64, 256, False),  # s2 slow, blocks 1 and 2
+    (88, 32, 64, True),     # Cin padded to 96, Cout to one pass of 128
+    (96, 64, 544, True),    # five passes of 128 output columns
+])
+def test_f32_pack_is_a_permutation_and_round_trips(cin, inner, cout, proj):
+    blk = _block(cin, inner, cout, proj)
+    packed = tbk.pack_block_f32(blk)
+    back = _unpack_block_f32(packed, cin, cout)
+    assert set(back) == {k for k in blk if k.endswith("w")}
+    for key, (big, small) in back.items():
+        # the pack holds the split of each value once, and zeros for the padding
+        want_big, want_small = tbk.tf32_split(blk[key])
+        assert torch.equal(big, want_big) and torch.equal(small, want_small)
+        assert torch.equal(big + small, blk[key]) or (
+            (big + small - blk[key]).abs() <= 2.0 ** -22 * blk[key].abs()).all()
+        pad = packed[key][0].numel() - blk[key].numel()
+        for part, want in ((packed[key][0], want_big), (packed[key][1], want_small)):
+            full = torch.cat([want.flatten(), torch.zeros(pad)])
+            assert torch.equal(part.flatten().sort().values, full.sort().values)
+    # element (k, n) of a K-major plane of 4 sits at [part, k // 4, n, k % 4]
+    kp = -(-cin // 16) * 16
+    passes = -(-cout // tbk.PASS_F32)
+    assert packed["aw"].shape == (2, kp // 4, inner, 4)
+    assert packed["bw"].shape == (2, 9, inner // 4, inner, 4)
+    assert packed["cw"].shape == (2, passes, inner // 4, tbk.PASS_F32, 4)
+    k, n = cin - 1, inner - 3
+    assert packed["aw"][0, k // 4, n, k % 4] == tbk.tf32_rna(blk["aw"][k, n])
+    tap, k, n = 5, 9, inner - 1
+    assert packed["bw"][0, tap, k // 4, n, k % 4] == tbk.tf32_rna(blk["bw"][tap // 3, tap % 3, k, n])
+    k, n = inner - 1, cout - 1
+    p, c = divmod(n, tbk.PASS_F32)
+    big, small = tbk.tf32_split(blk["cw"][k, n])
+    assert packed["cw"][0, p, k // 4, c, k % 4] == big
+    assert packed["cw"][1, p, k // 4, c, k % 4] == small
+    # cb carries the projection's bias, added in float32, zero past Cout
+    want_cb = blk["cb"] + blk["pb"] if proj else blk["cb"]
+    assert packed["cb"].dtype == torch.float32 and packed["cb"].shape == (passes * tbk.PASS_F32,)
+    assert torch.equal(packed["cb"][:cout], want_cb)
+    assert not packed["cb"][cout:].any()
+
+
+def _ordinary():
+    return np.random.RandomState(3).randn(4096).astype(np.float32)
+
+
+def _ties():
+    """Values halfway between two TF32 numbers: the 13 dropped bits are
+    0x1000 exactly (round away from zero), and one below and above it."""
+    rng = np.random.RandomState(4)
+    bits = (rng.randint(0x3f000000, 0x41000000, 1024, dtype=np.int64) & ~0x1fff).astype(np.uint32)
+    mags = np.concatenate([bits | 0x1000, bits | 0x0fff, bits | 0x1001])
+    return np.concatenate([mags, mags | 0x80000000]).view(np.float32)
+
+
+def _zeros():
+    return np.array([0.0, -0.0, 0.0, 1e-30, -1e-30], dtype=np.float32)
+
+
+def _near_1e3():
+    return (1e3 + np.random.RandomState(5).randn(2048) * 10.0).astype(np.float32) * \
+        np.where(np.arange(2048) % 2, 1, -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("make", [_ordinary, _ties, _zeros, _near_1e3],
+                         ids=["ordinary", "ties", "zeros", "near_1e3"])
+def test_tf32_split_rounds_as_cvt_rna_and_sums_back(make):
+    """big is cvt.rna's TF32 (bits + 0x1000, low 13 bits cleared, on the
+    magnitude), small the remainder rounded the same way, and big + small
+    is the value to within 2^-22 of its magnitude."""
+    v = make()
+
+    def rna(a):
+        return ((a.view(np.uint32).astype(np.uint64) + 0x1000) & 0xffffe000).astype(
+            np.uint32).view(np.float32)
+
+    big, small = tbk.tf32_split(torch.from_numpy(v))
+    want_big = rna(v)
+    want_small = rna((v - want_big).astype(np.float32))
+    assert np.array_equal(big.numpy().view(np.uint32), want_big.view(np.uint32))
+    assert np.array_equal(small.numpy().view(np.uint32), want_small.view(np.uint32))
+    assert not (big.numpy().view(np.uint32) & 0x1fff).any()
+    assert not (small.numpy().view(np.uint32) & 0x1fff).any()
+    err = np.abs(big.numpy().astype(np.float64) + small.numpy() - v)
+    assert (err <= 2.0 ** -22 * np.abs(v)).all()
+
+
+def test_f32_pack_is_cached_with_the_folded_weights_and_dropped_with_them():
+    from acav100m_torch.models import slowfast as tsf
+
+    torch.manual_seed(0)
+    model = tsf.LayerSlowFast(pallas_stages=True).eval()
+    stage, f32 = model.s2, torch.float32
+    packed = stage._packed(f32)
+    assert stage._packed(f32) is packed
+    assert ("packed", f32) in stage._folded_cache and f32 in stage._folded_cache
+    for got, blk in zip(packed, stage._folded(f32)):
+        want = tbk.pack_block_f32(blk)
+        assert set(got) == set(want)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+
+    def repacked_after(change):
+        change()
+        assert stage._folded_cache is None
+        fresh = stage._packed(f32)
+        assert fresh is not packed
+        return fresh
+
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    sd["s2.pathway0_res0.branch2.a.weight"] *= 2
+    fresh = repacked_after(lambda: model.load_state_dict(sd))
+    assert not torch.equal(fresh[0]["aw"], packed[0]["aw"])
+    packed = fresh
+    packed = repacked_after(lambda: model.train().eval())
+    packed = repacked_after(lambda: model.to(torch.float32))
+
+
+def test_packed_float32_weights_are_checked_against_the_block():
+    blk = _block(80, 64, 256, True)
+    cpu = torch.device("cpu")
+    tbk._check_packed(tbk.pack_block_f32(blk), 80, 64, 256, cpu, torch.float32)
+    with pytest.raises(ValueError):  # a pack of another block's widths
+        tbk._check_packed(tbk.pack_block_f32(_block(256, 64, 256, False)), 80, 64, 256, cpu,
+                          torch.float32)
+    with pytest.raises(ValueError):  # the bf16 form's pack
+        tbk._check_packed(tbk.pack_block_bf16(_block(80, 64, 256, True, torch.bfloat16)),
+                          80, 64, 256, cpu, torch.float32)
