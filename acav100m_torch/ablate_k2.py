@@ -99,7 +99,7 @@ VARIANTS = {
     # product c's epilogue reads no identity from its stages
     "c_epi_no_reads": [("const float2 sc = *e;", "const float2 sc = make_float2(0.f, 0.f);")],
     # ... or stores nothing (its TMA stores not issued)
-    "c_epi_no_stores": [("            tma_store_4d(&omap,", "            if (false) tma_store_4d(&omap,")],
+    "c_epi_no_stores": [("          tma_store_4d(&omap,", "          if (false) tma_store_4d(&omap,")],
     # the ring turns with no copies: every stage completes at once, unfilled
     "no_global": [("      mbar_expect_tx(bar, bytes);\n", "      mbar_arrive(bar);\n"),
                   ('"cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes '
@@ -184,8 +184,8 @@ TIMELINE_F32 = [
     ("    consumers_sync();  // every warpgroup",
      "    STAMP(3)\n    consumers_sync();  // every warpgroup"),
     ("    consumers_sync();  // b is whole\n", "    consumers_sync();  // b is whole\n    STAMP(4)\n"),
-    ("\n    }\n  }\n  if (tid == 0) bulk_wait();\n}",
-     "\n    }\n    STAMP(5)\n  }\n  if (tid == 0) bulk_wait();\n}"),
+    ("\n    }\n  }\n  if (leader) bulk_wait();\n}",
+     "\n    }\n    STAMP(5)\n  }\n  if (leader) bulk_wait();\n}"),
     ('extern "C" int bottleneck_block(', _read_timeline("bottleneck_block")),
 ]
 # form -> (stamps, phases, source, C entry point)

@@ -53,6 +53,13 @@
 // zero, so each wgmma into a large accumulator drops up to an ulp of it,
 // always the same way; each tap of product b sums into its own accumulator
 // (scale-d 0 on its first wgmma), added to the total with an fp32 add.
+// PIPELINE. Within a stage a k8 step's A fragments go to one of two
+// register sets, the step two back waited for first (wgmma.wait_group 1),
+// so a step's loads and splits overlap the step before it; a stage is
+// handed back once its last step is done. (Running the steps of
+// consecutive stages back to back keeps two stages' fragments live, more
+// than the 168 registers a thread that three warpgroups leave ptxas: it
+// then serializes every wgmma, and the kernel took 0.7555 ms.)
 //
 // Layouts. Every operand in shared memory is K-major without swizzle, in
 // planes of 4 channels: element (row r, channel k) at (k / 4) * plane +
@@ -166,9 +173,11 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t sr
       :: "l"(map), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 
-// wait until the shared memory of this thread's bulk stores has been read
+// wait until the shared memory of all but this thread's last N bulk stores
+// has been read
+template <int N>
 __device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
 }
 
 // wait until this thread's bulk stores are done
@@ -184,6 +193,11 @@ __device__ __forceinline__ void fence_async_smem() {
 // the two consumer warpgroups' barrier (barrier 0 is __syncthreads')
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" :: "n"(NCONS) : "memory");
+}
+
+// one consumer warpgroup's own barrier (2 and 3)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(2 + wg) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -440,7 +454,7 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_kernel(
   if (wg == 2) {
     // ---- producer: one thread --------------------------------------------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (tid != 2 * 128) return;
+    if (tid != NCONS) return;
     int st = 0;
     uint32_t ph = 0;
     // the next stage once the consumers have handed it back, expecting
@@ -528,6 +542,7 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_kernel(
   const int ma0 = wg * RA;                              // a's m64 tiles
   const int mb0 = SPLIT_M ? wg * RB : 0;                // b's and c's
   const int nb0 = SPLIT_M ? 0 : wg * NB, wsub = SPLIT_M ? 0 : wg;
+  const bool leader = tid % 128 == 0;  // stores its warpgroup's outputs by TMA
   int st = 0;
   uint32_t ph = 0;
   // the next stage, once full: its offset in shared memory
@@ -535,10 +550,15 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_kernel(
     mbar_wait(full0 + 8 * st, ph);
     return p.off_ring + st * STAGE;
   };
-  auto release = [&]() {
-    mbar_arrive(empty0 + 8 * st);
+  // done reading the stage acquired last: returns it, to be handed back
+  // by arrive() once nothing reads it any more (its wgmma, its TMA store)
+  auto advance = [&]() -> int {
+    const int s = st;
     if (++st == p.NS) { st = 0; ph ^= 1; }
+    return s;
   };
+  auto arrive = [&](int s) { mbar_arrive(empty0 + 8 * s); };
+  auto release = [&]() { arrive(advance()); };
   // each b/c fragment row's pixel in the tile, and its region row at tap
   // (0, 0) and under the projection
   int qrow[RB][2], brow[RB][2], prow[RB][2];
@@ -695,14 +715,16 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_kernel(
       }
       // the epilogue, 32 columns a stage: relu(acc (+ the identity the stage
       // holds)) into the stage, in rows of 128 bytes as TMA's 128-byte
-      // swizzle lays them (a warpgroup's rows, or at stride 2 its own box),
-      // then one thread stores the stage's boxes by TMA, which clips what
-      // lies past the frame or past Cout, and hands the stage back once TMA
-      // has read it. The stores drain while the next products run.
+      // swizzle lays them, this warpgroup's 64 RB pixels as a box of 8 tile
+      // rows; then the warpgroup's leader stores the box by TMA, which clips
+      // what lies past the frame or past Cout. The stores drain while the
+      // next products run; the leader hands a stage back once TMA has read
+      // it, at the latest at the pass's end.
+      int held = -1;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const uint32_t off = acquire();
-        unsigned char* ep = smem + off + wsub * G::NQ * 128;
+        const uint32_t box = acquire() + wg * RB * 64 * 128;
+        unsigned char* ep = smem + box;
 #pragma unroll
         for (int m = 0; m < RB; ++m)
 #pragma unroll
@@ -710,7 +732,8 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_kernel(
 #pragma unroll
             for (int jj = 0; jj < 4; ++jj) {
               const int j = 4 * i + jj, c = 8 * jj + 2 * t4;
-              float2* e = reinterpret_cast<float2*>(swz<128>(ep, qrow[m][h], c / 4) + (c % 4) * 4);
+              float2* e = reinterpret_cast<float2*>(
+                  swz<128>(ep, qrow[m][h] - mb0 * 64, c / 4) + (c % 4) * 4);
               float2 v = make_float2(acc_c[m][4 * j + 2 * h], acc_c[m][4 * j + 2 * h + 1]);
               if (p.pw == nullptr) {
                 const float2 sc = *e;
@@ -720,19 +743,25 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_block_kernel(
               *e = make_float2(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f));
             }
         fence_async_smem();
-        consumers_sync();  // the stage holds the outputs
-        if (tid == 0) {
-#pragma unroll
-          for (int j = 0; j < PPS; ++j)
-            tma_store_4d(&omap, base + off + j * G::NQ * 128, (q * PPS + j) * PASS + 32 * i,
-                         ox0, oy0, frame);
-          bulk_wait_read();
+        warpgroup_sync(wg);  // the box holds the warpgroup's outputs
+        const int s = advance();
+        if (leader) {
+          tma_store_4d(&omap, base + box, pp * PASS + 32 * i, ox0,
+                       oy0 + (SPLIT_M ? 8 * wg : 0), frame);
+          bulk_wait_read<1>();
+          if (held >= 0) arrive(held);
+          held = s;
+        } else {
+          arrive(s);
         }
-        release();
+      }
+      if (leader) {
+        bulk_wait_read<0>();
+        arrive(held);
       }
     }
   }
-  if (tid == 0) bulk_wait();
+  if (leader) bulk_wait();
 }
 
 // ---- the launcher -----------------------------------------------------------
@@ -795,28 +824,29 @@ static int encode_region(CUtensorMap* map, const void* x, int N, int H, int W, i
   return encode(map, x, 5, dims, strides, box);
 }
 
-// A tensor of (N, H, W, C) pixels in boxes of the tile's own pixels, 32
-// channels a box
+// A tensor of (N, H, W, C) pixels in boxes of 32 channels of rows tile
+// rows of the tile's width
 template <int S>
-static int encode_tile(CUtensorMap* map, const void* t, int N, int H, int W, int C) {
+static int encode_tile(CUtensorMap* map, const void* t, int N, int H, int W, int C,
+                       cuuint32_t rows) {
   using G = Geom<S>;
   const cuuint64_t c = (cuuint64_t)C * 4;
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N};
   const cuuint64_t strides[3] = {c, c * W, c * W * H};
-  const cuuint32_t box[4] = {32, G::TW, G::TH, 1};
+  const cuuint32_t box[4] = {32, G::TW, rows, 1};
   return encode(map, t, 4, dims, strides, box);
 }
 
 // xmap: x's region, KA channels a box (product a); pmap: KP channels (the
 // projection); imap: x at the tile's pixels (the identity, stride 1 only);
-// omap: the output at the tile's pixels
+// omap: the output at a consumer warpgroup's 8 rows of the tile
 template <int S>
 static int encode_maps(CUtensorMap* xmap, CUtensorMap* pmap, CUtensorMap* imap,
                        CUtensorMap* omap, const Params& p) {
   int e = encode_region<S>(xmap, p.x, p.N, p.H, p.W, p.Cin, KA);
   if (e == 0) e = encode_region<S>(pmap, p.x, p.N, p.H, p.W, p.Cin, KP);
-  if (e == 0) e = encode_tile<S>(imap, p.x, p.N, p.H, p.W, p.Cin);
-  if (e == 0) e = encode_tile<S>(omap, p.out, p.N, p.Ho, p.Wo, p.Cout);
+  if (e == 0) e = encode_tile<S>(imap, p.x, p.N, p.H, p.W, p.Cin, Geom<S>::TH);
+  if (e == 0) e = encode_tile<S>(omap, p.out, p.N, p.Ho, p.Wo, p.Cout, 8);
   return e;
 }
 
