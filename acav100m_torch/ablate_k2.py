@@ -24,11 +24,11 @@ bf16 for comparison.
 
     python -m acav100m_torch.ablate_k2 --parent OLD.cu
 
-also builds OLD.cu, either form's source from an earlier checkout whose
-launcher takes raw weights and the output tile (e.g. the float32 form of
-``git show HEAD~1:acav100m_torch/csrc/bottleneck_stage.cu``), and times it
-beside this checkout's kernel of the same form in turns (parent, this,
-this, parent); ``--timeline`` prints only each form's time by phase of a
+also builds OLD.cu, either form's source from an earlier checkout (e.g.
+``git show HEAD~1:acav100m_torch/csrc/bottleneck_stage.cu``; a launcher
+that takes raw weights and the output tile gets them, one that takes the
+pack gets this checkout's pack), and times it beside this checkout's
+kernel of the same form in turns (parent, this, this, parent); ``--timeline`` prints only each form's time by phase of a
 tile, from %globaltimer stamps (``TIMELINE_F32``, ``TIMELINE_BF16``).
 """
 
@@ -403,6 +403,14 @@ def parent_form(parent: Path) -> str:
     return "bf16" if "bottleneck_block_bf16(" in parent.read_text() else "float32"
 
 
+def parent_takes_tile(parent: Path) -> bool:
+    """Whether an earlier checkout's K2 launcher takes the raw weights and
+    the output tile (``int TH, int TW``) rather than its form's pack."""
+    text = parent.read_text()
+    entry = text[text.index('extern "C" int bottleneck_block'):]
+    return "int TH, int TW" in entry[:entry.index("{")]
+
+
 def build_all(parent: Optional[Path] = None):
     """One nvcc per variant of each form, all started together, and for
     ``parent`` (either form's source from an earlier checkout) the variant
@@ -486,10 +494,9 @@ def stage_inputs(dev):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", type=Path, default=None,
-                        help="a K2 source (either form) of an earlier checkout whose "
-                             "launcher takes raw weights and the tile, timed beside this "
-                             "checkout's kernel of its form in turns: parent, this, this, "
-                             "parent")
+                        help="a K2 source (either form) of an earlier checkout, timed "
+                             "beside this checkout's kernel of its form in turns: parent, "
+                             "this, this, parent")
     parser.add_argument("--timeline", action="store_true",
                         help="only each form's time by phase of a tile")
     args = parser.parse_args(argv)
@@ -525,7 +532,7 @@ def main(argv=None) -> int:
         for (f, name), (lib, regs) in built.items():
             if f != form:
                 continue
-            own = packed if name != "parent" else None
+            own = None if name == "parent" and parent_takes_tile(args.parent) else packed
             fn = bind(ctypes.CDLL(str(lib)), entry, tile=own is None)
             call = functools.partial(run_stage, fn, xf, bf, outs, stream, own)
             calls[name] = call

@@ -22,10 +22,11 @@
 //         frame and past Cin, and the chunk's rows of aw;
 //       - product b: one tap of bw a stage;
 //       - product c, a pass of 128 output columns a warpgroup at a time:
-//         cw in chunks of KC rows, then either the projection's x (the
-//         region again, 8 channels a stage) with its rows of pw, or the
-//         identity shortcut, x at the tile's pixels by TMA, 32 channels a
-//         stage, so that the epilogue reads it from shared memory.
+//         cw in chunks of KC rows, then the projection's x (the region
+//         again, 8 channels a stage) with its rows of pw where the block
+//         has one, then four stages for the epilogue's 32-column slices,
+//         which hold the identity shortcut (x at the tile's pixels, by
+//         TMA) where the block has no projection.
 //     Weights come as the host packed them (pack_block_f32) by bulk copies.
 //   * two consumer warpgroups that run the three products on wgmma
 //     (m64nNk8 TF32, f32 sums; A from registers, B from the ring by
@@ -35,7 +36,10 @@
 //          frame, which is the 3x3's 'same' padding;
 //       2. b on the tile as an implicit GEMM over the 9 taps of bw: tap
 //          (dy, dx) reads a at each pixel's region row shifted by the tap;
-//       3. y = b . cw (+ x[::s, ::s] . pw) + cb (+ pb | x), then ReLU.
+//       3. y = b . cw (+ x[::s, ::s] . pw) + cb (+ pb | x), then ReLU,
+//          written 32 columns at a time into an epilogue stage and stored
+//          from there by TMA, each warpgroup's leader its own 8 tile rows,
+//          so that the stores drain while the next products run.
 //     At stride 1 the warpgroups split b and c by the tile's m64 row tiles
 //     (two each), at stride 2 (one row tile) by columns. a and b live in
 //     shared memory in fp32 (b over a); four named barriers of the two
@@ -61,15 +65,21 @@
 // than the 168 registers a thread that three warpgroups leave ptxas: it
 // then serializes every wgmma, and the kernel took 0.7555 ms.)
 //
-// Layouts. Every operand in shared memory is K-major without swizzle, in
+// Layouts. The weights (B) and a and b are K-major without swizzle, in
 // planes of 4 channels: element (row r, channel k) at (k / 4) * plane +
 // r * 16 + (k % 4) * 4 bytes, so a wgmma core matrix (8 rows x 16 bytes) is
 // 8 consecutive rows of a plane, and a lane's A fragment loads (rows g and
 // g + 8, channels t and t + 4; wgmma's register layout of A is
 // mma.m16n8k8's) fall on 32 different banks. Weights are packed in this
 // order with their output channels as rows, big then small, cw and pw in
-// passes of 128 columns. The region is stored row by row with a pitch of
-// AWS pixels; at stride 2 each region row is split into its even and odd
+// passes of 128 columns. x lands in the ring in pixel rows of 16 channels
+// (product a) or 8 (the projection) with TMA's 64- or 32-byte swizzle, the
+// identity and the outputs in rows of 32 channels with its 128-byte
+// swizzle: a TMA box row is then whole 32-byte sectors (boxes of 4
+// channels, 16 bytes a row, took 0.7654 ms against 0.6602), and the
+// swizzle keeps the fragment loads and the epilogue's accesses on
+// different banks. The region is stored row by row with a pitch of AWS
+// pixels; at stride 2 each region row is split into its even and odd
 // columns, so the pixels a tap reads for consecutive output pixels of a
 // tile row are consecutive region rows.
 //
@@ -91,7 +101,11 @@
 // (x, three block outputs written, two read back), 0.21 ms at 3.35 TB/s.
 // So it is bound by operations. This design issues 186.4 GFLOP of TF32
 // products (the halo, and product a padded to whole m64 tiles of the
-// region, 1.5x its pixels), 0.377 ms at 495 TFLOP/s.
+// region, 1.5x its pixels), 0.377 ms at the 494 TFLOP/s that wgmma TF32
+// reaches alone on an H100 80GB HBM3 at 700 W (ablate_k2.py); the kernel
+// takes 0.646 ms there. Its stages each drain their wgmma (PIPELINE), and
+// x, the weights and the stores compete for the L2 (ablate_k2.py: the
+// products alone 0.56 ms, the ring and epilogues alone 0.39).
 //
 // Plain C interface for ctypes; the launcher allocates nothing and returns
 // cudaGetLastError().

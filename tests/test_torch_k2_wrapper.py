@@ -94,6 +94,13 @@ def test_ablation_parent_form_is_read_from_its_entry_point(tmp_path):
     bf16.write_text(ablate_k2.SRC_BF16.read_text())
     assert ablate_k2.parent_form(f32) == "float32"
     assert ablate_k2.parent_form(bf16) == "bf16"
+    # both forms' launchers take their packs now; the mma.sync float32
+    # launcher took the raw weights and the output tile
+    assert not ablate_k2.parent_takes_tile(f32) and not ablate_k2.parent_takes_tile(bf16)
+    old = tmp_path / "old.cu"
+    old.write_text('extern "C" int bottleneck_block(\n    const void* pw, const void* pb, '
+                   'int Ci, int Cout, int s, int TH, int TW,\n    void* out, void* stream) {\n}\n')
+    assert ablate_k2.parent_takes_tile(old)
 
 
 @pytest.mark.parametrize("cin,inner,cout,proj", [
