@@ -22,6 +22,7 @@ this module and must never touch the parent's CUDA context.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import tarfile
 import threading
@@ -31,6 +32,7 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from .. import tracing
 from .video import decode_npz, prepare_clip
 
 
@@ -84,7 +86,10 @@ class TarShardDataset:
                     if stem not in meta or fname in skip:
                         continue
                     try:
-                        clip = self.prepare(self.decoder(data))
+                        with tracing.span("span.extract.decode"):
+                            decoded = self.decoder(data)
+                        with tracing.span("span.extract.prepare"):
+                            clip = self.prepare(decoded)
                     except Exception as e:
                         if self.on_error == "raise":
                             raise
@@ -127,14 +132,17 @@ def collate(samples: List[Dict], batch_size: int) -> Dict:
 
 
 def batched(source: Iterable[Dict], batch_size: int) -> Iterator[Dict]:
-    buf: List[Dict] = []
-    for sample in source:
-        buf.append(sample)
-        if len(buf) == batch_size:
-            yield collate(buf, batch_size)
-            buf = []
-    if buf:
-        yield collate(buf, batch_size)
+    """Batches of ``batch_size`` samples, the last one short. Batch n's
+    decoding and collation run in its ``span.extract.load`` (unit n)."""
+    samples = iter(source)
+    for n in itertools.count():
+        with tracing.span("span.extract.load", unit=n):
+            buf = list(itertools.islice(samples, batch_size))
+            if not buf:
+                return
+            with tracing.span("span.extract.collate"):
+                batch = collate(buf, batch_size)
+        yield batch
 
 
 class Prefetcher:

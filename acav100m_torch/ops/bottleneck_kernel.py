@@ -45,8 +45,9 @@ tensors. The kernels take NHWC frames with input channels in multiples of
 multiples of 32 (at most 768 in bf16, whose cw stays resident), at
 stride 1 or 2; the float32 form's tiles are 16 x 16 output pixels (8 x 8
 at stride 2), the bf16 form's 16 x 8 (8 x 8 at stride 2). They raise on
-anything else. Each form counts its own launches:
-``fused_stage.launches`` (float32) and ``fused_stage_bf16.launches``.
+anything else. Each form counts its own launches in the tracing
+counters ``k2_fp32.launches`` and ``k2_bf16.launches``, and
+``k2.packs`` counts ``pack_block`` calls.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from . import cuda_build
 
 Tensor = torch.Tensor
@@ -187,6 +189,7 @@ def pack_block_f32(blk: Dict[str, Tensor]) -> Dict[str, Tensor]:
 def pack_block(blk: Dict[str, Tensor]) -> Dict[str, Tensor]:
     """The pack of the kernel form that takes ``blk``'s weight matrices:
     ``pack_block_bf16`` for bfloat16, ``pack_block_f32`` for float32."""
+    tracing.count("k2.packs")
     if blk["aw"].dtype == torch.bfloat16:
         return pack_block_bf16(blk)
     return pack_block_f32(blk)
@@ -278,10 +281,10 @@ def _check_packed(w: Dict[str, Tensor], cin: int, inner: int, cout: int, dev,
                              f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _launch(x: Tensor, blocks: Sequence[Dict[str, Tensor]], stride: int, counter,
+def _launch(x: Tensor, blocks: Sequence[Dict[str, Tensor]], stride: int, counter: str,
             packed: Optional[Sequence[Dict[str, Tensor]]] = None) -> Tensor:
-    """Launch the kernel of x's form once per block; ``counter.launches``
-    counts them. Each form takes each block's ``pack_block``, from
+    """Launch the kernel of x's form once per block; the tracing counter
+    ``counter`` counts them. Each form takes each block's ``pack_block``, from
     ``packed`` where the caller keeps it, else packed here."""
     fn = _bind(x.dtype)
     if packed is not None and len(packed) != len(blocks):
@@ -307,7 +310,7 @@ def _launch(x: Tensor, blocks: Sequence[Dict[str, Tensor]], stride: int, counter
             err = fn(_ptr(h), n, hh, ww, cin, *(_ptr(t) for t in args),
                      inner, cout, s, _ptr(out), stream)
             cuda_build.check(err, _LAUNCHERS[x.dtype][1])
-            counter.launches += 1
+            tracing.count(counter)
             h, s = out, 1
     return h
 
@@ -333,7 +336,7 @@ def fused_stage(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
         return fused_stage_bf16(x, blocks, stride, packed)
     if x.dtype != torch.float32:
         raise ValueError(f"kernel K2 takes float32 or bfloat16, got {x.dtype}")
-    return _launch(x, blocks, stride, fused_stage, packed)
+    return _launch(x, blocks, stride, "k2_fp32.launches", packed)
 
 
 def fused_stage_bf16(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
@@ -347,8 +350,4 @@ def fused_stage_bf16(x: Tensor, blocks: Sequence[Dict[str, Tensor]],
         raise ValueError(f"K2's bf16 form takes bfloat16 frames, got {x.dtype}")
     if _device(x) == "cpu":
         return fused_stage_ref(x, blocks, stride)
-    return _launch(x, blocks, stride, fused_stage_bf16, packed)
-
-
-fused_stage.launches = 0
-fused_stage_bf16.launches = 0
+    return _launch(x, blocks, stride, "k2_bf16.launches", packed)

@@ -17,9 +17,10 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
+
+from .. import tracing
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
@@ -30,7 +31,6 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-build_seconds: Dict[str, float] = {}
 
 
 def find_nvcc() -> str:
@@ -62,21 +62,22 @@ def _start(name: str):
 
 def build(names: Iterable[str]) -> Dict[str, Path]:
     """Compile the named kernels, one ``nvcc`` per source, all started
-    together. Returns {name: library path}; raises on any failure."""
-    names = list(names)
-    t0 = time.time()
-    started = {n: _start(n) for n in names}
-    out: Dict[str, Path] = {}
-    errors = []
-    for name, (proc, tmp, lib) in started.items():
-        if proc is not None:
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                errors.append(f"nvcc failed for {name}.cu:\n{log.decode(errors='replace')}")
-                continue
-            os.replace(tmp, lib)
-        build_seconds[name] = time.time() - t0
-        out[name] = lib
+    together, in one ``span.kernels.build`` (``names``: those it compiled).
+    Returns {name: library path}; raises on any failure."""
+    with tracing.span("span.kernels.build") as span:
+        started = {n: _start(n) for n in names}
+        if span is not None:
+            span.attrs["names"] = [n for n, (proc, _, _) in started.items() if proc is not None]
+        out: Dict[str, Path] = {}
+        errors = []
+        for name, (proc, tmp, lib) in started.items():
+            if proc is not None:
+                log, _ = proc.communicate()
+                if proc.returncode != 0:
+                    errors.append(f"nvcc failed for {name}.cu:\n{log.decode(errors='replace')}")
+                    continue
+                os.replace(tmp, lib)
+            out[name] = lib
     if errors:
         raise RuntimeError("\n".join(errors))
     return out
@@ -87,6 +88,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _loaded:
             _loaded[name] = ctypes.CDLL(str(build([name])[name]))
+            tracing.count("kernels.loads")
         return _loaded[name]
 
 

@@ -25,6 +25,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from . import cuda_build
 
 Tensor = torch.Tensor
@@ -160,8 +161,5 @@ def fused_assign_update(
         raise ValueError(f"the kernel takes at most {_KMAX} centers and {_MMAX} "
                          f"clusterings, got K={k}, M={m}")
     out = launch(_bind(), centers, counts, batch, threshold, dims)
-    fused_assign_update.launches += 1
+    tracing.count("k1.launches")
     return out
-
-
-fused_assign_update.launches = 0

@@ -39,6 +39,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..runtime import Group, all_gather_cat, group_device
 
 Tensor = torch.Tensor
@@ -411,40 +412,52 @@ class BatchGreedySelector:
         gains: List[float] = []
         timelapse: List[float] = []
         lookups: List[int] = []
-        self.modify_k(subset_size)
-        self.add_samples(list(start_indices))
-        b_dev = _pad_rows(self.B, self.group)
+        with tracing.span("span.select.start"):
+            self.modify_k(subset_size)
+            self.add_samples(list(start_indices))
+            b_dev = _pad_rows(self.B, self.group)
+        iteration = 0
         while len(selected) < subset_size:
-            t0 = time.time()
-            self.shuffle_candidates()
-            b = min(self.B, len(self.candidate_ids))
-            if b == 0:
-                break
-            batch = self.candidate_ids[:b]
-            if b < b_dev:  # pad to the static size; pads are masked
-                batch_dev = np.concatenate([batch, np.full(b_dev - b, batch[0])])
-            else:
-                batch_dev = batch
-            valid_mask = np.arange(b_dev) < b
-            top_idx, top_scores = self._step(
-                torch.as_tensor(batch_dev, device=self.device),
-                torch.as_tensor(valid_mask, device=self.device))
-            top_idx = top_idx.cpu().numpy()
-            top_scores = top_scores.double().cpu().numpy()  # numpy has no bf16
-            if b < b_dev:
-                keep = top_idx < b
-                top_idx, top_scores = top_idx[keep], top_scores[keep]
-            winner_ids = batch[top_idx]
-            selected += winner_ids.tolist()
-            gains += top_scores.tolist()
-            lookups.append(1)
-            timelapse.append(time.time() - t0)
-            rest = self.candidate_ids[b:]
-            if self.keep_unselected:
-                unselected = np.setdiff1d(batch, winner_ids, assume_unique=False)
-                self.candidate_ids = np.concatenate([rest, unselected])
-            else:
-                self.candidate_ids = rest
+            with tracing.span("span.select.iteration", unit=iteration):
+                with tracing.span("span.select.shuffle"):
+                    t0 = time.time()
+                    self.shuffle_candidates()
+                    b = min(self.B, len(self.candidate_ids))
+                    if b == 0:
+                        break
+                    batch = self.candidate_ids[:b]
+                    if b < b_dev:  # pad to the static size; pads are masked
+                        batch_dev = np.concatenate([batch, np.full(b_dev - b, batch[0])])
+                    else:
+                        batch_dev = batch
+                    valid_mask = np.arange(b_dev) < b
+                with tracing.span("span.select.dispatch"):
+                    top_idx, top_scores = self._step(
+                        torch.as_tensor(batch_dev, device=self.device),
+                        torch.as_tensor(valid_mask, device=self.device))
+                with tracing.span("span.select.read_picks"):
+                    top_idx = top_idx.cpu().numpy()
+                    tracing.count("select.host_reads")
+                    top_scores = top_scores.double().cpu().numpy()  # numpy has no bf16
+                    tracing.count("select.host_reads")
+                with tracing.span("span.select.bookkeeping"):
+                    if b < b_dev:
+                        keep = top_idx < b
+                        top_idx, top_scores = top_idx[keep], top_scores[keep]
+                    winner_ids = batch[top_idx]
+                    selected += winner_ids.tolist()
+                    gains += top_scores.tolist()
+                    lookups.append(1)
+                    timelapse.append(time.time() - t0)
+                    rest = self.candidate_ids[b:]
+                    if self.keep_unselected:
+                        unselected = np.setdiff1d(batch, winner_ids, assume_unique=False)
+                        self.candidate_ids = np.concatenate([rest, unselected])
+                    else:
+                        self.candidate_ids = rest
+                tracing.count("select.iterations")
+                tracing.count("select.picks", len(winner_ids))
+            iteration += 1
         self.folded_ids = list(selected)
         return selected[:subset_size], gains, timelapse, lookups
 

@@ -31,6 +31,7 @@ Phase B assigns each rank's own shards.
 
 from __future__ import annotations
 
+import itertools
 import math
 import random
 from collections import OrderedDict
@@ -40,6 +41,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import Config, build_config
 from ..ops import kmeans
 from ..runtime import Group, barrier, broadcast, group_device, placement
@@ -118,7 +120,8 @@ def iter_feature_rows(shard_paths: Sequence) -> Iterator[Dict]:
     """Stream rows from feature pkls, skip-and-continue on bad shards."""
     for path in shard_paths:
         try:
-            rows = load_pickle(path)
+            with tracing.span("span.cluster.unpickle"):
+                rows = load_pickle(path)
         except Exception as e:
             print(f"skipping unreadable shard {path}: {e}")
             continue
@@ -229,62 +232,74 @@ def discover_types(shard_paths) -> Tuple[List[Tuple[str, str]], List[int]]:
 
 def train_clusters(cfg, group: Optional[Group] = None):
     """Phase A. Returns (state, types, dims)."""
-    device = group_device(cfg.computation.device, group)
-    out_dir = Path(cfg.data.output.path)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    index, total = placement(cfg.computation.index, cfg.computation.total, group)
-    seed = cfg.computation.random_seed or 0
+    with tracing.span("span.cluster.setup"):
+        device = group_device(cfg.computation.device, group)
+        out_dir = Path(cfg.data.output.path)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        index, total = placement(cfg.computation.index, cfg.computation.total, group)
+        seed = cfg.computation.random_seed or 0
 
-    _, all_shards = plan_shards(cfg.data.path, index=index, total=total, suffix=".pkl")
-    all_shards = [p for p in all_shards if Path(p).is_file()]
-    train_shards = node_selection(all_shards, index=index, total=total, is_train=True)
-    types, dims = discover_types(train_shards)
+        _, all_shards = plan_shards(cfg.data.path, index=index, total=total, suffix=".pkl")
+        all_shards = [p for p in all_shards if Path(p).is_file()]
+        train_shards = node_selection(all_shards, index=index, total=total, is_train=True)
+        types, dims = discover_types(train_shards)
 
-    # resume (reference semantics, run_clustering.py:142-144: re-train epoch
-    # `cached_epoch` starting from the state saved after it)
-    cached_epoch = cfg.clustering.cached_epoch
-    pre_epochs = 0
-    state = None
-    if isinstance(cached_epoch, int):
-        found = find_centroid_cache(cfg, cached_epoch)
-        if found is not None:
-            state, types, dims = load_centroids(found, device)
-            if not cfg.clustering.resume_training:
-                return state, types, dims
-            pre_epochs = cached_epoch
-    if state is None:
-        state = kmeans.init_state(
-            dims, cfg.clustering.ncentroids or 32,
-            generator=torch.Generator().manual_seed(seed), device=device,
-        )
-    # every rank starts from rank 0's centers (the reference all-reduces its
-    # random init, sgd_clustering.py:88-92)
-    broadcast(state.centers, group)
+        # resume (reference semantics, run_clustering.py:142-144: re-train epoch
+        # `cached_epoch` starting from the state saved after it)
+        cached_epoch = cfg.clustering.cached_epoch
+        pre_epochs = 0
+        state = None
+        if isinstance(cached_epoch, int):
+            found = find_centroid_cache(cfg, cached_epoch)
+            if found is not None:
+                state, types, dims = load_centroids(found, device)
+                if not cfg.clustering.resume_training:
+                    return state, types, dims
+                pre_epochs = cached_epoch
+        if state is None:
+            state = kmeans.init_state(
+                dims, cfg.clustering.ncentroids or 32,
+                generator=torch.Generator().manual_seed(seed), device=device,
+            )
+        # every rank starts from rank 0's centers (the reference all-reduces its
+        # random init, sgd_clustering.py:88-92)
+        broadcast(state.centers, group)
 
-    epochs = math.ceil((cfg.clustering.epochs or 2) / total)
-    batch_size = cfg.data.batch_size or 1024
-    dmax = int(state.centers.shape[-1])
-    rng = random.Random(seed)
-    warmup_gen = torch.Generator().manual_seed(seed + 1 + index)
-    use_pallas = bool(cfg.computation.use_pallas)
+        epochs = math.ceil((cfg.clustering.epochs or 2) / total)
+        batch_size = cfg.data.batch_size or 1024
+        dmax = int(state.centers.shape[-1])
+        rng = random.Random(seed)
+        warmup_gen = torch.Generator().manual_seed(seed + 1 + index)
+        use_pallas = bool(cfg.computation.use_pallas)
 
+    step = 0
     for epoch in range(pre_epochs, pre_epochs + epochs):
         lr = kmeans.lr_schedule(epoch)
         source = iter_feature_rows(train_shards)
         if cfg.computation.shuffle_bufsize:
             source = buffered_shuffle(source, cfg.computation.shuffle_bufsize, rng)
-        buf: List[Dict] = []
-        for row in source:
-            buf.append(row)
-            if len(buf) == batch_size:
-                batch = torch.from_numpy(stack_batch(buf, types, dmax)).to(device)
-                state, _ = kmeans.train_step(state, batch, lr, generator=warmup_gen,
-                                             use_pallas=use_pallas, group=group)
-                buf = []
-        # drop_last=True in the reference train loader
-        if group is None or group.rank == 0:
-            save_centroids(cfg, epoch, state, types, dims)
-        barrier(group)
+        while True:
+            with tracing.span("span.cluster.step", unit=step):
+                with tracing.span("span.cluster.shuffle"):
+                    buf = list(itertools.islice(source, batch_size))
+                # drop_last=True in the reference train loader
+                if len(buf) < batch_size:
+                    break
+                with tracing.span("span.cluster.stack_batch"):
+                    stacked = stack_batch(buf, types, dmax)
+                with tracing.span("span.cluster.copy"):
+                    batch = torch.from_numpy(stacked).to(device)
+                with tracing.span("span.cluster.train_step"):
+                    state, _ = kmeans.train_step(state, batch, lr, generator=warmup_gen,
+                                                 use_pallas=use_pallas, group=group)
+                tracing.count("cluster.steps")
+                tracing.count("cluster.rows", len(buf))
+                tracing.count("cluster.h2d_bytes", stacked.nbytes)
+            step += 1
+        with tracing.span("span.cluster.save"):
+            if group is None or group.rank == 0:
+                save_centroids(cfg, epoch, state, types, dims)
+            barrier(group)
     return state, types, dims
 
 
@@ -294,23 +309,24 @@ def assign_clusters(cfg, state: kmeans.KMeansState,
                     types: Sequence[Tuple[str, str]], group: Optional[Group] = None):
     """Phase B over this process's shards. Returns saved assignment pkl
     paths."""
-    device = state.centers.device
-    out_dir = Path(cfg.data.output.path)
-    index, total = placement(cfg.computation.index, cfg.computation.total, group)
-    mine, _ = plan_shards(cfg.data.path, index=index, total=total, suffix=".pkl")
-    mine = [p for p in mine if Path(p).is_file()]
+    with tracing.span("span.cluster.setup"):
+        device = state.centers.device
+        out_dir = Path(cfg.data.output.path)
+        index, total = placement(cfg.computation.index, cfg.computation.total, group)
+        mine, _ = plan_shards(cfg.data.path, index=index, total=total, suffix=".pkl")
+        mine = [p for p in mine if Path(p).is_file()]
 
-    prefix = ""
-    if cfg.clustering.save_epoch_prefix and isinstance(cfg.clustering.cached_epoch, int):
-        prefix = f"epoch_{cfg.clustering.cached_epoch}_"
+        prefix = ""
+        if cfg.clustering.save_epoch_prefix and isinstance(cfg.clustering.cached_epoch, int):
+            prefix = f"epoch_{cfg.clustering.cached_epoch}_"
 
-    audio_keys = set(cfg.model_types.audio or [])
-    dmax = int(state.centers.shape[-1])
-    batch_size = cfg.data.batch_size or 1024
+        audio_keys = set(cfg.model_types.audio or [])
+        dmax = int(state.centers.shape[-1])
+        batch_size = cfg.data.batch_size or 1024
 
-    by_model: "OrderedDict[str, List[Tuple[int, str]]]" = OrderedDict()
-    for mi, (model_key, layer) in enumerate(types):
-        by_model.setdefault(model_key, []).append((mi, layer))
+        by_model: "OrderedDict[str, List[Tuple[int, str]]]" = OrderedDict()
+        for mi, (model_key, layer) in enumerate(types):
+            by_model.setdefault(model_key, []).append((mi, layer))
 
     saved_paths: List[Path] = []
     for shard_path in mine:
@@ -319,32 +335,44 @@ def assign_clusters(cfg, state: kmeans.KMeansState,
         if out_path.is_file():
             continue
         try:
-            rows = load_pickle(shard_path)
+            with tracing.span("span.cluster.unpickle"):
+                rows = load_pickle(shard_path)
         except Exception as e:
             print(f"skipping unreadable shard {shard_path}: {e}")
             continue
         out_rows: List[Dict] = []
         for start in range(0, len(rows), batch_size):
             chunk = rows[start : start + batch_size]
-            batch = torch.from_numpy(stack_batch(chunk, types, dmax)).to(device)
-            best = kmeans.assign_step(state, batch).cpu().numpy()  # (M, B)
-            for bi, row in enumerate(chunk):
-                out_row = {
-                    "filename": row["filename"],
-                    "shard_name": row["shard_name"],
-                    "shard_size": row["shard_size"],
-                    "video_assignments": [],
-                    "audio_assignments": [],
-                }
-                for model_key, layers in by_model.items():
-                    arr = {layer: int(best[mi, bi]) for mi, layer in layers}
-                    side = ("audio_assignments" if model_key in audio_keys
-                            else "video_assignments")
-                    out_row[side].append({"model_key": model_key, "array": arr})
-                out_rows.append(out_row)
-        dump_pickle(out_rows, out_path)
+            with tracing.span("span.cluster.stack_batch"):
+                stacked = stack_batch(chunk, types, dmax)
+            with tracing.span("span.cluster.copy"):
+                batch = torch.from_numpy(stacked).to(device)
+            tracing.count("cluster.rows", len(chunk))
+            tracing.count("cluster.h2d_bytes", stacked.nbytes)
+            with tracing.span("span.cluster.assign"):
+                best = kmeans.assign_step(state, batch)
+            with tracing.span("span.cluster.assign_read"):
+                best = best.cpu().numpy()  # (M, B)
+            with tracing.span("span.cluster.rows"):
+                for bi, row in enumerate(chunk):
+                    out_row = {
+                        "filename": row["filename"],
+                        "shard_name": row["shard_name"],
+                        "shard_size": row["shard_size"],
+                        "video_assignments": [],
+                        "audio_assignments": [],
+                    }
+                    for model_key, layers in by_model.items():
+                        arr = {layer: int(best[mi, bi]) for mi, layer in layers}
+                        side = ("audio_assignments" if model_key in audio_keys
+                                else "video_assignments")
+                        out_row[side].append({"model_key": model_key, "array": arr})
+                    out_rows.append(out_row)
+        with tracing.span("span.cluster.save"):
+            dump_pickle(out_rows, out_path)
         saved_paths.append(out_path)
-    write_run_manifest(out_dir, saved_paths)
+    with tracing.span("span.cluster.save"):
+        write_run_manifest(out_dir, saved_paths)
     return saved_paths
 
 

@@ -57,6 +57,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import Config, build_config
 from ..data.meta import load_metadata
 from ..data.tar_dataset import Prefetcher, empty_batch, make_loader
@@ -209,158 +210,194 @@ def _stage(batch: Dict, device, stream) -> Dict:
     return batch
 
 
+def _staged(loader, device, stream):
+    """The loader's batches staged to ``device`` (``_stage``), on the
+    thread that iterates this; batch n's staging span takes unit n."""
+    for n, batch in enumerate(loader):
+        with tracing.span("span.extract.stage", unit=n):
+            batch = _stage(batch, device, stream)
+        yield batch
+
+
+def _count_bytes(name: str, path) -> None:
+    """Count the size of the file just written at ``path``."""
+    if tracing.on():
+        tracing.count(name, Path(path).stat().st_size)
+
+
 def run_extraction(cfg, decoder=None, models=None, group: Optional[Group] = None):
     """Extract features for this process's shards. Returns saved paths."""
-    device = group_device(cfg.computation.device, group)
-    out_dir = Path(cfg.data.output.path)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    with tracing.span("span.extract.setup"):
+        device = group_device(cfg.computation.device, group)
+        out_dir = Path(cfg.data.output.path)
+        out_dir.mkdir(parents=True, exist_ok=True)
 
-    index, total = placement(cfg.computation.index, cfg.computation.total, group)
-    mine, all_shards = plan_shards(
-        cfg.data.media.path,
-        index=index,
-        total=total,
-        suffix=".tar",
-        discard_remainder=bool(cfg.computation.discard_shards),
-    )
-    metas, _ = load_metadata(mine)
-    mine = [p for p in mine if Path(p).stem in metas]
-    caches, skip_lists = load_shard_caches(out_dir, mine)
-    # shards whose output pkl already exists are skipped entirely
-    mine = [p for p in mine if not (out_dir / f"{Path(p).stem}.pkl").is_file()]
-
-    if models is None:
-        models = build_models(cfg, device)
-    else:
-        _check_supported(cfg)
-    model_names = list(models)
-    audio_keys = list(cfg.model_types.audio or [])
-    extract_fn = make_extract_fn(models)
-
-    if decoder is None:
-        name = cfg.data.decoder or "npz"
-        kwargs = {}
-        if name != "npz":
-            kwargs["size"] = cfg.data.media.size or 256
-            kwargs["sample_rate"] = 16000
-        if name in ("native", "auto"):
-            # sampled in C: the frames temporal_sampling would keep, but the
-            # others skip scaling and storage
-            kwargs["sample_frames"] = cfg.data.media.num_frames or 32
-        decoder = get_decoder(name, **kwargs)
-    duration = cfg.acav.duration or 10
-    # a partial of a module-level function pickles for the decode workers
-    prepare = functools.partial(
-        prepare_clip,
-        num_frames=cfg.data.media.num_frames or 32,
-        duration=duration,
-        skip_shorter_seconds=duration * (cfg.acav.skip_shorter_ratio or 0.25),
-    )
-    batch_size = cfg.data.batch_size or 16
-    num_workers = cfg.computation.num_workers or 0
-    pad_to_batches = pad_template = None
-    if cfg.computation.equalize_length and total > 1:
-        # the same count on every process: from all shards' metadata
-        # (reference ResizedDataset + get_length, mps/distributed.py:444-461)
-        metas_all, _ = load_metadata(all_shards)
-        sizes_all = [len(metas_all[Path(p).stem]) for p in all_shards
-                     if Path(p).stem in metas_all]
-        pad_to_batches = get_length(sizes_all, batch_size, num_workers, total) // batch_size
-        pad_template = empty_batch(batch_size, num_frames=cfg.data.media.num_frames or 32,
-                                   size=cfg.data.media.size or 256)
-    loader = make_loader(mine, metas, batch_size, skip_lists=skip_lists,
-                         decoder=decoder, prepare=prepare, num_workers=num_workers,
-                         pad_to_batches=pad_to_batches, pad_template=pad_template)
-
-    rows: Dict[str, "OrderedDict[str, Dict]"] = defaultdict(OrderedDict)
-    shard_sizes: Dict[str, int] = {}
-    saved_paths: List[Path] = []
-
-    # resume from caches
-    for shard_name, cache in caches.items():
-        for row in cache:
-            rows[shard_name][Path(row["filename"]).stem] = row
-            shard_sizes[shard_name] = row["shard_size"]
-
-    def save_shard(shard_name):
-        path = save_shard_output(
-            list(rows[shard_name].values()), out_dir, shard_name, final=True
+        index, total = placement(cfg.computation.index, cfg.computation.total, group)
+        mine, all_shards = plan_shards(
+            cfg.data.media.path,
+            index=index,
+            total=total,
+            suffix=".tar",
+            discard_remainder=bool(cfg.computation.discard_shards),
         )
-        saved_paths.append(path)
-        del rows[shard_name]
-        shard_sizes.pop(shard_name, None)
+        metas, _ = load_metadata(mine)
+        mine = [p for p in mine if Path(p).stem in metas]
+        caches, skip_lists = load_shard_caches(out_dir, mine)
+        # shards whose output pkl already exists are skipped entirely
+        mine = [p for p in mine if not (out_dir / f"{Path(p).stem}.pkl").is_file()]
 
-    save_cache_every = cfg.acav.save_cache_every or 1
-    depth = cfg.computation.device_prefetch
-    if depth is None:
-        depth = 2
-    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-    staged = (_stage(b, device, stream) for b in loader)
-    batches = Prefetcher(staged, depth=depth) if depth > 0 else staged
+        if models is None:
+            models = build_models(cfg, device)
+        else:
+            _check_supported(cfg)
+        model_names = list(models)
+        audio_keys = list(cfg.model_types.audio or [])
+        extract_fn = make_extract_fn(models)
 
-    # int8: the activation scales are set on the run's first batch, the
-    # staged batch with its masked pad rows, once (JAX
-    # feature_extraction.py:373-381); an equalize_length pad comes after
-    # every real batch, so it is never the one calibrated on. The model owns
-    # the observers, so it alone decides
-    to_calibrate = [m for m in models.values() if getattr(m, "quant", "none") == "int8"]
-    t0 = time.time()
-    for n_iter, batch in enumerate(batches):
-        staged = batch.pop("_dev")
-        if staged is not None:
-            dev, event = staged
-            if event is not None:
-                current = torch.cuda.current_stream(device)
-                current.wait_event(event)
-                for t in dev:  # the copies were allocated on the side stream
-                    t.record_stream(current)
-            for model in to_calibrate:
-                model.calibrate(dev[0])
-            to_calibrate = []
-            taps = extract_fn(*dev)
-            taps = {name: [t.float().cpu().numpy() for t in tap_list]
-                    for name, tap_list in taps.items()}
-        for i in range(len(batch["filename"])):
-            if not batch["batch_mask"][i]:
-                continue
-            fname = batch["filename"][i]
-            shard_name = batch["shard_name"][i]
-            stem = Path(fname).stem
-            if stem in rows[shard_name]:
-                continue
-            per_model = [
-                {
-                    "model_key": name,
-                    "extractor_name": models[name].model_tag["name"],
-                    "dataset": models[name].model_tag["dataset"],
-                    "array": [layer[i] for layer in taps[name]],
-                }
-                for name in model_names
-            ]
-            rows[shard_name][stem] = make_feature_row(
-                fname, shard_name, int(batch["shard_size"][i]), per_model,
-                audio_keys,
-            )
-            shard_sizes[shard_name] = int(batch["shard_size"][i])
-        # cache + complete-shard flush
+        if decoder is None:
+            name = cfg.data.decoder or "npz"
+            kwargs = {}
+            if name != "npz":
+                kwargs["size"] = cfg.data.media.size or 256
+                kwargs["sample_rate"] = 16000
+            if name in ("native", "auto"):
+                # sampled in C: the frames temporal_sampling would keep, but the
+                # others skip scaling and storage
+                kwargs["sample_frames"] = cfg.data.media.num_frames or 32
+            decoder = get_decoder(name, **kwargs)
+        duration = cfg.acav.duration or 10
+        # a partial of a module-level function pickles for the decode workers
+        prepare = functools.partial(
+            prepare_clip,
+            num_frames=cfg.data.media.num_frames or 32,
+            duration=duration,
+            skip_shorter_seconds=duration * (cfg.acav.skip_shorter_ratio or 0.25),
+        )
+        batch_size = cfg.data.batch_size or 16
+        num_workers = cfg.computation.num_workers or 0
+        pad_to_batches = pad_template = None
+        if cfg.computation.equalize_length and total > 1:
+            # the same count on every process: from all shards' metadata
+            # (reference ResizedDataset + get_length, mps/distributed.py:444-461)
+            metas_all, _ = load_metadata(all_shards)
+            sizes_all = [len(metas_all[Path(p).stem]) for p in all_shards
+                         if Path(p).stem in metas_all]
+            pad_to_batches = get_length(sizes_all, batch_size, num_workers, total) // batch_size
+            pad_template = empty_batch(batch_size, num_frames=cfg.data.media.num_frames or 32,
+                                       size=cfg.data.media.size or 256)
+        loader = make_loader(mine, metas, batch_size, skip_lists=skip_lists,
+                             decoder=decoder, prepare=prepare, num_workers=num_workers,
+                             pad_to_batches=pad_to_batches, pad_template=pad_template)
+
+        rows: Dict[str, "OrderedDict[str, Dict]"] = defaultdict(OrderedDict)
+        shard_sizes: Dict[str, int] = {}
+        saved_paths: List[Path] = []
+
+        # resume from caches
+        for shard_name, cache in caches.items():
+            for row in cache:
+                rows[shard_name][Path(row["filename"]).stem] = row
+                shard_sizes[shard_name] = row["shard_size"]
+
+        def save_shard(shard_name):
+            with tracing.span("span.extract.save_output"):
+                path = save_shard_output(
+                    list(rows[shard_name].values()), out_dir, shard_name, final=True
+                )
+            _count_bytes("extract.output_bytes", path)
+            saved_paths.append(path)
+            del rows[shard_name]
+            shard_sizes.pop(shard_name, None)
+
+        save_cache_every = cfg.acav.save_cache_every or 1
+        depth = cfg.computation.device_prefetch
+        if depth is None:
+            depth = 2
+        stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        staged = _staged(loader, device, stream)
+        batches = iter(Prefetcher(staged, depth=depth) if depth > 0 else staged)
+
+        # int8: the activation scales are set on the run's first batch, the
+        # staged batch with its masked pad rows, once (JAX
+        # feature_extraction.py:373-381); an equalize_length pad comes after
+        # every real batch, so it is never the one calibrated on. The model owns
+        # the observers, so it alone decides
+        to_calibrate = [m for m in models.values() if getattr(m, "quant", "none") == "int8"]
+        t0 = time.time()
+    n_iter = 0
+    while True:
+        with tracing.span("span.extract.batch", unit=n_iter):
+            with tracing.span("span.extract.feed_wait"):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            staged = batch.pop("_dev")
+            if staged is not None:
+                with tracing.span("span.extract.forward"):
+                    dev, event = staged
+                    if event is not None:
+                        current = torch.cuda.current_stream(device)
+                        current.wait_event(event)
+                        for t in dev:  # the copies were allocated on the side stream
+                            t.record_stream(current)
+                    for model in to_calibrate:
+                        model.calibrate(dev[0])
+                    to_calibrate = []
+                    taps = extract_fn(*dev)
+                with tracing.span("span.extract.to_host"):
+                    taps = {name: [t.float().cpu().numpy() for t in tap_list]
+                            for name, tap_list in taps.items()}
+            made = 0
+            with tracing.span("span.extract.rows"):
+                for i in range(len(batch["filename"])):
+                    if not batch["batch_mask"][i]:
+                        continue
+                    fname = batch["filename"][i]
+                    shard_name = batch["shard_name"][i]
+                    stem = Path(fname).stem
+                    if stem in rows[shard_name]:
+                        continue
+                    per_model = [
+                        {
+                            "model_key": name,
+                            "extractor_name": models[name].model_tag["name"],
+                            "dataset": models[name].model_tag["dataset"],
+                            "array": [layer[i] for layer in taps[name]],
+                        }
+                        for name in model_names
+                    ]
+                    rows[shard_name][stem] = make_feature_row(
+                        fname, shard_name, int(batch["shard_size"][i]), per_model,
+                        audio_keys,
+                    )
+                    shard_sizes[shard_name] = int(batch["shard_size"][i])
+                    made += 1
+            # cache + complete-shard flush
+            for shard_name in list(rows):
+                if (n_iter + 1) % save_cache_every == 0:
+                    with tracing.span("span.extract.save_cache"):
+                        path = save_shard_cache(list(rows[shard_name].values()), out_dir,
+                                                shard_name)
+                    _count_bytes("extract.cache_bytes", path)
+                if (shard_name in shard_sizes
+                        and len(rows[shard_name]) >= shard_sizes[shard_name]):
+                    save_shard(shard_name)
+            if cfg.log_period and (n_iter + 1) % cfg.log_period == 0:
+                print(f"[extract idx={index}] iter {n_iter + 1} "
+                      f"({time.time() - t0:.1f}s)")
+            tracing.count("extract.batches")
+            tracing.count("extract.clips", made)
+        n_iter += 1
+
+    with tracing.span("span.extract.finish"):
+        # final pass: flush shards >= shard_ok_ratio complete
+        ratio = cfg.data.output.shard_ok_ratio or 0.99
         for shard_name in list(rows):
-            if (n_iter + 1) % save_cache_every == 0:
-                save_shard_cache(list(rows[shard_name].values()), out_dir, shard_name)
-            if (shard_name in shard_sizes
-                    and len(rows[shard_name]) >= shard_sizes[shard_name]):
+            if shard_name in shard_sizes and len(rows[shard_name]) >= round(
+                shard_sizes[shard_name] * ratio
+            ):
                 save_shard(shard_name)
-        if cfg.log_period and (n_iter + 1) % cfg.log_period == 0:
-            print(f"[extract idx={index}] iter {n_iter + 1} "
-                  f"({time.time() - t0:.1f}s)")
 
-    # final pass: flush shards >= shard_ok_ratio complete
-    ratio = cfg.data.output.shard_ok_ratio or 0.99
-    for shard_name in list(rows):
-        if shard_name in shard_sizes and len(rows[shard_name]) >= round(
-            shard_sizes[shard_name] * ratio
-        ):
-            save_shard(shard_name)
-
-    write_run_manifest(out_dir, saved_paths)
-    barrier(group)
+        write_run_manifest(out_dir, saved_paths)
+        barrier(group)
     return saved_paths

@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import math
 import os
-import time
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -36,6 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import tracing
 from ..config import Config, build_config
 from ..device import resolve_device
 from ..ops.mi import BatchGreedySelector, GreedySelector
@@ -147,67 +147,75 @@ def load_metas(meta_path, shard_paths: Sequence[Path]) -> Dict[str, Dict]:
 def run_greedy_partition(cfg, rows: Sequence[Dict], device=None) -> List[Dict]:
     """Select from one partition; returns [{filename, shard_name}] sorted by
     index (``run_greedy.py:9-74``)."""
-    assignments, shard_names, filenames, types = format_rows(rows)
-    ncentroids = int(assignments.max()) + 1
-    v = assignments.shape[0]
-    subset_size = cfg.subset.size
-    if subset_size is None:
-        subset_size = round((cfg.subset.ratio or 0.2) * v)
-    combinations = get_cluster_pairing(types, cfg.clustering.pairing or "combination")
+    with tracing.span("span.select.format_rows"):
+        assignments, shard_names, filenames, types = format_rows(rows)
+    with tracing.span("span.select.build_selector"):
+        ncentroids = int(assignments.max()) + 1
+        v = assignments.shape[0]
+        subset_size = cfg.subset.size
+        if subset_size is None:
+            subset_size = round((cfg.subset.ratio or 0.2) * v)
+        combinations = get_cluster_pairing(types, cfg.clustering.pairing or "combination")
 
-    batch_size = min(cfg.batch.batch_size or 20, v - 1)
-    selection_size = min(cfg.batch.selection_size or 4, batch_size)
-    rng = np.random.RandomState(cfg.computation.random_seed or 0)
+        batch_size = min(cfg.batch.batch_size or 20, v - 1)
+        selection_size = min(cfg.batch.selection_size or 4, batch_size)
+        rng = np.random.RandomState(cfg.computation.random_seed or 0)
 
-    candidates = np.arange(v)
-    if cfg.shuffle_candidates:
-        rng.shuffle(candidates)
-    start_indices = [int(candidates[0])]
+        candidates = np.arange(v)
+        if cfg.shuffle_candidates:
+            rng.shuffle(candidates)
+        start_indices = [int(candidates[0])]
 
-    measure_name = cfg.measure_name or "batch_mi"
-    dtype = cfg.computation.dtype or "float32"
+        measure_name = cfg.measure_name or "batch_mi"
+        dtype = cfg.computation.dtype or "float32"
+        if measure_name == "batch_mi":
+            selector = BatchGreedySelector(
+                assignments,
+                combinations,
+                ncentroids=ncentroids,
+                batch_size=batch_size,
+                selection_size=selection_size,
+                keep_unselected=bool(cfg.batch.keep_unselected),
+                rng=rng,
+                dtype=dtype,
+                device=device,
+            )
+        elif measure_name in ("mi", "ami", "nmi", "mem_mi"):
+            kind = "mi" if measure_name == "mem_mi" else measure_name
+            scorer = "mem" if measure_name == "mem_mi" else "full"
+            selector = GreedySelector(assignments, combinations, ncentroids=ncentroids,
+                                      kind=kind, scorer=scorer, dtype=dtype, device=device)
+        else:
+            raise ValueError(f"unknown measure {measure_name!r}")
     if measure_name == "batch_mi":
-        selector = BatchGreedySelector(
-            assignments,
-            combinations,
-            ncentroids=ncentroids,
-            batch_size=batch_size,
-            selection_size=selection_size,
-            keep_unselected=bool(cfg.batch.keep_unselected),
-            rng=rng,
-            dtype=dtype,
-            device=device,
-        )
         # batch_mi excludes the start singleton from the output: it only
         # seeds the cache (reference batch.py:206-207)
         selected, _, _, _ = selector.run_greedy(subset_size, start_indices)
-    elif measure_name in ("mi", "ami", "nmi", "mem_mi"):
-        kind = "mi" if measure_name == "mem_mi" else measure_name
-        scorer = "mem" if measure_name == "mem_mi" else "full"
-        selector = GreedySelector(assignments, combinations, ncentroids=ncentroids,
-                                  kind=kind, scorer=scorer, dtype=dtype, device=device)
+    else:
         # stage 6's pool greedy never folds the start singleton into the
         # cache (reference mi.py:150-173): it only takes an output slot
-        selected, _, _, _ = selector.run_greedy(subset_size, start_indices,
-                                                fold_start=False)
-    else:
-        raise ValueError(f"unknown measure {measure_name!r}")
-    selected = sorted(set(int(s) for s in selected))[:subset_size]
-    return [
-        {"filename": filenames[s], "shard_name": shard_names[s]} for s in selected
-    ]
+        with tracing.span("span.select.greedy"):
+            selected, _, _, _ = selector.run_greedy(subset_size, start_indices,
+                                                    fold_start=False)
+    with tracing.span("span.select.rows"):
+        selected = sorted(set(int(s) for s in selected))[:subset_size]
+        return [
+            {"filename": filenames[s], "shard_name": shard_names[s]} for s in selected
+        ]
 
 
 def run_single(cfg) -> Tuple[Optional[Path], int]:
     """Non-chunked path (``run.py:20-33``)."""
-    device = resolve_device(cfg.computation.device)
-    shard_paths = expand_shard_paths(cfg.data.path)
-    partitions = load_partitions_data(shard_paths)
-    metas = load_metas(cfg.data.meta.path, shard_paths)
+    with tracing.span("span.select.load"):
+        device = resolve_device(cfg.computation.device)
+        shard_paths = expand_shard_paths(cfg.data.path)
+        partitions = load_partitions_data(shard_paths)
+        metas = load_metas(cfg.data.meta.path, shard_paths)
     out_path, counts = None, 0
     for pid in sorted(partitions):
         samples = run_greedy_partition(cfg, partitions[pid], device=device)
-        out_path, count = save_output_csv(samples, metas, Path(cfg.data.output.path))
+        with tracing.span("span.select.save_csv"):
+            out_path, count = save_output_csv(samples, metas, Path(cfg.data.output.path))
         counts += count
     return out_path, counts
 
@@ -217,57 +225,56 @@ def get_chunks(paths: Sequence, chunk_size: int):
         yield list(paths[i : i + chunk_size])
 
 
-def run_chunks(cfg, _trace: Optional[list] = None) -> Tuple[Path, int]:
+def run_chunks(cfg) -> Tuple[Path, int]:
     """Chunk mode (``chunk.py:21-140``): independent selection per chunk of
     shards into ``caches/cache_{pid}_0_{i}_{name}``, skipping chunks whose
     cache csv exists, then a merge into ``data.output.path``.
 
-    The next chunk's pkls load on a background thread while the current
-    chunk selects (the reference's ThreadPoolExecutor overlap,
-    ``chunk.py:196-226``). ``_trace`` collects (event, chunk_index, t)
-    tuples: when each chunk's load and selection started and ended.
+    The next chunk's pkls load on a background thread
+    (``span.select.chunk_load``) while the current chunk selects
+    (``span.select.chunk``), the reference's ThreadPoolExecutor overlap
+    (``chunk.py:196-226``); both spans take the chunk's index as their unit.
     """
-    device = resolve_device(cfg.computation.device)
-    shard_paths = expand_shard_paths(cfg.data.path)
-    chunks = list(get_chunks(shard_paths, int(cfg.chunk_size)))
-    num_chunks = len(chunks)
-    out_path = Path(cfg.data.output.path)
-    cache_dir = out_path.parent / "caches"
-    cache_dir.mkdir(parents=True, exist_ok=True)
-    pid = os.getpid()
+    with tracing.span("span.select.load"):
+        device = resolve_device(cfg.computation.device)
+        shard_paths = expand_shard_paths(cfg.data.path)
+        chunks = list(get_chunks(shard_paths, int(cfg.chunk_size)))
+        num_chunks = len(chunks)
+        out_path = Path(cfg.data.output.path)
+        cache_dir = out_path.parent / "caches"
+        cache_dir.mkdir(parents=True, exist_ok=True)
+        pid = os.getpid()
 
-    chunk_cfg = cfg.copy()
-    if isinstance(cfg.subset.size, int):
-        chunk_cfg.subset.size = math.ceil(cfg.subset.size / num_chunks)
+        chunk_cfg = cfg.copy()
+        if isinstance(cfg.subset.size, int):
+            chunk_cfg.subset.size = math.ceil(cfg.subset.size / num_chunks)
 
-    def trace(event, i):
-        if _trace is not None:
-            _trace.append((event, i, time.time()))
+        cache_csvs = [
+            cache_dir / f"cache_{pid}_0_{i}_{out_path.name}" for i in range(num_chunks)
+        ]
+        pending = [i for i in range(num_chunks) if not cache_csvs[i].is_file()]
 
     def load_chunk(i, chunk):
-        trace("load_start", i)
-        partitions = load_partitions_data(chunk)
-        metas = load_metas(cfg.data.meta.path, chunk)
-        trace("load_done", i)
+        with tracing.span("span.select.chunk_load", unit=i):
+            partitions = load_partitions_data(chunk)
+            metas = load_metas(cfg.data.meta.path, chunk)
         return partitions, metas
 
-    cache_csvs = [
-        cache_dir / f"cache_{pid}_0_{i}_{out_path.name}" for i in range(num_chunks)
-    ]
-    pending = [i for i in range(num_chunks) if not cache_csvs[i].is_file()]
     with ThreadPoolExecutor(max_workers=1) as pool:
         nxt = pool.submit(load_chunk, pending[0], chunks[pending[0]]) if pending else None
         for j, i in enumerate(pending):
-            partitions, metas = nxt.result()
+            with tracing.span("span.select.chunk_wait", unit=i):
+                partitions, metas = nxt.result()
             if j + 1 < len(pending):  # prefetch while this chunk selects
                 n = pending[j + 1]
                 nxt = pool.submit(load_chunk, n, chunks[n])
-            trace("select_start", i)
-            for k in sorted(partitions):
-                samples = run_greedy_partition(chunk_cfg, partitions[k], device=device)
-                save_output_csv(samples, metas, cache_csvs[i])
-            trace("select_done", i)
-    count = merge_csvs(cache_csvs, out_path)
+            with tracing.span("span.select.chunk", unit=i):
+                for k in sorted(partitions):
+                    samples = run_greedy_partition(chunk_cfg, partitions[k], device=device)
+                    with tracing.span("span.select.save_csv"):
+                        save_output_csv(samples, metas, cache_csvs[i])
+    with tracing.span("span.select.save_csv"):
+        count = merge_csvs(cache_csvs, out_path)
     return out_path, count
 
 

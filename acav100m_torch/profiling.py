@@ -112,20 +112,48 @@ def _device_events(prof):
     return events or [e for e in rows if not e.key.startswith("aten::")]
 
 
+def _union_ns(intervals) -> int:
+    """The length that (start, end) intervals cover, overlaps counted once."""
+    total, end = 0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total, end = total + e - s, e
+        elif e > end:
+            total, end = total + e - end, e
+    return total
+
+
+def busy_seconds(prof):
+    """A profile's device intervals (kernels, copies and sets; not the
+    spans that ``record_function`` labels put on the device) -> (seconds
+    the device was busy, of kernels, of copies), each the union of its
+    intervals: a copy that overlaps a kernel counts once in the first."""
+    spans = {"busy": [], "kernels": [], "copies": []}
+    for e in prof.profiler.kineto_results.events():
+        if (not str(e.device_type()).endswith("CUDA") or e.duration_ns() <= 0
+                or e.is_user_annotation()):
+            continue
+        iv = (e.start_ns(), e.start_ns() + e.duration_ns())
+        spans["busy"].append(iv)
+        if e.name().startswith("Memcpy"):
+            spans["copies"].append(iv)
+        elif not e.name().startswith("Memset"):
+            spans["kernels"].append(iv)
+    return tuple(_union_ns(spans[k]) / 1e9 for k in ("busy", "kernels", "copies"))
+
+
 def device_busy(fn):
     """``fn()`` once under ``torch.profiler`` (device activity only) ->
-    (wall seconds, seconds of kernels, seconds of copies). Host threads
-    and other processes are not traced, so tracing costs the host little."""
+    (wall seconds, seconds the device was busy, of kernels, of copies),
+    each a union of intervals (``busy_seconds``). Host threads and other
+    processes are not traced, so tracing costs the host little."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = _device_events(prof)
-    copies = sum(_device_us(e) for e in events if e.key.startswith("Memcpy"))
-    kernels = sum(_device_us(e) for e in events) - copies
-    return wall, kernels / 1e6, copies / 1e6
+    return (wall, *busy_seconds(prof))
 
 
 def profile_calls(fn, iters: int = 3, record_shapes: bool = False):

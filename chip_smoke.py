@@ -148,7 +148,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from acav100m_torch import cli, runtime
+from acav100m_torch import cli, runtime, tracing
 from acav100m_torch.ablate_k1 import COLD_SETS, TAP_DIMS, k1_inputs
 from acav100m_torch.models import init_weights, zoo
 from acav100m_torch.models.slowfast import LayerSlowFast, ResBlock
@@ -181,12 +181,12 @@ TF32_TENSOR_FLOPS = 495e12  # dense TF32 on the tensor cores
 BF16_TENSOR_FLOPS = 989e12  # dense bf16 on the tensor cores
 AUDIO_DIMS = [64, 128, 256, 512, 128]
 VIDEO_DIMS = [88, 352, 704, 1408, 2304]
-KERNELS = [
-    ("kmeans_assign_update", fused_assign_update,
+KERNELS = [  # (source, tracing counter of its launches, the TPU kernel it ports)
+    ("kmeans_assign_update", "k1.launches",
      "acav100m_tpu/ops/pallas/kmeans_kernel.py:85"),
-    ("bottleneck_stage", fused_stage,
+    ("bottleneck_stage", "k2_fp32.launches",
      "acav100m_tpu/ops/pallas/bottleneck_kernel.py:116"),
-    ("bottleneck_stage_bf16", fused_stage_bf16,
+    ("bottleneck_stage_bf16", "k2_bf16.launches",
      "acav100m_tpu/ops/pallas/bottleneck_kernel.py:116"),
 ]
 HEADLINE = ["computation.dtype=bfloat16", "computation.fast_block=[4,4,4,4,4]"]
@@ -209,13 +209,21 @@ def bound(nbytes: float, flops: float, rate: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+_counting = None  # the open tracing.enabled() that counts the launches
+
+
 def reset_counts() -> None:
-    for _, fn, _ in KERNELS:
-        fn.launches = 0
+    """Count launches from here: a fresh ``tracing.enabled()``."""
+    global _counting
+    if _counting is not None:
+        _counting.__exit__(None, None, None)
+    _counting = tracing.enabled()
+    _counting.__enter__()
 
 
 def counts():
-    return {name: fn.launches for name, fn, _ in KERNELS}
+    c = tracing.counters()
+    return {name: c.get(counter, 0) for name, counter, _ in KERNELS}
 
 
 # -- phase 2: kernels against their plain versions --------------------------------
@@ -844,7 +852,7 @@ def main_path_c(gen: torch.Generator) -> dict:
     t_pool = run_stage("extract", *common, f"data.output.path={root}/pooled",
                        "computation.num_workers=2")
     after_extract = counts()
-    t_serial, kernels, copies = device_busy(lambda: cli.main(
+    t_serial, busy, kernels, copies = device_busy(lambda: cli.main(
         ["extract", *common, f"data.output.path={root}/serial", "computation.num_workers=0"]))
     run_stage("extract", *common, f"data.output.path={root}/serial2", "computation.num_workers=0")
     pooled = check_features(root / "pooled", n_clips)
@@ -878,8 +886,8 @@ def main_path_c(gen: torch.Generator) -> dict:
         + "; ".join(f"{w} workers {n / t:.2f} clips/s ({n} clips in {t:.2f} s, first batch "
                     f"after {first:.2f} s)" for w, (n, t, first) in sorted(load.items())))
     log(f"path C, the extract with 0 workers under torch.profiler (device activity): kernels "
-        f"{kernels:.3f} s, copies {copies:.3f} s: the card busy {100 * kernels / t_serial:.1f}% "
-        f"of its {t_serial:.2f} s wall, {100 * kernels / t_pool:.1f}% of the 2-worker run's "
+        f"{kernels:.3f} s, copies {copies:.3f} s: the card busy {100 * busy / t_serial:.1f}% "
+        f"of its {t_serial:.2f} s wall, {100 * busy / t_pool:.1f}% of the 2-worker run's "
         f"{t_pool:.2f} s; {card()}")
     check(err <= 1e-4, "path C taps with 2 workers within 1e-4 of those with 0")
     check(rows == want, f"path C output.csv rows {rows} != {want}")
@@ -978,15 +986,15 @@ def path_d1_chunks(root: Path) -> None:
     out = root / "chunks" / "output.csv"
     cfg = ss.get_config({"data.path": f"{WORK}/b/clusters/{SPEC}.pkl",
                          "data.output.path": str(out), "chunk_size": 1})
-    trace = []
     t0 = time.time()
-    _, count = ss.run_chunks(cfg, _trace=trace)
+    with tracing.enabled():
+        _, count = ss.run_chunks(cfg)
     t_all = time.time() - t0
     caches = sorted((root / "chunks" / "caches").glob("cache_*"))
     reduced = root / "chunks" / "reduced.csv"
     run_stage("reduce", str(reduced), *map(str, caches))
-    events = {(e, i): t for e, i, t in trace}
-    per_chunk = [events["select_done", i] - events["select_start", i] for i in range(2)]
+    chunk = {s.unit: s for s in tracing.spans() if s.name == "span.select.chunk"}
+    per_chunk = [(chunk[i].end_ns - chunk[i].start_ns) / 1e9 for i in range(2)]
     log(f"path D1, select chunk_size=1 (2 chunks of {N_PER_SHARD} clips, batch_mi): {t_all:.2f} s, "
         f"select per chunk {per_chunk[0]:.3f} / {per_chunk[1]:.3f} s; {len(caches)} cache "
         f"csvs, {count} rows; reduce's merge byte-equal to output.csv: "
@@ -1029,7 +1037,7 @@ def path_d2_measures(root: Path, a, filenames, combos, ncentroids: int, start: i
                 sel = mi.GreedySelector(a, combos, ncentroids, kind=kind,
                                         scorer="mem" if measure == "mem_mi" else "full",
                                         device="cuda")
-                wall, busy, _ = device_busy(lambda: sel.run_greedy(102, [start],
+                wall, busy, _, _ = device_busy(lambda: sel.run_greedy(102, [start],
                                                                    fold_start=False))
                 loops.append(f"traced 100 steps: the card busy {1e3 * busy / 100:.3f} ms a "
                              f"step, {100 * busy / wall:.1f}% of the wall")
@@ -1110,7 +1118,7 @@ def path_d5_contrastive(root: Path) -> None:
     probe = cs.train_probe(video, audio, device="cuda")
     torch.cuda.synchronize()
     t_card = time.time() - t0
-    _, busy, _ = device_busy(lambda: cs.train_probe(video, audio, device="cuda"))
+    _, busy, _, _ = device_busy(lambda: cs.train_probe(video, audio, device="cuda"))
     t0 = time.time()
     probe_cpu = cs.train_probe(video, audio, device="cpu")
     t_cpu = time.time() - t0
@@ -2233,7 +2241,7 @@ def path_h2_pretrain(clips: Path) -> Path:
     t_first = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     second = {}
-    t_second, busy, copies = device_busy(
+    t_second, busy, kernels, copies = device_busy(
         lambda: second.update(evaluate(*args, "train.num_steps=12")))
     lines = [json.loads(x) for x in (run / "stats.jsonl").read_text().splitlines()]
     iters = [x for x in lines if x["_type"] == "train_iter"]
@@ -2244,8 +2252,8 @@ def path_h2_pretrain(clips: Path) -> Path:
         + ", ".join(f"{w:.1f}" for w in walls) + "; losses "
         + ", ".join(f"{x['loss']:.4f}" for x in iters))
     log(f"H2 resumed to 12 steps: {t_second:.2f} s, {second}; the card busy "
-        f"{busy:.3f} s with kernels and {copies:.3f} s with copies "
-        f"({100 * (busy + copies) / t_second:.1f}% of the call)")
+        f"{kernels:.3f} s with kernels and {copies:.3f} s with copies "
+        f"({100 * busy / t_second:.1f}% of the call)")
     check(first == {"task": "pretrain", "steps": 8}, f"H2: 8 steps ({first})")
     check(second == {"task": "pretrain", "steps": 12}, f"H2: 12 steps ({second})")
     check(steps == list(range(1, 13)), f"H2: the second call resumed at step 8 ({steps})")
@@ -2610,10 +2618,11 @@ def main() -> int:
         return 1
     shutil.rmtree(WORK, ignore_errors=True)
     # phase 1
-    t0 = time.time()
-    cuda_build.build([name for name, _, _ in KERNELS])
-    log(f"built {len(KERNELS)} kernels in {time.time() - t0:.1f} s: "
-        + ", ".join(f"{k} {v:.1f} s" for k, v in cuda_build.build_seconds.items()))
+    with tracing.enabled():
+        cuda_build.build([name for name, _, _ in KERNELS])
+        built = next(s for s in tracing.spans() if s.name == "span.kernels.build")
+    log(f"built {len(KERNELS)} kernels in {(built.end_ns - built.start_ns) / 1e9:.1f} s "
+        f"(nvcc for {', '.join(built.attrs['names']) or 'none'})")
     log(card())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")

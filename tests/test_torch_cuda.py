@@ -9,6 +9,7 @@ carry the ``cuda`` marker and skip elsewhere. On a machine with the card:
 import pytest
 import torch
 
+from acav100m_torch import tracing
 from acav100m_torch.ops.bottleneck_kernel import (fused_stage, fused_stage_bf16, fused_stage_ref,
                                                   pack_block_f32)
 from acav100m_torch.ops.kmeans_kernel import fused_assign_update, fused_assign_update_ref
@@ -36,9 +37,9 @@ def test_k1_matches_plain(card, m, k, d, b):
     centers = torch.randn((m, k, d), generator=gen).to(card)
     counts = torch.randint(0, 400, (m, k), generator=gen).float().to(card)
     threshold = 147.0
-    before = fused_assign_update.launches
-    best, c, dl, mean = fused_assign_update(centers, counts, batch, threshold)
-    assert fused_assign_update.launches == before + 1
+    with tracing.enabled():
+        best, c, dl, mean = fused_assign_update(centers, counts, batch, threshold)
+    assert tracing.counters()["k1.launches"] == 1
     best_p, c_p, dl_p, mean_p = fused_assign_update_ref(centers, counts, batch, threshold)
     # random data in these sizes has no near-ties at 1e-4
     assert torch.equal(best, best_p)
@@ -59,11 +60,11 @@ def test_k1_dims_skips_padding_bit_for_bit(card, dims, k, b):
     batch = (torch.randn((m, b, d), generator=gen) * mask).to(card)
     centers = (torch.randn((m, k, d), generator=gen) * mask).to(card)
     counts = torch.randint(0, 400, (m, k), generator=gen).float().to(card)
-    before = fused_assign_update.launches
-    out = fused_assign_update(centers, counts, batch, 147.0, dims=dims)
-    again = fused_assign_update(centers, counts, batch, 147.0, dims=dims)
-    padded = fused_assign_update(centers, counts, batch, 147.0)
-    assert fused_assign_update.launches == before + 3
+    with tracing.enabled():
+        out = fused_assign_update(centers, counts, batch, 147.0, dims=dims)
+        again = fused_assign_update(centers, counts, batch, 147.0, dims=dims)
+        padded = fused_assign_update(centers, counts, batch, 147.0)
+    assert tracing.counters()["k1.launches"] == 3
     for u, v, w in zip(out, again, padded):
         assert torch.equal(u, v) and torch.equal(u, w)
     best_p, c_p, dl_p, mean_p = fused_assign_update_ref(centers, counts, batch, 147.0)
@@ -125,9 +126,9 @@ def test_k2_matches_plain(card, n, hw, stride, cin, big):
     blocks = _random_blocks(rnd, cin, stride)
     x = rnd(n, hw, hw, cin)
     x[..., :4] *= big
-    before = fused_stage.launches
-    out = fused_stage(x, blocks, stride)
-    assert fused_stage.launches == before + 3
+    with tracing.enabled():
+        out = fused_stage(x, blocks, stride)
+    assert tracing.counters()["k2_fp32.launches"] == 3
     ref = fused_stage_ref(x, blocks, stride)
     assert out.shape == ref.shape
     # 3xTF32 keeps the products near fp32; one TF32 product would miss this
@@ -152,10 +153,10 @@ def test_k2_float32_path_shapes_match_plain(card, n, hw, stride, cin, proj):
     blocks = _random_blocks(rnd, cin, stride, proj=proj)
     packed = [pack_block_f32(blk) for blk in blocks]
     x = rnd(n, hw, hw, cin)
-    before = fused_stage.launches
-    out = fused_stage(x, blocks, stride, packed)
-    again = fused_stage(x, blocks, stride)
-    assert fused_stage.launches == before + 6
+    with tracing.enabled():
+        out = fused_stage(x, blocks, stride, packed)
+        again = fused_stage(x, blocks, stride)
+    assert tracing.counters()["k2_fp32.launches"] == 6
     ref = fused_stage_ref(x, blocks, stride)
     assert out.shape == ref.shape and torch.equal(out, again)
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
@@ -185,9 +186,9 @@ def test_k2_float32_other_widths_match_plain(card, n, hw, stride, cin, inner, co
             blk.update(pw=rnd(c_in, cout, scale=c_in ** -0.5), pb=rnd(cout, scale=0.1))
         blocks.append(blk)
     x = rnd(n, hw, hw, cin)
-    before = fused_stage.launches
-    out = fused_stage(x, blocks, stride)
-    assert fused_stage.launches == before + 2
+    with tracing.enabled():
+        out = fused_stage(x, blocks, stride)
+    assert tracing.counters()["k2_fp32.launches"] == 2
     ref = fused_stage_ref(x, blocks, stride)
     assert out.shape == ref.shape
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
@@ -201,20 +202,20 @@ def test_k2_float32_refuses_what_it_cannot_take(card):
 
     blocks = _random_blocks(rnd, 80, 1)
     x = rnd(2, 8, 8, 80)
-    before = fused_stage.launches
-    with pytest.raises(ValueError):  # bf16 weight matrices for float32 frames
-        fused_stage(x, [{k: v.to(torch.bfloat16) if v.dim() > 1 else v for k, v in blk.items()}
-                        for blk in blocks])
-    with pytest.raises(ValueError):  # input channels not a multiple of 4
-        fused_stage(rnd(2, 8, 8, 78), _random_blocks(rnd, 78, 1))
-    with pytest.raises(ValueError):  # a pack of other widths
-        fused_stage(x, blocks, 1, [pack_block_f32(blocks[1])] * 3)
-    with pytest.raises(ValueError):  # a pack of the bf16 form
-        fused_stage(x, blocks, 1, [{k: v.to(torch.bfloat16) if k != "cb" else v
-                                    for k, v in pack_block_f32(blk).items()} for blk in blocks])
-    with pytest.raises(ValueError):  # a frame the stride does not divide
-        fused_stage(rnd(2, 9, 9, 80), _random_blocks(rnd, 80, 2), 2)
-    assert fused_stage.launches == before
+    with tracing.enabled():
+        with pytest.raises(ValueError):  # bf16 weight matrices for float32 frames
+            fused_stage(x, [{k: v.to(torch.bfloat16) if v.dim() > 1 else v for k, v in blk.items()}
+                            for blk in blocks])
+        with pytest.raises(ValueError):  # input channels not a multiple of 4
+            fused_stage(rnd(2, 8, 8, 78), _random_blocks(rnd, 78, 1))
+        with pytest.raises(ValueError):  # a pack of other widths
+            fused_stage(x, blocks, 1, [pack_block_f32(blocks[1])] * 3)
+        with pytest.raises(ValueError):  # a pack of the bf16 form
+            fused_stage(x, blocks, 1, [{k: v.to(torch.bfloat16) if k != "cb" else v
+                                        for k, v in pack_block_f32(blk).items()} for blk in blocks])
+        with pytest.raises(ValueError):  # a frame the stride does not divide
+            fused_stage(rnd(2, 9, 9, 80), _random_blocks(rnd, 80, 2), 2)
+    assert "k2_fp32.launches" not in tracing.counters()
 
 
 @pytest.mark.parametrize("n,hw,stride,cin,proj", [
@@ -233,10 +234,11 @@ def test_k2_bf16_matches_plain(card, n, hw, stride, cin, proj):
 
     blocks = _random_blocks(rnd, cin, stride, torch.bfloat16, proj)
     x = rnd(n, hw, hw, cin).to(torch.bfloat16)
-    before = fused_stage.launches, fused_stage_bf16.launches
-    out = fused_stage(x, blocks, stride)
-    again = fused_stage_bf16(x, blocks, stride)
-    assert (fused_stage.launches, fused_stage_bf16.launches) == (before[0], before[1] + 6)
+    with tracing.enabled():
+        out = fused_stage(x, blocks, stride)
+        again = fused_stage_bf16(x, blocks, stride)
+    c = tracing.counters()
+    assert "k2_fp32.launches" not in c and c["k2_bf16.launches"] == 6
     ref = fused_stage_ref(x, blocks, stride)
     assert out.dtype == ref.dtype == torch.bfloat16 and out.shape == ref.shape
     assert torch.equal(out, again)
@@ -270,10 +272,10 @@ def test_k2_bf16_other_widths_match_plain(card, n, hw, stride, cin, inner, cout)
             blk.update(pw=rnd(c_in, cout, scale=c_in ** -0.5), pb=rnd(cout, scale=0.1))
         blocks.append({k: v.to(torch.bfloat16) if v.dim() > 1 else v for k, v in blk.items()})
     x = rnd(n, hw, hw, cin).to(torch.bfloat16)
-    before = fused_stage_bf16.launches
-    out = fused_stage_bf16(x, blocks, stride)
-    again = fused_stage_bf16(x, blocks, stride)
-    assert fused_stage_bf16.launches == before + 4
+    with tracing.enabled():
+        out = fused_stage_bf16(x, blocks, stride)
+        again = fused_stage_bf16(x, blocks, stride)
+    assert tracing.counters()["k2_bf16.launches"] == 4
     ref = fused_stage_ref(x, blocks, stride)
     assert out.shape == ref.shape and torch.equal(out, again)
     diff, scale = (out.float() - ref.float()).abs(), ref.float().abs().max()
@@ -308,10 +310,10 @@ def test_retrieval_sgd_kmeans_on_card_matches_cpu(card, d):
     means = rng.randn(10, d) * 2.0
     x = tc.whiten((means[rng.randint(0, 10, 300)] + 0.3 * rng.randn(300, d))
                   .astype(np.float32))
-    before = fused_assign_update.launches
-    on_card = tc.sgd_kmeans(x, 10, seed=3, device=card)
+    with tracing.enabled():
+        on_card = tc.sgd_kmeans(x, 10, seed=3, device=card)
     # warmup is 100 samples: the first two steps of each run assign at random
-    assert fused_assign_update.launches == before + 20 * 5 - 2
+    assert tracing.counters()["k1.launches"] == 20 * 5 - 2
     on_cpu = tc.sgd_kmeans(x, 10, seed=3, device="cpu")
     assert np.array_equal(on_card.assignments, on_cpu.assignments)
     np.testing.assert_allclose(on_card.centers, on_cpu.centers, rtol=1e-5, atol=1e-5)

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from acav100m_tpu.ops.pallas import kmeans_kernel as jkk
-from acav100m_torch import ablate_k1
+from acav100m_torch import ablate_k1, tracing
 from acav100m_torch.ops import kmeans as tk
 from acav100m_torch.ops import kmeans_kernel as tkk
 
@@ -40,11 +40,11 @@ def test_dims_matches_pallas_on_padded_input(dims, k, b):
     jb, jc, jd, jm = jkk.fused_assign_update(
         jnp.asarray(centers), jnp.asarray(counts), jnp.asarray(batch),
         jnp.float32(threshold), tile_b=64, interpret=True)
-    before = tkk.fused_assign_update.launches
-    tb, tc, td, tm = tkk.fused_assign_update(
-        torch.from_numpy(centers), torch.from_numpy(counts), torch.from_numpy(batch),
-        threshold, dims=dims)
-    assert tkk.fused_assign_update.launches == before  # CPU tensors: plain version
+    with tracing.enabled():
+        tb, tc, td, tm = tkk.fused_assign_update(
+            torch.from_numpy(centers), torch.from_numpy(counts), torch.from_numpy(batch),
+            threshold, dims=dims)
+        assert tracing.counters() == {}  # CPU tensors: plain version
     np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     # different summation orders: 1e-5 relative on sums of O(10) values

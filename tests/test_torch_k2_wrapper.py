@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from acav100m_torch import ablate_k2
+from acav100m_torch import ablate_k2, tracing
 from acav100m_torch.ops import bottleneck_kernel as tbk
 
 
@@ -51,9 +51,9 @@ def test_check_block_refuses_what_the_kernel_does_not_take(cin, inner, cout, pro
 def test_cpu_tensors_take_the_plain_version():
     blocks = [_block(80, 64, 256, True), _block(256, 64, 256, False)]
     x = torch.from_numpy(np.random.RandomState(0).randn(2, 6, 6, 80).astype(np.float32))
-    before = tbk.fused_stage.launches
-    out = tbk.fused_stage(x, blocks, stride=2)
-    assert tbk.fused_stage.launches == before
+    with tracing.enabled():
+        out = tbk.fused_stage(x, blocks, stride=2)
+        assert tracing.counters() == {}
     torch.testing.assert_close(out, tbk.fused_stage_ref(x, blocks, stride=2), rtol=0, atol=0)
     assert out.shape == (2, 3, 3, 256)
 
@@ -157,9 +157,9 @@ def test_bf16_cout_limit_is_768_and_cpu_tensors_run_past_it():
     blocks = [_block(80, 64, 800, True, torch.bfloat16)]
     x = torch.from_numpy(np.random.RandomState(2).randn(1, 4, 4, 80).astype(np.float32))
     x = x.to(torch.bfloat16)
-    before = tbk.fused_stage_bf16.launches
-    out = tbk.fused_stage_bf16(x, blocks, stride=1)
-    assert tbk.fused_stage_bf16.launches == before
+    with tracing.enabled():
+        out = tbk.fused_stage_bf16(x, blocks, stride=1)
+        assert tracing.counters() == {}
     assert out.shape == (1, 4, 4, 800) and out.dtype == torch.bfloat16
     torch.testing.assert_close(out, tbk.fused_stage_ref(x, blocks, stride=1), rtol=0, atol=0)
 
@@ -169,10 +169,10 @@ def test_cpu_bf16_tensors_take_the_plain_version():
               _block(256, 64, 256, False, torch.bfloat16)]
     x = torch.from_numpy(np.random.RandomState(1).randn(2, 6, 6, 80).astype(np.float32))
     x = x.to(torch.bfloat16)
-    before = tbk.fused_stage.launches, tbk.fused_stage_bf16.launches
-    out = tbk.fused_stage(x, blocks, stride=2)
-    direct = tbk.fused_stage_bf16(x, blocks, stride=2)
-    assert (tbk.fused_stage.launches, tbk.fused_stage_bf16.launches) == before
+    with tracing.enabled():
+        out = tbk.fused_stage(x, blocks, stride=2)
+        direct = tbk.fused_stage_bf16(x, blocks, stride=2)
+        assert tracing.counters() == {}
     want = tbk.fused_stage_ref(x, blocks, stride=2)
     assert out.dtype == want.dtype == torch.bfloat16 and out.shape == (2, 3, 3, 256)
     torch.testing.assert_close(out, want, rtol=0, atol=0)

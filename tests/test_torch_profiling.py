@@ -44,3 +44,40 @@ def test_device_rows_without_device_types_leave_out_operators_and_spans():
              ("ProfilerStep#3", 4000.0), ("aten::empty", 0.0)]]
     keys = [e.key for e in profiling._device_events(_Profile(rows))]
     assert keys == ["bn_fw_tr_1C11_kernel_NCHW"]
+
+
+class _Event:
+    def __init__(self, name, start, dur, device="CUDA", annotation=False):
+        self._args = name, start, dur, device, annotation
+
+    def name(self):
+        return self._args[0]
+
+    def start_ns(self):
+        return self._args[1]
+
+    def duration_ns(self):
+        return self._args[2]
+
+    def device_type(self):
+        return f"DeviceType.{self._args[3]}"
+
+    def is_user_annotation(self):
+        return self._args[4]
+
+
+def test_busy_time_is_a_union_of_intervals():
+    """A copy that overlaps a kernel counts once in the busy time; host
+    events and the spans labels put on the device count not at all."""
+    ms = 1_000_000
+    events = [_Event("sm90_xmma_fprop_implicit_gemm", 0, 10 * ms),
+              _Event("Memcpy HtoD (Pinned -> Device)", 5 * ms, 10 * ms),
+              _Event("void at::native::elementwise_kernel", 40 * ms, 10 * ms),
+              _Event("Memset (Device)", 60 * ms, ms),
+              _Event("span.extract.forward", 0, 100 * ms, annotation=True),
+              _Event("aten::convolution", 0, 100 * ms, device="CPU")]
+    prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: events)))
+    busy, kernels, copies = profiling.busy_seconds(prof)
+    assert busy == pytest.approx(0.026)  # 15 + 10 + 1 ms, not 0.031
+    assert kernels == pytest.approx(0.020) and copies == pytest.approx(0.010)

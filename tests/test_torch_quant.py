@@ -28,9 +28,9 @@ import torch
 
 from acav100m_tpu.models import quant as jq
 from acav100m_tpu.models import slowfast as jsf
+from acav100m_torch import tracing
 from acav100m_torch.models import quant as tq
 from acav100m_torch.models import slowfast as tsf
-from acav100m_torch.ops import bottleneck_kernel as tbk
 
 from .torch_parity import random_variables
 
@@ -181,10 +181,9 @@ def test_int8_taps_match_jax(calibrated, q_variables, frames):
     fb, jv, want = calibrated
     model = _port_model(q_variables, quant="int8", fast_block=fb)
     model.load_quant_state_dict(tsf.quant_state_from_flax(jv))
-    before = tbk.fused_stage.launches
-    with torch.inference_mode():
+    with tracing.enabled(), torch.inference_mode():
         got = model(torch.from_numpy(frames))
-    assert tbk.fused_stage.launches == before
+        assert "k2_fp32.launches" not in tracing.counters()
     assert [tuple(g.shape) for g in got] == [(2, d) for d in tsf.LAYER_DIMS]
     errs = [_rel(g.numpy(), w) for g, w in zip(got, want)]
     assert max(errs) <= TAP_REL_L2, errs

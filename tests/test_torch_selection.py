@@ -33,6 +33,7 @@ from acav100m_tpu.pipeline import subset_selection as jss
 from acav100m_tpu.utils.io import dump_pickle
 from acav100m_tpu.utils.manifests import write_run_manifest
 from acav100m_torch import cli as tcli
+from acav100m_torch import tracing
 from acav100m_torch.ops import mi as tmi
 from acav100m_torch.pipeline import subset_selection as tss
 
@@ -222,15 +223,19 @@ def test_chunk_mode_prefetch_and_skip(assignments, monkeypatch):
         return select(*args, **kwargs)
 
     monkeypatch.setattr(tss, "run_greedy_partition", slow_select)
-    trace = []
-    _, count = tss.run_chunks(cfg, _trace=trace)
+    with tracing.enabled():
+        _, count = tss.run_chunks(cfg)
     assert count == 4
-    events = {(e, i): t for e, i, t in trace}
-    # chunk 1's load is submitted before chunk 0's selection ends, and chunk
-    # 0 selects only after its own load completed
-    assert events[("load_start", 1)] <= events[("select_done", 0)]
-    assert events[("load_done", 0)] <= events[("select_start", 0)]
+    spans = {(s.name, s.unit): s for s in tracing.spans()
+             if s.name in ("span.select.chunk_load", "span.select.chunk")}
+    load, select = "span.select.chunk_load", "span.select.chunk"
+    # chunk 1's load starts before chunk 0's selection ends, and chunk 0
+    # selects only after its own load completed; loads run on another thread
+    assert spans[load, 1].start_ns <= spans[select, 0].end_ns
+    assert spans[load, 0].end_ns <= spans[select, 0].start_ns
+    assert spans[load, 1].thread != spans[select, 0].thread
     # a second run finds both cache csvs and selects nothing again
-    trace = []
-    _, count = tss.run_chunks(cfg, _trace=trace)
-    assert trace == [] and count == 4
+    with tracing.enabled():
+        _, count = tss.run_chunks(cfg)
+    assert count == 4
+    assert not [s for s in tracing.spans() if s.name in (load, select)]
