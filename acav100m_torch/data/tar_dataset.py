@@ -12,7 +12,8 @@ the JAX package):
   samples over through shared memory, requeuing a dead worker's unfinished
   shards;
 * assemble static-shape batches (pad the tail batch and mask) behind a
-  background prefetch thread;
+  background prefetch thread, each sample written once into the batch's
+  arrays, whose allocator the caller picks (pinned memory for the card);
 * pad a process's batches with all-masked ones up to a count shared by all
   processes (``pad_to_length``), so data-parallel ranks step in lock-step.
 
@@ -110,9 +111,11 @@ class TarShardDataset:
                 continue
 
 
-def collate(samples: List[Dict], batch_size: int) -> Dict:
+def collate(samples: List[Dict], batch_size: int, empty: Callable = np.empty) -> Dict:
     """Stack a (possibly short) list of samples into a batch padded to
-    ``batch_size`` with zeros; ``batch_mask`` marks real rows."""
+    ``batch_size`` with zeros; ``batch_mask`` marks real rows. Each array
+    of the batch comes from ``empty(shape, dtype)`` and each sample is
+    written into it once (``np.stack``'s values and dtype)."""
     n = len(samples)
     if not 0 < n <= batch_size:
         raise ValueError(f"cannot collate {n} samples into a batch of {batch_size}")
@@ -126,14 +129,21 @@ def collate(samples: List[Dict], batch_size: int) -> Dict:
     for key in ("frames", "audio", "valid_samples"):
         if key in samples[0]:
             arrs = [np.asarray(s[key]) for s in samples]
-            arrs += [np.zeros_like(arrs[0])] * pad
-            batch[key] = np.stack(arrs)
+            if any(a.shape != arrs[0].shape for a in arrs):
+                raise ValueError(f"cannot collate {key} of shapes {[a.shape for a in arrs]}")
+            out = empty((batch_size, *arrs[0].shape), np.result_type(*arrs))
+            for i, a in enumerate(arrs):
+                out[i] = a
+            out[n:] = 0
+            batch[key] = out
     return batch
 
 
-def batched(source: Iterable[Dict], batch_size: int) -> Iterator[Dict]:
-    """Batches of ``batch_size`` samples, the last one short. Batch n's
-    decoding and collation run in its ``span.extract.load`` (unit n)."""
+def batched(source: Iterable[Dict], batch_size: int,
+            empty: Callable = np.empty) -> Iterator[Dict]:
+    """Batches of ``batch_size`` samples (``collate`` with ``empty``), the
+    last one short. Batch n's decoding and collation run in its
+    ``span.extract.load`` (unit n)."""
     samples = iter(source)
     for n in itertools.count():
         with tracing.span("span.extract.load", unit=n):
@@ -141,7 +151,9 @@ def batched(source: Iterable[Dict], batch_size: int) -> Iterator[Dict]:
             if not buf:
                 return
             with tracing.span("span.extract.collate"):
-                batch = collate(buf, batch_size)
+                batch = collate(buf, batch_size, empty)
+            for sample in buf:
+                _close_shm(sample)
         yield batch
 
 
@@ -204,21 +216,32 @@ def _sample_to_shm(sample: Dict) -> Dict:
 
 
 def _sample_from_shm(payload: Dict) -> Dict:
-    """Rebuild a sample from its descriptor; copies out and unlinks."""
+    """Rebuild a sample from its descriptor. Its arrays view the segment,
+    whose name is unlinked at once (the mapping lives on with the views),
+    so ``collate`` reads them where the worker wrote them; ``_close_shm``
+    then closes the segment (key ``_shm``)."""
     from multiprocessing import shared_memory
 
     sample = dict(payload["meta"])
     if payload["shm"] is None:
         return sample
     shm = shared_memory.SharedMemory(name=payload["shm"])
-    try:
-        for key, dtype, shape, offset in payload["layout"]:
-            view = np.ndarray(shape, np.dtype(dtype), buffer=shm.buf, offset=offset)
-            sample[key] = np.array(view)  # own the memory past unlink
-    finally:
-        shm.close()
-        shm.unlink()
+    shm.unlink()
+    for key, dtype, shape, offset in payload["layout"]:
+        sample[key] = np.ndarray(shape, np.dtype(dtype), buffer=shm.buf, offset=offset)
+    sample["_shm"] = shm  # the last key: a dropped sample releases its views first
     return sample
+
+
+def _close_shm(sample: Dict) -> None:
+    """Drop a ``_sample_from_shm`` sample's views and close its segment; a
+    sample without one is left as it is."""
+    shm = sample.pop("_shm", None)
+    if shm is None:
+        return
+    for key in [k for k, v in sample.items() if isinstance(v, np.ndarray)]:
+        del sample[key]
+    shm.close()
 
 
 def _stream_worker(wid, shard_paths, metas, skip_lists, decoder, prepare, conn, slots):
@@ -464,6 +487,7 @@ def make_loader(
     buffer_samples: int = 32,
     pad_to_batches: Optional[int] = None,
     pad_template: Optional[Dict] = None,
+    empty: Callable = np.empty,
 ) -> Iterable[Dict]:
     """Batched clip loader.
 
@@ -476,7 +500,8 @@ def make_loader(
     shard, decoding runs in-process. Either way a background thread keeps
     ``prefetch`` batches ahead. ``pad_to_batches`` pads the batches with
     all-masked ones up to that count (``pad_to_length``; ``pad_template``
-    when this process has no batch at all).
+    when this process has no batch at all). ``empty(shape, dtype)``
+    allocates each batch array that ``collate`` writes the samples into.
     """
     if num_workers > 0 and len(shard_paths) > 1:
         num_workers = min(num_workers, len(shard_paths))
@@ -484,7 +509,7 @@ def make_loader(
                                 num_workers, buffer_samples)
     else:
         source = TarShardDataset(shard_paths, metas, skip_lists, decoder, prepare)
-    batches = batched(source, batch_size)
+    batches = batched(source, batch_size, empty)
     if pad_to_batches is not None:
         batches = pad_to_length(batches, pad_to_batches, pad_template)
     if prefetch:

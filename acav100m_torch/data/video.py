@@ -31,8 +31,12 @@ import numpy as np
 
 
 def temporal_sampling(frames: np.ndarray, num_frames: int) -> np.ndarray:
-    """Uniformly sample ``num_frames`` frames (reference video.py:53-57)."""
+    """Uniformly sample ``num_frames`` frames (reference video.py:53-57).
+    Where that keeps every frame (``num_frames`` of ``num_frames``: the
+    indices are ``0..T-1``), ``frames`` itself, uncopied."""
     t = frames.shape[0]
+    if t == num_frames:
+        return frames
     indices = np.linspace(0, t - 1, num_frames).astype(np.int64)
     return frames[indices]
 

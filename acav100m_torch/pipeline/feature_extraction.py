@@ -189,21 +189,46 @@ def make_extract_fn(models: Dict):
     return extract
 
 
+def _pinned_empty(shape, dtype) -> np.ndarray:
+    """``np.empty`` in pinned host memory, for ``collate`` to write a batch
+    straight into on CUDA. The array views a tensor (its ``base``) from
+    PyTorch's caching host allocator, which hands a block out again only
+    once the non-blocking copies that read it have completed: blocks are
+    reused across batches and calls, never rewritten under a copy."""
+    dtype = torch.from_numpy(np.empty(0, dtype)).dtype
+    return torch.empty(shape, dtype=dtype, pin_memory=True).numpy()
+
+
+def _pinned(a: np.ndarray) -> Optional[torch.Tensor]:
+    """The pinned tensor that ``a`` is the whole of (``_pinned_empty``), else
+    None."""
+    t = a.base
+    if (isinstance(t, torch.Tensor) and t.is_pinned() and tuple(t.shape) == a.shape
+            and t.data_ptr() == a.ctypes.data):
+        return t
+    return None
+
+
 def _stage(batch: Dict, device, stream) -> Dict:
     """Copy a host batch's arrays to ``device``; on CUDA the copy runs on
-    ``stream`` and an event marks its end. An all-masked batch (an
-    ``equalize_length`` pad) writes no rows and is not copied."""
+    ``stream`` from the pinned tensors ``collate`` wrote (from an array in
+    pageable memory, a copy the host waits for), and an event marks its
+    end. An all-masked batch (an ``equalize_length`` pad) writes no rows and
+    is not copied."""
     batch = dict(batch)  # the loader may still hold the original dict
     if not np.any(batch["batch_mask"]):
         batch["_dev"] = None
         return batch
-    arrays = [torch.from_numpy(np.asarray(batch[k]))
-              for k in ("frames", "audio", "valid_samples")]
+    arrays = [np.asarray(batch[k]) for k in ("frames", "audio", "valid_samples")]
     if device.type != "cuda":
-        batch["_dev"] = (arrays, None)
+        batch["_dev"] = ([torch.from_numpy(a) for a in arrays], None)
         return batch
+    host = [_pinned(a) for a in arrays]
+    if all(t is not None for t in host):
+        tracing.count("extract.pinned_batches")
     with torch.cuda.stream(stream):
-        dev = [a.pin_memory().to(device, non_blocking=True) for a in arrays]
+        dev = [(torch.from_numpy(a) if t is None else t).to(device, non_blocking=True)
+               for t, a in zip(host, arrays)]
         event = torch.cuda.Event()
         event.record(stream)
     batch["_dev"] = (dev, event)
@@ -219,10 +244,14 @@ def _staged(loader, device, stream):
         yield batch
 
 
-def _count_bytes(name: str, path) -> None:
-    """Count the size of the file just written at ``path``."""
+def _count_bytes(name: str, path, sizes: Dict) -> None:
+    """Count the bytes by which the file just written at ``path`` grew since
+    ``sizes`` (path -> size, updated here) last saw it: the first time, its
+    whole size."""
     if tracing.on():
-        tracing.count(name, Path(path).stat().st_size)
+        size = Path(path).stat().st_size
+        tracing.count(name, size - sizes.get(path, 0))
+        sizes[path] = size
 
 
 def run_extraction(cfg, decoder=None, models=None, group: Optional[Group] = None):
@@ -285,9 +314,12 @@ def run_extraction(cfg, decoder=None, models=None, group: Optional[Group] = None
             pad_to_batches = get_length(sizes_all, batch_size, num_workers, total) // batch_size
             pad_template = empty_batch(batch_size, num_frames=cfg.data.media.num_frames or 32,
                                        size=cfg.data.media.size or 256)
+        # on CUDA each batch is collated straight into pinned memory, from
+        # which _stage copies; on the CPU the models read fresh host arrays
         loader = make_loader(mine, metas, batch_size, skip_lists=skip_lists,
                              decoder=decoder, prepare=prepare, num_workers=num_workers,
-                             pad_to_batches=pad_to_batches, pad_template=pad_template)
+                             pad_to_batches=pad_to_batches, pad_template=pad_template,
+                             empty=_pinned_empty if device.type == "cuda" else np.empty)
 
         rows: Dict[str, "OrderedDict[str, Dict]"] = defaultdict(OrderedDict)
         shard_sizes: Dict[str, int] = {}
@@ -298,13 +330,18 @@ def run_extraction(cfg, decoder=None, models=None, group: Optional[Group] = None
             for row in cache:
                 rows[shard_name][Path(row["filename"]).stem] = row
                 shard_sizes[shard_name] = row["shard_size"]
+        # the rows in each _cache.pkl that this run wrote, which later saves
+        # append to; a resumed cache is written whole at its shard's first save
+        appendable: Dict[str, int] = {}
+        file_sizes: Dict[Path, int] = {}
 
         def save_shard(shard_name):
             with tracing.span("span.extract.save_output"):
                 path = save_shard_output(
-                    list(rows[shard_name].values()), out_dir, shard_name, final=True
+                    list(rows[shard_name].values()), out_dir, shard_name, final=True,
+                    cached=appendable.get(shard_name, 0),
                 )
-            _count_bytes("extract.output_bytes", path)
+            _count_bytes("extract.output_bytes", path, file_sizes)
             saved_paths.append(path)
             del rows[shard_name]
             shard_sizes.pop(shard_name, None)
@@ -372,13 +409,17 @@ def run_extraction(cfg, decoder=None, models=None, group: Optional[Group] = None
                     )
                     shard_sizes[shard_name] = int(batch["shard_size"][i])
                     made += 1
-            # cache + complete-shard flush
+            # cache (the rows since a shard's last save) + complete-shard flush
             for shard_name in list(rows):
-                if (n_iter + 1) % save_cache_every == 0:
+                held = appendable.get(shard_name, len(caches.get(shard_name, ())))
+                if (n_iter + 1) % save_cache_every == 0 and len(rows[shard_name]) > held:
+                    rewrite = shard_name in caches and shard_name not in appendable
                     with tracing.span("span.extract.save_cache"):
                         path = save_shard_cache(list(rows[shard_name].values()), out_dir,
-                                                shard_name)
-                    _count_bytes("extract.cache_bytes", path)
+                                                shard_name, appended=0 if rewrite else held)
+                    appendable[shard_name] = len(rows[shard_name])
+                    tracing.count("extract.cache_rewrites" if rewrite else "extract.cache_appends")
+                    _count_bytes("extract.cache_bytes", path, file_sizes)
                 if (shard_name in shard_sizes
                         and len(rows[shard_name]) >= shard_sizes[shard_name]):
                     save_shard(shard_name)

@@ -11,7 +11,8 @@ resumable:
   ``{layer_0: ..., layer_4: ...}``
   (``feature_extraction/code/save.py:48-76``);
 * per-shard ``*_cache.pkl`` resume files with skip lists
-  (``save.py:116-133``);
+  (``save.py:116-133``): one pickle of the shard's row list, which the port
+  grows by appending each save's new rows to it (``save_shard_cache``);
 * output csv rows ``shard_name,filename,id,segment``
   (``subset_selection/code/save.py:6-44``).
 """
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import csv
 import json
+import os
 import pickle
 from collections import OrderedDict
 from pathlib import Path
@@ -90,15 +92,51 @@ def make_feature_row(
 
 def save_shard_output(rows: List[Dict], out_dir, shard_name: str,
                       suffix: str = ".pkl", prefix: str = "",
-                      final: bool = False) -> Path:
+                      final: bool = False, cached: int = 0) -> Path:
+    """Write ``rows`` as the shard's pkl; ``final`` removes its
+    ``_cache.pkl``. With ``cached`` > 0 the cache holds ``rows[:cached]``,
+    as ``save_shard_cache`` appended them: the rest are appended too and the
+    cache is renamed into place, with nothing pickled again."""
     out_dir = Path(out_dir)
+    path = out_dir / f"{prefix}{shard_name}{suffix}"
+    if final and cached:
+        os.replace(save_shard_cache(rows, out_dir, shard_name, appended=cached), path)
+        return path
     if final:
         remove_shard_cache(out_dir, shard_name)
-    return dump_pickle(rows, out_dir / f"{prefix}{shard_name}{suffix}")
+    return dump_pickle(rows, path)
 
 
-def save_shard_cache(rows: List[Dict], out_dir, shard_name: str) -> Path:
-    return save_shard_output(rows, out_dir, shard_name, suffix="_cache.pkl")
+# a protocol-3 pickle of a list opens with PROTO 3, EMPTY_LIST, BINPUT 0
+_LIST_HEAD = pickle.PROTO + b"\x03" + pickle.EMPTY_LIST + pickle.BINPUT + b"\x00"
+
+
+def save_shard_cache(rows: List[Dict], out_dir, shard_name: str, appended: int = 0) -> Path:
+    """Save ``rows`` as the shard's ``_cache.pkl``: one protocol-3 pickle of
+    the whole list, in order, which ``pickle.load`` (either package's
+    ``load_shard_caches``, the reference's) reads as it stands.
+
+    With ``appended`` > 0 the file holds ``rows[:appended]``, written by
+    this function, and only the rest is pickled: their items go onto the
+    list in place of its STOP byte, followed by a STOP (protocol 3 has no
+    frames). Each save pickles with a fresh memo, so no item refers to
+    another save's; its own memo indices, reused by a later save, are set
+    again before they are read. With 0 the file is written whole."""
+    path = Path(out_dir) / f"{shard_name}_cache.pkl"
+    if not appended:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(pickle.dumps(rows, protocol=3))
+        return path
+    data = pickle.dumps(rows[appended:], protocol=3)
+    if not data.startswith(_LIST_HEAD):
+        raise ValueError(f"unexpected pickle of a list: {data[:8]!r}")
+    with open(path, "r+b") as f:
+        f.seek(-1, os.SEEK_END)
+        if f.read(1) != pickle.STOP:
+            raise ValueError(f"{path} does not end in a pickle's STOP byte")
+        f.seek(-1, os.SEEK_END)
+        f.write(data[len(_LIST_HEAD):])
+    return path
 
 
 def remove_shard_cache(out_dir, shard_name: str) -> None:

@@ -317,3 +317,89 @@ def test_retrieval_sgd_kmeans_on_card_matches_cpu(card, d):
     on_cpu = tc.sgd_kmeans(x, 10, seed=3, device="cpu")
     assert np.array_equal(on_card.assignments, on_cpu.assignments)
     np.testing.assert_allclose(on_card.centers, on_cpu.centers, rtol=1e-5, atol=1e-5)
+
+
+FEED = ("frames", "audio", "valid_samples")
+
+
+@pytest.fixture
+def feed_clips(tmp_path):
+    from acav100m_torch import cli
+
+    cli.write_fixtures(tmp_path / "clips", num_shards=2, clips_per_shard=12, size=32)
+    return tmp_path / "clips"
+
+
+def _extract_rows(clips, out, **extra):
+    """Rows of an extraction on the card (exact stand-in models, batches of
+    2: 12 a shard) by filename, and the run's counters."""
+    from acav100m_torch.pipeline import feature_extraction as fe
+    from acav100m_torch.utils.io import load_pickle
+
+    from .torch_fake_models import fake_models
+
+    cfg = fe.get_config({"data.media.path": f"{clips}/shard-{{000000..000001}}.tar",
+                         "data.output.path": str(out), "data.batch_size": 2,
+                         "data.media.num_frames": 8, "log_period": 0, **extra})
+    with tracing.enabled():
+        saved = fe.run_extraction(cfg, models=fake_models("cuda"))
+    rows = {r["filename"]: r for p in saved for r in load_pickle(p)}
+    assert len(rows) == 24
+    return rows, tracing.counters()
+
+
+def _assert_same_taps(got, want):
+    import numpy as np
+
+    assert set(got) == set(want)
+    for name, row in want.items():
+        for side in ("audio_features", "video_features"):
+            for g, w in zip(got[name][side], row[side]):
+                for layer, arr in w["array"].items():
+                    np.testing.assert_array_equal(g["array"][layer], arr, err_msg=name)
+
+
+def test_extraction_collates_into_pinned_memory_with_fresh_arrays_taps(card, feed_clips,
+                                                                       tmp_path, monkeypatch):
+    import numpy as np
+
+    from acav100m_torch.pipeline import feature_extraction as fe
+
+    pinned = []
+    stage = fe._stage
+
+    def spied(batch, device, stream):
+        pinned.append(all(fe._pinned(batch[k]) is not None for k in FEED))
+        return stage(batch, device, stream)
+
+    monkeypatch.setattr(fe, "_stage", spied)
+    rows, counts = _extract_rows(feed_clips, tmp_path / "pinned")
+    assert pinned == [True] * 12
+    assert counts["extract.pinned_batches"] == counts["extract.batches"] == 12
+    pinned.clear()
+    monkeypatch.setattr(fe, "_pinned_empty", np.empty)  # fresh pageable arrays
+    fresh, counts = _extract_rows(feed_clips, tmp_path / "fresh")
+    assert pinned == [False] * 12 and "extract.pinned_batches" not in counts
+    _assert_same_taps(rows, fresh)
+
+
+def test_delayed_copies_never_read_a_rewritten_batch(card, feed_clips, tmp_path, monkeypatch):
+    """Each copy to the card queued behind a sleep on the side stream, with
+    more batches than are in flight: a pinned block taken again before its
+    copy ran would give some row another clip's taps."""
+    from acav100m_torch.pipeline import feature_extraction as fe
+
+    want, _ = _extract_rows(feed_clips, tmp_path / "serial",
+                            **{"computation.device_prefetch": 0})
+    stage = fe._stage
+
+    def delayed(batch, device, stream):
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(50_000_000)
+        return stage(batch, device, stream)
+
+    monkeypatch.setattr(fe, "_stage", delayed)
+    got, counts = _extract_rows(feed_clips, tmp_path / "delayed",
+                                **{"computation.device_prefetch": 4})
+    assert counts["extract.pinned_batches"] == counts["extract.batches"] == 12
+    _assert_same_taps(got, want)

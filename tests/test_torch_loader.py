@@ -152,3 +152,70 @@ def test_skip_lists_hold_in_workers(tmp_path):
     want = by_name(jtd.make_loader(shards, metas, 3, skip_lists=skip))
     assert set(got) == set(want) and len(got) == 5
     assert not set(got) & {f for names in skip.values() for f in names}
+
+
+@pytest.mark.parametrize("n", [4, 2])
+def test_collate_writes_each_sample_once_as_np_stack_would(n):
+    """``collate`` gives ``np.stack``'s values and dtypes, zero padding
+    included, in the very arrays its allocator handed out (here full of
+    junk, as pinned blocks taken again are)."""
+    rng = np.random.RandomState(n)
+    samples = [{"filename": f"c{i}.npz", "shard_name": "s", "shard_size": n,
+                "frames": rng.randint(0, 255, (3, 4, 4, 3)).astype(np.uint8),
+                "audio": rng.randn(10).astype(np.float32), "valid_samples": 7 + i}
+               for i in range(n)]
+    given = []
+
+    def junk(shape, dtype):
+        given.append(np.full(shape, 7, dtype))
+        return given[-1]
+
+    for empty in (np.empty, junk):
+        batch = ttd.collate(samples, 4, empty)
+        assert list(batch["batch_mask"]) == [True] * n + [False] * (4 - n)
+        for key in ("frames", "audio", "valid_samples"):
+            arrs = [np.asarray(s[key]) for s in samples]
+            want = np.stack(arrs + [np.zeros_like(arrs[0])] * (4 - n))
+            assert batch[key].dtype == want.dtype
+            np.testing.assert_array_equal(batch[key], want)
+    assert all(batch[k] is a for k, a in zip(("frames", "audio", "valid_samples"), given))
+    with pytest.raises(ValueError, match="shapes"):
+        ttd.collate(samples + [dict(samples[0], audio=np.zeros(3, np.float32))], 8)
+
+
+@pytest.mark.parametrize("frames_in", [8, 12])
+def test_prepare_clip_keeps_all_frames_uncopied(frames_in):
+    """Where uniform sampling keeps every frame (indices ``0..T-1``), the
+    prepared clip holds the decoded frames themselves; either way the
+    frames are the JAX package's gather."""
+    rng = np.random.RandomState(frames_in)
+    decoded = {"frames": rng.randint(0, 255, (frames_in, 4, 4, 3)).astype(np.uint8),
+               "audio": rng.randn(16000).astype(np.float32), "sample_rate": 16000,
+               "video_fps": 8.0}
+    got = tvideo.prepare_clip(decoded, num_frames=8, duration=1.0, skip_shorter_seconds=0.5)
+    want = jvideo.prepare_clip(decoded, num_frames=8, duration=1.0, skip_shorter_seconds=0.5)
+    np.testing.assert_array_equal(got["frames"], want["frames"])
+    np.testing.assert_array_equal(
+        got["frames"], decoded["frames"][np.linspace(0, frames_in - 1, 8).astype(np.int64)])
+    assert (got["frames"] is decoded["frames"]) == (frames_in == 8)
+
+
+def test_pooled_samples_are_collated_from_their_segment():
+    """A pooled sample's arrays view its shared-memory segment, whose name
+    is gone once received; ``batched`` closes it after the collate."""
+    from multiprocessing import shared_memory
+
+    sample = {"filename": "c.npz", "shard_name": "s", "shard_size": 1,
+              "frames": np.arange(96, dtype=np.uint8).reshape(2, 4, 4, 3),
+              "audio": np.linspace(0, 1, 10, dtype=np.float32), "valid_samples": 10}
+    payload = ttd._sample_to_shm(sample)
+    got = ttd._sample_from_shm(payload)
+    with pytest.raises(FileNotFoundError):
+        shared_memory.SharedMemory(name=payload["shm"])
+    segment = got["_shm"]
+    assert np.shares_memory(got["frames"], np.ndarray(
+        (segment.size,), np.uint8, buffer=segment.buf))
+    (batch,) = ttd.batched([got], 2)
+    assert "_shm" not in got and "frames" not in got
+    for key in ("frames", "audio", "valid_samples"):
+        np.testing.assert_array_equal(batch[key][0], sample[key])

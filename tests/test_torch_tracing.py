@@ -143,12 +143,12 @@ def test_extraction_records_its_spans_and_the_bytes_its_saves_wrote(tmp_path, mo
                           "data.output.path": str(tmp_path / "out"), "data.batch_size": 4,
                           "data.media.num_frames": 8, "computation.device": "cpu",
                           "log_period": 0})
-    written = []
+    written = []  # (path, size) after each save
     save = tfe.save_shard_cache
 
     def measured(*args, **kwargs):
         path = save(*args, **kwargs)
-        written.append(path.stat().st_size)
+        written.append((path, path.stat().st_size))
         return path
 
     monkeypatch.setattr(tfe, "save_shard_cache", measured)
@@ -160,7 +160,12 @@ def test_extraction_records_its_spans_and_the_bytes_its_saves_wrote(tmp_path, mo
     # the last batch span holds the wait that found the loader ended
     assert counts["extract.batches"] == len(batches) - 1 == len(written) == 2
     assert counts["extract.clips"] == 8
-    assert counts["extract.cache_bytes"] == sum(written) > 0
+    # the bytes each save added to its file
+    sizes, added = {}, 0
+    for path, size in written:
+        added += size - sizes.get(path, 0)
+        sizes[path] = size
+    assert counts["extract.cache_bytes"] == added > 0
     assert counts["extract.output_bytes"] == sum(p.stat().st_size for p in saved)
     # batch n's feed-thread spans carry the main thread's unit n
     main = batches[0].thread
