@@ -67,7 +67,9 @@ from torch import nn
 
 from . import compute_dtype, in_dtype, register_model
 from . import quant as q
+from .. import tracing
 from ..ops.bottleneck_kernel import fold_bn, fused_stage, pack_block
+from ..ops.nonlocal_kernel import nonlocal_core
 
 LAYER_DIMS = [88, 352, 704, 1408, 2304]
 
@@ -79,6 +81,11 @@ STAGE_BLOCKS = [3, 4, 6, 3]
 SLOW_TEMP_KERNELS = [1, 1, 1, 3, 3]  # stem, s2..s5
 FAST_TEMP_KERNELS = [5, 3, 3, 3, 3]
 SPATIAL_STRIDES = [1, 2, 2, 2]
+# SLOWFAST_NLN_8x8_R50 (PySlowFast configs/Kinetics/SLOWFAST_NLN_8x8_R50.yaml):
+# non-local blocks on the slow pathway after these blocks of s2..s5
+NLN_LOCATION = ((), (1, 3), (1, 3, 5), ())
+NLN_POOL = (1, 2, 2)
+NLN_INSTANTIATIONS = ("dot_product", "softmax")
 DATA_MEAN = (0.45, 0.45, 0.45)
 DATA_STD = (0.225, 0.225, 0.225)
 BN_EPS = 1e-5
@@ -186,6 +193,58 @@ class ResBlock(nn.Module):
         return out
 
 
+class Nonlocal(nn.Module):
+    """PySlowFast's non-local block (``slowfast/models/nonlocal_helper.py``,
+    Wang et al. 2018), space-time self-attention inside the CNN:
+
+        theta = conv_theta(x); phi, g = conv_phi(p), conv_g(p), p = maxpool(x)
+        S = theta^T phi (Nq x Nk); dot_product: S / Nk, softmax:
+        softmax(S * dim_inner^-1/2) over the keys
+        y = S g^T -> (N, dim_inner, T, H, W); out = x + bn(conv_out(y))
+
+    with 1x1x1 convs (biases) dim -> dim_inner (dim // 2) and back, the max
+    pool's kernel and stride ``pool``, and inference BN. ``dot_product``'s
+    core runs as ``ops.nonlocal_kernel.nonlocal_core`` (the cheaper order
+    ``(g phi^T / Nk) theta``, the same function; the kernel on bf16 CUDA
+    tensors), ``softmax`` in the published order. Convs, BN and the residual
+    run in x's dtype as every block does. Each block counts in the tracing
+    counter ``nonlocal.blocks`` and its enqueue is the span
+    ``span.extract.nonlocal``."""
+
+    def __init__(self, dim: int, dim_inner: Optional[int] = None,
+                 pool: Sequence[int] = NLN_POOL, instantiation: str = "dot_product"):
+        super().__init__()
+        if instantiation not in NLN_INSTANTIATIONS:
+            raise ValueError(f"non-local instantiation {instantiation!r} is not one of "
+                             f"{NLN_INSTANTIATIONS}")
+        self.dim_inner = dim_inner or dim // 2
+        self.instantiation = instantiation
+        self.conv_theta = nn.Conv3d(dim, self.dim_inner, 1)
+        self.conv_phi = nn.Conv3d(dim, self.dim_inner, 1)
+        self.conv_g = nn.Conv3d(dim, self.dim_inner, 1)
+        self.conv_out = nn.Conv3d(self.dim_inner, dim, 1)
+        self.bn = _bn(dim)
+        pool = tuple(pool)
+        self.pool = nn.MaxPool3d(pool, pool) if any(k > 1 for k in pool) else None
+
+    def forward(self, x):
+        with tracing.span("span.extract.nonlocal"):
+            n, _, t, h, w = x.shape
+            ci = self.dim_inner
+            theta = in_dtype(self.conv_theta, x).reshape(n, ci, -1)
+            p = x if self.pool is None else self.pool(x)
+            phi = in_dtype(self.conv_phi, p).reshape(n, ci, -1)
+            g = in_dtype(self.conv_g, p).reshape(n, ci, -1)
+            if self.instantiation == "dot_product":
+                y = nonlocal_core(theta, phi, g)
+            else:
+                s = torch.einsum("nct,ncp->ntp", theta, phi) * ci ** -0.5
+                y = torch.einsum("ntg,ncg->nct", torch.softmax(s, dim=2), g)
+            out = x + self.bn(in_dtype(self.conv_out, y.reshape(n, ci, t, h, w)))
+            tracing.count("nonlocal.blocks")
+        return out
+
+
 QUANT_SITES = ("q_in", "q_a", "q_b")  # the observed inputs of branch1/a, b, c
 
 
@@ -283,11 +342,24 @@ class QuantResBlock(ResBlock):
 class ResStage(nn.Module):
     """One stage of both pathways: ``pathway{p}_res{i}`` blocks;
     ``QuantResBlock``s where ``quant``, which then take precedence over
-    ``fused_slow``."""
+    ``fused_slow``. ``nonlocal_idx`` places a ``Nonlocal`` (of
+    ``instantiation``) after each of those slow-pathway blocks, as
+    ``pathway0_nonlocal{i}`` (PySlowFast's ``ResStage``); a stage with one
+    runs its slow blocks on the canonical graph, never K2, and takes no
+    ``quant``."""
 
     def __init__(self, si: int, dim_in: Tuple[int, int], fused_slow: bool = False,
-                 quant: bool = False):
+                 quant: bool = False, nonlocal_idx: Sequence[int] = (),
+                 instantiation: str = "dot_product"):
         super().__init__()
+        self.nonlocal_idx = tuple(sorted(set(int(i) for i in nonlocal_idx)))
+        if self.nonlocal_idx and quant:
+            raise ValueError("int8 has no non-local block: quant='int8' takes a model "
+                             "without them")
+        if any(not 0 <= i < STAGE_BLOCKS[si] for i in self.nonlocal_idx):
+            raise ValueError(f"non-local blocks {self.nonlocal_idx} outside stage s{si + 2}'s "
+                             f"{STAGE_BLOCKS[si]} blocks")
+        fused_slow = fused_slow and not self.nonlocal_idx
         w = 64
         dim_out = w * 4 * 2 ** si
         dim_inner = w * 2 ** si
@@ -303,6 +375,9 @@ class ResStage(nn.Module):
                 self.add_module(f"pathway{p}_res{i}", block(
                     cin if i == 0 else cout, cout, inner, kt,
                     self.stride if i == 0 else 1))
+                if p == 0 and i in self.nonlocal_idx:
+                    self.add_module(f"pathway0_nonlocal{i}", Nonlocal(
+                        cout, cout // 2, NLN_POOL, instantiation))
         self.num_blocks = STAGE_BLOCKS[si]
         self._folded_cache = None
 
@@ -370,8 +445,10 @@ class ResStage(nn.Module):
         if self.fused_slow:
             slow = self._fused(slow)
         else:
-            for blk in self._blocks(0):
+            for i, blk in enumerate(self._blocks(0)):
                 slow = blk(slow)
+                if i in self.nonlocal_idx:
+                    slow = getattr(self, f"pathway0_nonlocal{i}")(slow)
         for blk in self._blocks(1):
             fast = blk(fast)
         return slow, fast
@@ -406,16 +483,33 @@ def check_quant(quant: Optional[str]) -> str:
     return quant
 
 
+def check_nonlocal(location: Sequence[Sequence[int]]) -> Tuple[Tuple[int, ...], ...]:
+    """Non-local locations: 4 lists of slow-pathway block indices, one a
+    stage s2..s5 (PySlowFast's ``NONLOCAL.LOCATION`` of the slow pathway)."""
+    loc = tuple(tuple(int(i) for i in stage) for stage in location)
+    if len(loc) != 4:
+        raise ValueError(f"non-local location takes 4 lists (s2..s5), got {location!r}")
+    return loc
+
+
 class SlowFastBackbone(nn.Module):
     """Returns the 5 layer taps in ``dtype``; inputs slow (B,3,T/4,H,W),
-    fast (B,3,T,H,W), cast to ``dtype`` on the way in."""
+    fast (B,3,T,H,W), cast to ``dtype`` on the way in. ``nonlocal_location``
+    (``check_nonlocal``) places non-local blocks of ``nonlocal_instantiation``
+    on the slow pathway."""
 
     def __init__(self, pallas_stages: bool = True, dtype=torch.float32,
-                 fast_block: Optional[Sequence[int]] = None, quant: str = "none"):
+                 fast_block: Optional[Sequence[int]] = None, quant: str = "none",
+                 nonlocal_location: Sequence[Sequence[int]] = ((), (), (), ()),
+                 nonlocal_instantiation: str = "dot_product"):
         super().__init__()
         self.dtype = compute_dtype(dtype)
         self.fast_block = check_fast_block(fast_block)
         self.quant = check_quant(quant)
+        self.nonlocal_location = check_nonlocal(nonlocal_location)
+        if self.quant == "int8" and any(self.nonlocal_location):
+            raise ValueError("int8 has no non-local block: quant='int8' takes a model "
+                             "without them")
         w = 64
         self.s1 = VideoModelStem(w)
         self.s1_fuse = FuseFastToSlow(w // BETA_INV)
@@ -423,8 +517,10 @@ class SlowFastBackbone(nn.Module):
         for si in range(4):
             fused = (pallas_stages and SLOW_TEMP_KERNELS[si + 1] == 1
                      and SPATIAL_STRIDES[si] == 1)
-            self.add_module(f"s{si + 2}", ResStage(si, (slow_in, fast_in), fused,
-                                                   quant=self.quant == "int8"))
+            self.add_module(f"s{si + 2}", ResStage(
+                si, (slow_in, fast_in), fused, quant=self.quant == "int8",
+                nonlocal_idx=self.nonlocal_location[si],
+                instantiation=nonlocal_instantiation))
             dim_out = w * 4 * 2 ** si
             if si < 3:
                 self.add_module(f"s{si + 2}_fuse", FuseFastToSlow(dim_out // BETA_INV))
@@ -493,9 +589,12 @@ class LayerSlowFast(SlowFastBackbone):
     media_type = "video"
 
     def __init__(self, pallas_stages: bool = True, dtype=torch.float32,
-                 fast_block: Optional[Sequence[int]] = None, quant: str = "none"):
+                 fast_block: Optional[Sequence[int]] = None, quant: str = "none",
+                 nonlocal_location: Sequence[Sequence[int]] = ((), (), (), ()),
+                 nonlocal_instantiation: str = "dot_product"):
         super().__init__(pallas_stages=pallas_stages, dtype=dtype, fast_block=fast_block,
-                         quant=quant)
+                         quant=quant, nonlocal_location=nonlocal_location,
+                         nonlocal_instantiation=nonlocal_instantiation)
         self.eval()
 
     def forward(self, frames: torch.Tensor, quant_mode: Optional[str] = None
@@ -528,38 +627,66 @@ class SlowFast(LayerSlowFast):
         return super().forward(frames)[-1]
 
 
+@register_model("layer_slowfast_nln")
+class LayerSlowFastNln(LayerSlowFast):
+    """SLOWFAST_NLN_8x8_R50 (PySlowFast ``configs/Kinetics/SLOWFAST_NLN_8x8_R50.yaml``):
+    ``LayerSlowFast`` with non-local blocks (``Nonlocal``, ``dot_product``,
+    pool 1x2x2, dim_inner dim/2) on the slow pathway after blocks 1 and 3 of
+    ``s3`` and 1, 3 and 5 of ``s4``; the same five taps. K2 still runs ``s2``,
+    which has none; int8 raises."""
+
+    model_tag = {"name": "SLOWFAST_NLN_8x8_R50", "dataset": "kinetics-400"}
+
+    def __init__(self, pallas_stages: bool = True, dtype=torch.float32,
+                 fast_block: Optional[Sequence[int]] = None, quant: str = "none",
+                 nonlocal_location: Sequence[Sequence[int]] = NLN_LOCATION,
+                 nonlocal_instantiation: str = "dot_product"):
+        super().__init__(pallas_stages, dtype, fast_block, quant, nonlocal_location,
+                         nonlocal_instantiation)
+
+
 def zero_init_final_bn(model: nn.Module) -> None:
     """ZERO_INIT_FINAL_BN: gamma 0 on every block's last BN, as the JAX
-    package's flax init does (``slowfast.py:100-104``)."""
+    package's flax init does (``slowfast.py:100-104``), and on every
+    non-local block's BN, as PySlowFast's ``zero_init_final_norm`` sets it."""
     for mod in model.modules():
         if isinstance(mod, BottleneckTransform):
             nn.init.zeros_(mod.c_bn.weight)
+        elif isinstance(mod, Nonlocal):
+            nn.init.zeros_(mod.bn.weight)
 
 
 # -- flax <-> PySlowFast names --------------------------------------------------
 
 def _flax_pairs():
-    """(PySlowFast prefix, flax module path, is a conv) for every module."""
+    """(PySlowFast prefix, flax module path, kind) for every module: kind
+    ``conv`` (a kernel), ``conv_bias`` (a kernel and a bias: a non-local
+    block's convs) or ``bn``. The non-local blocks' entries, under
+    ``s{k}_slow/nonlocal{i}`` (the port's own names: the JAX package has no
+    non-local block), are listed after every slow-pathway block and taken
+    where present."""
     out = []
     for pw, tag in ((0, "slow"), (1, "fast")):
-        out.append((f"s1.pathway{pw}_stem.conv", (f"s1_{tag}", "conv"), True))
-        out.append((f"s1.pathway{pw}_stem.bn", (f"s1_{tag}", "bn", "BatchNorm_0"),
-                    False))
+        out.append((f"s1.pathway{pw}_stem.conv", (f"s1_{tag}", "conv"), "conv"))
+        out.append((f"s1.pathway{pw}_stem.bn", (f"s1_{tag}", "bn", "BatchNorm_0"), "bn"))
     for i in range(1, 5):
-        out.append((f"s{i}_fuse.conv_f2s", (f"s{i}_fuse", "conv_f2s"), True))
-        out.append((f"s{i}_fuse.bn", (f"s{i}_fuse", "bn", "BatchNorm_0"), False))
+        out.append((f"s{i}_fuse.conv_f2s", (f"s{i}_fuse", "conv_f2s"), "conv"))
+        out.append((f"s{i}_fuse.bn", (f"s{i}_fuse", "bn", "BatchNorm_0"), "bn"))
     for si in range(4):
         for bi in range(STAGE_BLOCKS[si]):
             for pw, tag in ((0, "slow"), (1, "fast")):
                 t = f"s{si + 2}.pathway{pw}_res{bi}"
                 f = (f"s{si + 2}_{tag}", f"block{bi}")
                 for br in ("a", "b", "c"):
-                    out.append((f"{t}.branch2.{br}", f + (f"branch2_{br}",), True))
+                    out.append((f"{t}.branch2.{br}", f + (f"branch2_{br}",), "conv"))
                     bn = f + (f"branch2_{br}_bn",) + (() if br == "c" else ("BatchNorm_0",))
-                    out.append((f"{t}.branch2.{br}_bn", bn, False))
-                out.append((f"{t}.branch1", f + ("branch1",), True))
-                out.append((f"{t}.branch1_bn", f + ("branch1_bn", "BatchNorm_0"),
-                            False))
+                    out.append((f"{t}.branch2.{br}_bn", bn, "bn"))
+                out.append((f"{t}.branch1", f + ("branch1",), "conv"))
+                out.append((f"{t}.branch1_bn", f + ("branch1_bn", "BatchNorm_0"), "bn"))
+            t, f = f"s{si + 2}.pathway0_nonlocal{bi}", (f"s{si + 2}_slow", f"nonlocal{bi}")
+            for conv in ("conv_theta", "conv_phi", "conv_g", "conv_out"):
+                out.append((f"{t}.{conv}", f + (conv,), "conv_bias"))
+            out.append((f"{t}.bn", f + ("bn",), "bn"))
     return out
 
 
@@ -583,12 +710,14 @@ def state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     def put(key, arr):
         sd[key] = torch.from_numpy(np.ascontiguousarray(np.asarray(arr, np.float32)))
 
-    for tkey, path, is_conv in _flax_pairs():
+    for tkey, path, kind in _flax_pairs():
         node = _get(params, path)
-        if node is None:  # blocks without a projection shortcut
+        if node is None:  # blocks without a projection shortcut or a non-local block
             continue
-        if is_conv:
+        if kind != "bn":
             put(f"{tkey}.weight", np.asarray(node["kernel"]).transpose(4, 3, 0, 1, 2))
+            if kind == "conv_bias":
+                put(f"{tkey}.bias", node["bias"])
             continue
         st = _get(stats, path)
         put(f"{tkey}.weight", node["scale"])
@@ -627,16 +756,22 @@ def convert_pyslowfast_state_dict(sd: Dict[str, np.ndarray]) -> Dict:
     ``acav100m_tpu.models.slowfast.convert_pyslowfast_state_dict`` makes it:
     conv kernels OIDHW -> DHWIO, BN weight/bias/running_mean/running_var ->
     scale/bias/mean/var. Keys the taps do not use (the head,
-    ``num_batches_tracked``) are ignored; a projection shortcut is taken
-    where the checkpoint has one."""
+    ``num_batches_tracked``) are ignored; a projection shortcut and a
+    non-local block (SLOWFAST_NLN_8x8_R50's) are taken where the checkpoint
+    has them."""
     params: Dict = {}
     stats: Dict = {}
-    for tkey, path, is_conv in _flax_pairs():
+    for tkey, path, kind in _flax_pairs():
         block = tkey.rsplit(".", 1)[0]
         if tkey.endswith(("branch1", "branch1_bn")) and f"{block}.branch1.weight" not in sd:
             continue
-        if is_conv:
-            _put(params, path, {"kernel": np.asarray(sd[f"{tkey}.weight"]).transpose(2, 3, 4, 1, 0)})
+        if "_nonlocal" in block and f"{block}.conv_theta.weight" not in sd:
+            continue
+        if kind != "bn":
+            node = {"kernel": np.asarray(sd[f"{tkey}.weight"]).transpose(2, 3, 4, 1, 0)}
+            if kind == "conv_bias":
+                node["bias"] = np.asarray(sd[f"{tkey}.bias"])
+            _put(params, path, node)
             continue
         _put(params, path, {"scale": np.asarray(sd[f"{tkey}.weight"]),
                             "bias": np.asarray(sd[f"{tkey}.bias"])})

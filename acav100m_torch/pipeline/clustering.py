@@ -54,7 +54,7 @@ DEFAULTS = {
     "models": ["layer_vggish", "layer_slowfast"],
     "model_types": {
         "audio": ["vggish", "layer_vggish"],
-        "visual": ["slowfast", "layer_slowfast"],
+        "visual": ["slowfast", "layer_slowfast", "layer_slowfast_nln"],
     },
     "data": {
         "path": None,  # feature pkl shard spec, e.g. .../shard-{000000..000019}.pkl

@@ -80,7 +80,7 @@ DEFAULTS = {
     "models": ["layer_vggish", "layer_slowfast"],
     "model_types": {
         "audio": ["vggish", "layer_vggish"],
-        "visual": ["slowfast", "layer_slowfast"],
+        "visual": ["slowfast", "layer_slowfast", "layer_slowfast_nln"],
     },
     "data": {
         "batch_size": 16,

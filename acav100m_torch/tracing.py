@@ -13,7 +13,10 @@ iteration. A span takes its unit from ``unit=``, else from the enclosing
 span on its thread (the feed thread's per-batch span hands batch n's unit
 to its decoding, as the main thread's does to its forward). The counters
 count work where it happens (batches, bytes written, host reads, kernel
-launches).
+launches, non-local blocks run). Each non-local block of SLOWFAST_NLN_8x8_R50
+is a span ``span.extract.nonlocal`` (its enqueue, on the thread that runs
+the model) and counts in ``nonlocal.blocks`` on any path; the non-local
+core's kernel counts its launches in ``nln_bf16.launches``.
 
 Tracing is on while a ``torch.profiler`` profile records in this process
 and inside ``with enabled():``. When it turns on, the spans and counters

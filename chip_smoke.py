@@ -9,14 +9,17 @@ Phases, each printing its own lines:
 2. hold each kernel against its plain PyTorch version at the main paths'
    shapes (TF32 off), and time kernel, plain version and library yardstick
    with CUDA events around back-to-back calls; K2 in both forms, float32
-   and bfloat16;
+   and bfloat16; the non-local core's kernel at ``res3``'s and ``res4``'s
+   shapes (batch 32), beside two cuBLAS ``bmm`` calls;
 3. main path A through the port's CLI: ``fixtures`` (2 shards x 8 clips,
    32 frames of 256x256) -> ``extract`` (SlowFast 8x8 R50 + VGGish at full
    width, float32, seeded random weights) -> ``cluster`` -> ``select``;
    then path A-bf16 on the same clips, in the JAX package's headline
    configuration (``computation.dtype=bfloat16
    computation.fast_block=[4,4,4,4,4]``): ``extract`` -> ``cluster`` ->
-   ``select``, its taps held against path A's;
+   ``select``, its taps held against path A's; then path A-nln on the same
+   clips, ``extract`` with SLOWFAST_NLN_8x8_R50 (``layer_slowfast_nln``) in
+   bf16, five launches of the non-local kernel a batch;
 4. main path C, stage 4 on published checkpoints with pooled decode
    workers: SlowFast 8x8 R50 written as a caffe2 ``.pkl`` (the published
    SLOWFAST_8x8_R50 form) and VGGish as a torchvggish ``.pth``, both through
@@ -103,7 +106,7 @@ Phases, each printing its own lines:
    ``classify/`` from H2's checkpoint, multimodal, 20 head steps, with and
    without cached features (top-1/top-5), and the test views' frozen
    features card against CPU (TF32 off, 1e-4). Path H launches none of the
-   three kernels;
+   four kernels;
 11. paths H4 and H5 at the same widths. H4, the sharded pretrain step
    (``make_pretrain_step(state, group)``): a float64 step (TF32 off) at a
    global batch of 4 on 2 spawned gloo ranks sharing ``cuda:0``, on a
@@ -167,6 +170,7 @@ from acav100m_torch.ops.kmeans_kernel import (
     fused_assign_update_ref,
 )
 from acav100m_torch.ops import mi
+from acav100m_torch.ops.nonlocal_kernel import nonlocal_core, nonlocal_core_ref
 from acav100m_torch.pipeline import contrastive_selection as cs
 from acav100m_torch.pipeline import feature_extraction as fe
 from acav100m_torch.pipeline import subset_selection as ss
@@ -188,7 +192,12 @@ KERNELS = [  # (source, tracing counter of its launches, the TPU kernel it ports
      "acav100m_tpu/ops/pallas/bottleneck_kernel.py:116"),
     ("bottleneck_stage_bf16", "k2_bf16.launches",
      "acav100m_tpu/ops/pallas/bottleneck_kernel.py:116"),
+    ("nonlocal_core_bf16", "nln_bf16.launches",
+     "none: the JAX package has no non-local block"),
 ]
+# the non-local blocks' cores at a batch of 32 clips of 32 frames at 256^2:
+# (label, blocks a batch, N, Ci, Nq, Nk)
+NLN_SHAPES = (("res3", 2, 32, 256, 8192, 2048), ("res4", 3, 32, 512, 2048, 512))
 HEADLINE = ["computation.dtype=bfloat16", "computation.fast_block=[4,4,4,4,4]"]
 N_PER_SHARD = 1024  # path B's feature rows a shard; path D selects from them
 
@@ -452,6 +461,92 @@ def check_k2_bf16(gen: torch.Generator) -> dict:
                     f"{nbytes / 1e6:.1f} MB); bytes floor of one launch a block "
                     f"{floor_ms:.4f} ms ({(nbytes + between) / 1e9:.3f} GB)")
     return result
+
+
+def check_nln(gen: torch.Generator) -> dict:
+    """The non-local core's kernel at the main path's two shapes (batch 32)
+    against its plain twin on the same bf16 inputs (every element within a
+    bf16 step of the twin's largest, at least 95% of them bit-equal: the two
+    sum in other orders, and a sum on a rounding boundary of A^T or y lands
+    on its other side), two launches bitwise equal; timed (CUDA events,
+    median of 20) beside the twin and two cuBLAS ``bmm`` calls in each
+    order. Returns a batch's five blocks' times."""
+    result = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+              "max_abs_err": 0.0}
+    for label, blocks, n, ci, nq, nk in NLN_SHAPES:
+        theta = torch.randn((n, ci, nq), generator=gen).cuda().to(torch.bfloat16)
+        phi = (torch.randn((n, ci, nk), generator=gen) + 0.5).cuda().to(torch.bfloat16)
+        g = (torch.randn((n, ci, nk), generator=gen) + 0.3).cuda().to(torch.bfloat16)
+        y = nonlocal_core(theta, phi, g)
+        again = nonlocal_core(theta, phi, g)
+        torch.cuda.synchronize()
+        ref = nonlocal_core_ref(theta, phi, g)
+        scale = float(ref.float().abs().max())
+        diff = (y.float() - ref.float()).abs()
+        exact = float((y == ref).float().mean())
+        same = torch.equal(y, again)
+
+        def cheap():
+            return torch.bmm(torch.bmm(g, phi.transpose(1, 2)) / nk, theta)
+
+        def published():
+            return torch.bmm(g, (torch.bmm(theta.transpose(1, 2), phi) / nk).transpose(1, 2))
+
+        ms = time_ms(lambda: nonlocal_core(theta, phi, g))
+        plain = time_ms(lambda: nonlocal_core_ref(theta, phi, g))
+        lib_cheap, lib_pub = time_ms(cheap), time_ms(published)
+        flops = 2.0 * n * ci * ci * (nk + nq)
+        nbytes = 2.0 * n * ci * (2 * nq + 2 * nk)
+        bound_ms, bound_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+        log(f"non-local core {label} (N {n}, Ci {ci}, Nq {nq}, Nk {nk}): {ms:.4f} ms, plain "
+            f"twin {plain:.4f} ms, two cuBLAS bmm in bf16 {lib_cheap:.4f} ms (the kernel's "
+            f"order) and {lib_pub:.4f} ms (the published order), bound {bound_ms:.4f} ms "
+            f"({bound_by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); max err "
+            f"{float(diff.max()) / scale:.2e} of max |y| {scale:.3f}, {100 * exact:.2f}% "
+            f"bit-equal to the twin; two launches bitwise equal: {same}")
+        check(float(diff.max()) <= 2 ** -7 * scale and exact >= 0.95,
+              f"non-local core at {label} against its twin")
+        check(same, f"non-local core at {label}: two launches bitwise equal")
+        result.update({f"{label}_ms": ms, f"{label}_bound_ms": bound_ms,
+                       f"{label}_library_ms": lib_cheap})
+        for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound_ms),
+                       ("library_ms", lib_cheap)):
+            result[key] += blocks * v
+        result["max_abs_err"] = max(result["max_abs_err"], float(diff.max()))
+    result["bound_by"] = "bytes"
+    log(f"non-local cores of a batch of 32 clips (2 at res3, 3 at res4): {result['ms']:.4f} ms, "
+        f"bound {result['bound_ms']:.4f} ms, cuBLAS {result['library_ms']:.4f} ms")
+    return result
+
+
+def main_path_a_nln() -> dict:
+    """Path A-nln: path A's clips through extract with SLOWFAST_NLN_8x8_R50
+    (``layer_slowfast_nln``) in bf16, seeded weights: the non-local kernel
+    launched once a block, five a batch, beside K2-bf16; the rows' taps
+    finite."""
+    clips, feats = WORK / "a" / "clips", WORK / "a_nln" / "features"
+    n_clips = 16
+    spec = "shard-{000000..000001}"
+    reset_counts()
+    t_ext = run_stage("extract", f"data.media.path={clips}/{spec}.tar",
+                      f"data.output.path={feats}", "data.batch_size=4",
+                      "computation.dtype=bfloat16",
+                      'models=["layer_vggish", "layer_slowfast_nln"]')
+    launches = counts()
+    c = tracing.counters()
+    rows = [r for p in sorted(feats.glob("shard-*.pkl")) for r in load_pickle(p)]
+    check(len(rows) == n_clips, f"path A-nln: {n_clips} rows, got {len(rows)}")
+    for row in rows:
+        (feat,) = row["video_features"]
+        check(feat["model_key"] == "layer_slowfast_nln", "path A-nln model key")
+        check(all(np.isfinite(a).all() for a in feat["array"].values()), "path A-nln finite")
+    log(f"path A-nln (bf16): extract {t_ext:.2f} s ({n_clips / t_ext:.2f} clips/s); "
+        f"{c.get('extract.batches', 0)} batches, {c.get('nonlocal.blocks', 0)} non-local "
+        f"blocks; launches {launches}")
+    check(launches["nonlocal_core_bf16"] == 5 * c.get("extract.batches", 0)
+          == c.get("nonlocal.blocks", 0) > 0, "path A-nln: five kernel launches a batch")
+    check(launches["bottleneck_stage_bf16"] > 0, "path A-nln: K2-bf16 still runs s2")
+    return launches
 
 
 # -- phases 3 and 4: the main path -------------------------------------------------
@@ -2631,7 +2726,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
     results = {"kmeans_assign_update": check_k1(gen), "bottleneck_stage": check_k2(gen),
-               "bottleneck_stage_bf16": check_k2_bf16(gen)}
+               "bottleneck_stage_bf16": check_k2_bf16(gen), "nonlocal_core_bf16": check_nln(gen)}
     # phase 3: the default precision again (cuDNN convs in TF32)
     torch.backends.cudnn.allow_tf32 = True
     t0 = time.time()
@@ -2640,6 +2735,10 @@ def main() -> int:
     t0 = time.time()
     launches["bottleneck_stage_bf16"] = main_path_a_bf16(f32_taps)["bottleneck_stage_bf16"]
     log(f"path A-bf16 total {time.time() - t0:.1f} s")
+    t0 = time.time()
+    for name, n in main_path_a_nln().items():
+        launches[name] += n
+    log(f"path A-nln total {time.time() - t0:.1f} s")
     t0 = time.time()
     for name, n in main_path_c(gen).items():
         launches[name] += n

@@ -13,6 +13,7 @@ from acav100m_torch import tracing
 from acav100m_torch.ops.bottleneck_kernel import (fused_stage, fused_stage_bf16, fused_stage_ref,
                                                   pack_block_f32)
 from acav100m_torch.ops.kmeans_kernel import fused_assign_update, fused_assign_update_ref
+from acav100m_torch.ops.nonlocal_kernel import nonlocal_core, nonlocal_core_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -295,6 +296,44 @@ def test_k2_bf16_refuses_what_it_cannot_take(card):
     with pytest.raises(ValueError):  # input channels not a multiple of 8
         fused_stage(rnd(2, 8, 8, 84).to(torch.bfloat16),
                     _random_blocks(rnd, 84, 1, torch.bfloat16))
+
+
+@pytest.mark.parametrize("n,ci,nq,nk", [
+    (32, 256, 8192, 2048),  # res3 at 32 frames of 256^2, batch 32
+    (32, 512, 2048, 512),   # res4
+    (32, 256, 6272, 1568),  # res3 at 224^2 (PySlowFast's crop): Nk 1568 ends in half a stage
+    (32, 512, 1568, 392),   # res4 at 224^2: Nq 1568 ends in a partial tile, Nk 392 likewise
+    (3, 128, 2500, 578),    # Nq of 4 frames at 25^2, and Nk, padded to multiples of 8
+    (3, 128, 384, 64),      # a partial wave, the smallest tile
+])
+def test_nonlocal_core_matches_its_twin(card, n, ci, nq, nk):
+    gen = torch.Generator().manual_seed(ci + nk)
+    theta = torch.randn((n, ci, nq), generator=gen).to(card, torch.bfloat16)
+    phi = (torch.randn((n, ci, nk), generator=gen) + 0.5).to(card, torch.bfloat16)
+    g = (torch.randn((n, ci, nk), generator=gen) + 0.3).to(card, torch.bfloat16)
+    with tracing.enabled():
+        y = nonlocal_core(theta, phi, g)
+        again = nonlocal_core(theta, phi, g)
+    assert tracing.counters()["nln_bf16.launches"] == 2
+    torch.cuda.synchronize()
+    ref = nonlocal_core_ref(theta, phi, g)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, again)
+    # the kernel and the twin sum in other orders: a float32 sum on a bf16
+    # rounding boundary of A^T or y lands on its other side, a step of y's
+    # largest at most; nearly every element is bit-equal
+    scale = float(ref.float().abs().max())
+    assert float((y.float() - ref.float()).abs().max()) <= 2 ** -7 * scale
+    assert float((y == ref).float().mean()) >= 0.95
+
+
+def test_nonlocal_core_refuses_what_it_cannot_take(card):
+    theta = torch.zeros((2, 192, 200), device=card, dtype=torch.bfloat16)  # Ci not 128k
+    phi = torch.zeros((2, 192, 64), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        nonlocal_core(theta, phi, phi)
+    # float32 runs the twin's float32 products on the card
+    f32 = [torch.randn((2, 64, 40), device=card) for _ in range(3)]
+    assert torch.equal(nonlocal_core(*f32), nonlocal_core_ref(*f32))
 
 
 @pytest.mark.parametrize("d", [16, 6, 1024])
