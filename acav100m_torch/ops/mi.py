@@ -29,10 +29,18 @@ each rank scores a contiguous slice, the scores are all-gathered in
 candidate order, and every rank takes the same winners by the single-device
 tie rule and folds them into an identical cache. The full-table scorers then
 build only their slice's (W/world, P, C, C) tables on each card.
+
+On a card, the batched selector's step with the incremental score in
+float32 and no group is one launch of ``csrc/batch_mi_step.cu``
+(``batch_mi_step``): gather, score, top-k, fold and statistics, with the
+cache and statistics updated in place. ``batch_mi_step_ref`` is its plain
+twin, the eager chain that every other case runs.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -41,6 +49,7 @@ import torch
 
 from .. import tracing
 from ..runtime import Group, all_gather_cat, group_device
+from . import cuda_build
 
 Tensor = torch.Tensor
 EPS = float(np.finfo("float64").eps)
@@ -66,11 +75,11 @@ def init_cache(num_pairs: int, ncentroids: int, dtype=torch.float32,
 
 def pair_assignments(assignments: np.ndarray,
                      combinations: Sequence[Tuple[int, int]]) -> np.ndarray:
-    """(V, D) assignments + P pairs -> (V, P, 2) pair coordinates."""
+    """(V, D) assignments + P pairs -> (V, P, 2) pair coordinates, C order."""
     comb = np.asarray(list(combinations), dtype=np.int64)  # (P, 2)
-    return np.stack(
+    return np.ascontiguousarray(np.stack(
         [assignments[:, comb[:, 0]], assignments[:, comb[:, 1]]], axis=-1
-    ).astype(np.int32)
+    ), dtype=np.int32)
 
 
 def _onehots(pairs: Tensor, ncentroids: int, dtype=torch.float32):
@@ -304,6 +313,90 @@ def stable_top_k(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     return vals[:k], idx[:k]
 
 
+def batch_mi_step_ref(cache: Dict, stats: Dict, pairs_all: Tensor, ids: Tensor, valid: int,
+                      k: int, ncentroids: int, pair_weights=None, score=None):
+    """One greedy step as an eager chain: the plain twin of
+    ``batch_mi_step``, and the step of every case the kernel does not take.
+    Candidates ``ids`` (B,) of ``pairs_all`` (V,P,2), the first ``valid`` of
+    them real, are scored by ``score(pairs)`` (by default
+    ``score_candidates_mem`` with ``pair_weights``); the others (a tail
+    batch's pads) score -inf, the k best win (ties to the lowest index) and
+    the valid winners are folded into the cache. Returns (top_idx,
+    top_scores, cache, stats), new tensors."""
+    pairs = pairs_all[ids]
+    mask = torch.arange(ids.shape[0], device=ids.device) < valid
+    if score is None:
+        scores = score_candidates_mem(cache, stats, pairs, ncentroids, pair_weights)
+    else:
+        scores = score(pairs)
+    scores = torch.where(mask, scores, torch.full_like(scores, -math.inf))
+    top_scores, top_idx = stable_top_k(scores, k)
+    cache = add_candidates_to_cache(cache, pairs[top_idx], ncentroids, weights=mask[top_idx])
+    return top_idx, top_scores, cache, mem_stats(cache)
+
+
+BATCH_MI_MAX_B = 512  # candidates a step the kernel takes (MAX_B in its source)
+
+
+@functools.lru_cache(maxsize=None)
+def _bind_batch_mi():
+    fn = cuda_build.load("batch_mi_step").batch_mi_step
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 11)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def batch_mi_step(cache: Dict, stats: Dict, pairs_all: Tensor, ids: np.ndarray, valid: int,
+                  k: int, weights: Optional[Tensor] = None, out: Optional[Tensor] = None,
+                  out_host: Optional[Tensor] = None) -> Tensor:
+    """One greedy step in one launch of ``csrc/batch_mi_step.cu`` on the
+    current stream: candidates ``ids`` (B,) int64 host ids into
+    ``pairs_all`` (V,P,2) int32, the first ``valid`` of them real, scored by
+    the incremental MI (the mean over pairs, weighted by ``weights`` (P,) if
+    given); the k best (ties to the lowest index) are folded into ``cache``
+    and ``stats`` recomputed, both in place. Returns ``out`` (2k int32 on
+    the card: the k indices into ``ids``, then the bits of their float32
+    scores), copied into the pinned ``out_host`` too if given. CUDA float32
+    tensors only; raises ``ValueError`` on what the kernel does not take (B
+    over ``BATCH_MI_MAX_B``, k over B)."""
+    ids = np.ascontiguousarray(ids, dtype=np.int64)
+    b = ids.shape[0]
+    if ids.ndim != 1 or not 1 <= b <= BATCH_MI_MAX_B or not 1 <= k <= b or not 1 <= valid <= b:
+        raise ValueError(f"the kernel takes 1 <= valid <= B <= {BATCH_MI_MAX_B} ids and "
+                         f"1 <= k <= B, got ids {ids.shape}, valid {valid}, k {k}")
+    n_mat = cache["N"]
+    device, (p, c) = n_mat.device, (n_mat.shape[0], n_mat.shape[-1])
+    tensors = [("N", n_mat, (p, c, c)), ("a", cache["a"], (p, c)), ("b", cache["b"], (p, c)),
+               ("n", cache["n"], (p,))]
+    tensors += [(name, stats[name], (p,)) for name in ("NlogN", "aloga", "blogb")]
+    if weights is not None:
+        tensors.append(("weights", weights, (p,)))
+    for name, t, shape in tensors:
+        if (t.device != device or t.dtype != torch.float32 or t.shape != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: the kernel takes a contiguous float32 {shape} tensor "
+                             f"on the card, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if (device.type != "cuda" or pairs_all.device != device or pairs_all.dtype != torch.int32
+            or pairs_all.dim() != 3 or pairs_all.shape[1:] != (p, 2)
+            or not pairs_all.is_contiguous() or pairs_all.data_ptr() % 8):
+        raise ValueError(f"pairs_all must be a contiguous, 8-byte aligned (V, {p}, 2) int32 "
+                         f"tensor on the card beside the cache, got {pairs_all.dtype} "
+                         f"{tuple(pairs_all.shape)} on {pairs_all.device}")
+    if out is None:
+        out = torch.empty(2 * k, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = _bind_batch_mi()(
+            pairs_all.data_ptr(), ids.ctypes.data, pairs_all.shape[0], b, valid, k, p, c,
+            *(t.data_ptr() for _, t, _ in tensors[:7]),
+            None if weights is None else weights.data_ptr(), out.data_ptr(),
+            None if out_host is None else out_host.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "batch_mi_step")
+    tracing.count("batch_mi.launches")
+    return out
+
+
 class BatchGreedySelector:
     """Greedy batched MI maximization (reference batch.py:10-260).
 
@@ -318,6 +411,12 @@ class BatchGreedySelector:
     (``_SCORE_FNS``), averaged over pairs with ``average_method``. With
     ``group`` each batch is padded to a multiple of the world size (pads
     masked as above) and its candidates are scored across the ranks.
+
+    ``fused`` (``takes_kernel``), fixed at construction: on a card, in
+    float32, with the ``mem`` scorer and no group, a step is one launch of
+    ``batch_mi_step`` (the cache and statistics updated in place, the picks
+    read back in one copy into pinned memory); every other case runs the
+    eager chain of ``batch_mi_step_ref``.
     """
 
     def __init__(
@@ -360,6 +459,23 @@ class BatchGreedySelector:
                                 self.device)
         self.stats = mem_stats(self.cache)
         self.candidate_ids = np.arange(self.assignments.shape[0], dtype=np.int64)
+        self.fused = self.takes_kernel(self.device, self.dtype, scorer, group)
+        if self.fused:
+            b_dev = _pad_rows(self.B, group)
+            if b_dev > BATCH_MI_MAX_B:
+                raise ValueError(f"batch_size {b_dev} is over the fused step's "
+                                 f"{BATCH_MI_MAX_B}")
+            self._weights = (None if self.pair_weights is None else
+                             torch.as_tensor(self.pair_weights, device=self.device))
+            self._out = torch.empty(2 * b_dev, dtype=torch.int32, device=self.device)
+            self._out_host = torch.empty(2 * b_dev, dtype=torch.int32, pin_memory=True)
+
+    @staticmethod
+    def takes_kernel(device, dtype, scorer: str, group: Optional[Group]) -> bool:
+        """Whether a step is the kernel's (``batch_mi_step``): CUDA, float32,
+        the ``mem`` scorer, no group."""
+        return (torch.device(device).type == "cuda" and dtype == torch.float32
+                and scorer == "mem" and group is None)
 
     def _score(self, pairs: Tensor) -> Tensor:
         if self.scorer == "mem":
@@ -368,17 +484,35 @@ class BatchGreedySelector:
         return score_candidates_full(self.cache, pairs, self.C, self.scorer,
                                      self.average_method, self.pair_weights)
 
-    def _step(self, batch_ids: Tensor, valid_mask: Tensor):
-        pairs = self.pairs_all[batch_ids]  # (B,P,2)
-        scores = score_sharded(self._score, pairs, self.group)
-        scores = torch.where(valid_mask, scores,
-                             torch.tensor(-math.inf, dtype=scores.dtype,
-                                          device=scores.device))
-        top_scores, top_idx = stable_top_k(scores, self.k)
-        winner_valid = valid_mask[top_idx]
-        self.cache = add_candidates_to_cache(self.cache, pairs[top_idx], self.C,
-                                             weights=winner_valid)
-        self.stats = mem_stats(self.cache)
+    def _step(self, batch_dev: np.ndarray, valid: int):
+        """Score the batch's candidates (host ids, the first ``valid`` real),
+        take the k best and fold them into the cache; returns what
+        ``_read_picks`` reads the picks from."""
+        k = min(self.k, len(batch_dev))
+        if self.fused:
+            batch_mi_step(self.cache, self.stats, self.pairs_all, batch_dev, valid, k,
+                          self._weights, self._out, self._out_host)
+            return k
+        top_idx, top_scores, self.cache, self.stats = batch_mi_step_ref(
+            self.cache, self.stats, self.pairs_all,
+            torch.as_tensor(batch_dev, device=self.device), valid, k, self.C,
+            score=lambda pairs: score_sharded(self._score, pairs, self.group))
+        return top_idx, top_scores
+
+    def _read_picks(self, picks):
+        """The step's winners (indices into the batch) and their scores on
+        the host: the kernel's one copy, or the eager chain's two reads."""
+        if self.fused:
+            torch.cuda.current_stream(self.device).synchronize()
+            tracing.count("select.host_reads")
+            out = self._out_host.numpy()
+            return (out[:picks].astype(np.int64),
+                    out[picks:2 * picks].view(np.float32).astype(np.float64))
+        top_idx, top_scores = picks
+        top_idx = top_idx.cpu().numpy()
+        tracing.count("select.host_reads")
+        top_scores = top_scores.double().cpu().numpy()  # numpy has no bf16
+        tracing.count("select.host_reads")
         return top_idx, top_scores
 
     def shuffle_candidates(self):
@@ -430,16 +564,10 @@ class BatchGreedySelector:
                         batch_dev = np.concatenate([batch, np.full(b_dev - b, batch[0])])
                     else:
                         batch_dev = batch
-                    valid_mask = np.arange(b_dev) < b
                 with tracing.span("span.select.dispatch"):
-                    top_idx, top_scores = self._step(
-                        torch.as_tensor(batch_dev, device=self.device),
-                        torch.as_tensor(valid_mask, device=self.device))
+                    picks = self._step(batch_dev, b)
                 with tracing.span("span.select.read_picks"):
-                    top_idx = top_idx.cpu().numpy()
-                    tracing.count("select.host_reads")
-                    top_scores = top_scores.double().cpu().numpy()  # numpy has no bf16
-                    tracing.count("select.host_reads")
+                    top_idx, top_scores = self._read_picks(picks)
                 with tracing.span("span.select.bookkeeping"):
                     if b < b_dev:
                         keep = top_idx < b

@@ -16,7 +16,8 @@ count work where it happens (batches, bytes written, host reads, kernel
 launches, non-local blocks run). Each non-local block of SLOWFAST_NLN_8x8_R50
 is a span ``span.extract.nonlocal`` (its enqueue, on the thread that runs
 the model) and counts in ``nonlocal.blocks`` on any path; the non-local
-core's kernel counts its launches in ``nln_bf16.launches``.
+core's kernel counts its launches in ``nln_bf16.launches``, stage 6's fused
+greedy step its in ``batch_mi.launches``.
 
 Tracing is on while a ``torch.profiler`` profile records in this process
 and inside ``with enabled():``. When it turns on, the spans and counters

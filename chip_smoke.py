@@ -10,7 +10,9 @@ Phases, each printing its own lines:
    shapes (TF32 off), and time kernel, plain version and library yardstick
    with CUDA events around back-to-back calls; K2 in both forms, float32
    and bfloat16; the non-local core's kernel at ``res3``'s and ``res4``'s
-   shapes (batch 32), beside two cuBLAS ``bmm`` calls;
+   shapes (batch 32), beside two cuBLAS ``bmm`` calls; stage 6's fused
+   greedy step at ``select.fp32.batch_mi``'s shapes (V 32000, P 45, C 32,
+   B 20, k 4) against its plain twin, and its time beside the eager chain's;
 3. main path A through the port's CLI: ``fixtures`` (2 shards x 8 clips,
    32 frames of 256x256) -> ``extract`` (SlowFast 8x8 R50 + VGGish at full
    width, float32, seeded random weights) -> ``cluster`` -> ``select``;
@@ -44,8 +46,12 @@ Phases, each printing its own lines:
    against the same code on the CPU, and full MI against the incremental
    score; D4 ``compare_measures`` and ``compare_dtypes``; D5 contrastive
    selection on path B's feature pkls, its scores on the card against the
-   CPU's (TF32 off), and ``merge_contrastive_csvs``. Stage 6 has no
-   hand-written kernel: path D launches none;
+   CPU's (TF32 off), and ``merge_contrastive_csvs``; D6 a whole
+   ``run_greedy`` at ``select.fp32.batch_mi``'s shapes through the fused
+   step and through the eager chain on the same seed, each replayed in
+   float64 along its own picks (``benchmark/reference/batch_mi.py``), with
+   ``batch_mi.launches``. Every float32 ``batch_mi`` on the card (paths A,
+   B, C, D, F) is the fused step;
 7. path E, data parallelism (``acav100m_torch.runtime``) on path B's and
    D's inputs: E1 path B's cluster training through a one-rank NCCL group,
    bit-equal to path B's, with one all-reduce of the deltas and one
@@ -174,8 +180,8 @@ from acav100m_torch.ops.nonlocal_kernel import nonlocal_core, nonlocal_core_ref
 from acav100m_torch.pipeline import contrastive_selection as cs
 from acav100m_torch.pipeline import feature_extraction as fe
 from acav100m_torch.pipeline import subset_selection as ss
-from acav100m_torch.profiling import (card, device_busy, profile_calls, run as profile_run,
-                                      time_cold_ms, time_ms)
+from acav100m_torch.profiling import (card, device_busy, graphed, profile_calls,
+                                      run as profile_run, time_cold_ms, time_ms)
 from acav100m_torch.utils.io import dump_pickle, load_pickle, make_feature_row
 
 ROOT = Path(__file__).resolve().parent
@@ -194,6 +200,8 @@ KERNELS = [  # (source, tracing counter of its launches, the TPU kernel it ports
      "acav100m_tpu/ops/pallas/bottleneck_kernel.py:116"),
     ("nonlocal_core_bf16", "nln_bf16.launches",
      "none: the JAX package has no non-local block"),
+    ("batch_mi_step", "batch_mi.launches",
+     "none: the JAX package's jitted greedy step (acav100m_tpu/ops/mi.py), no Pallas kernel"),
 ]
 # the non-local blocks' cores at a batch of 32 clips of 32 frames at 256^2:
 # (label, blocks a batch, N, Ci, Nq, Nk)
@@ -517,6 +525,112 @@ def check_nln(gen: torch.Generator) -> dict:
     log(f"non-local cores of a batch of 32 clips (2 at res3, 3 at res4): {result['ms']:.4f} ms, "
         f"bound {result['bound_ms']:.4f} ms, cuBLAS {result['library_ms']:.4f} ms")
     return result
+
+
+# select.fp32.batch_mi's shapes: a pool of 32000 clips, 10 clusterings at K=32
+# (45 pairs), batches of 20 of which 4 win, a subset of 6400
+SELECT_V, SELECT_D, SELECT_C, SELECT_B, SELECT_K, SELECT_SUBSET = 32000, 10, 32, 20, 4, 6400
+
+
+def cell_assignments(seed: int) -> np.ndarray:
+    """(V, 10) cluster ids as the cell's traffic draws them: 32 latent
+    classes through a fixed random map a clustering, half the clips with
+    another class for the video clusterings, each id redrawn with
+    probability 0.25."""
+    rng = np.random.RandomState(seed)
+    v, d, c = SELECT_V, SELECT_D, SELECT_C
+    maps = np.stack([rng.permutation(c) for _ in range(d)])
+    cls_a = rng.randint(0, c, v)
+    cls_v = np.where(rng.rand(v) < 0.5, cls_a, rng.randint(0, c, v))
+    cls = np.where(np.arange(d)[None, :] < 5, cls_a[:, None], cls_v[:, None])
+    return np.where(rng.rand(v, d) < 0.25, rng.randint(0, c, (v, d)),
+                    maps[np.arange(d)[None, :], cls])
+
+
+def check_batch_mi() -> dict:
+    """Stage 6's fused greedy step (``mi.batch_mi_step``) at the cell's
+    shapes, on a cache that holds 2000 clips, against its plain twin: the
+    picks' scores within 1e-6 of the largest, the same picks, the folded
+    cache bit-equal, the statistics within 1e-6; two launches the same
+    bytes. Timed (CUDA events, median of 20): the kernel as graph replays
+    (its device time) and as the selector launches it, the twin's chain as
+    the selector's eager path runs it, and the twin's kernels' device time
+    (``torch.profiler``)."""
+    from itertools import combinations
+
+    a = cell_assignments(0)
+    combos = list(combinations(range(SELECT_D), 2))
+    pairs_all = torch.as_tensor(mi.pair_assignments(a, combos), device="cuda")
+    rng = np.random.RandomState(1)
+    cache = mi.init_cache(len(combos), SELECT_C, torch.float32, "cuda")
+    folded = torch.as_tensor(rng.choice(SELECT_V, 2000, replace=False), device="cuda")
+    cache = mi.add_candidates_to_cache(cache, pairs_all[folded], SELECT_C)
+    stats = mi.mem_stats(cache)
+    ids = rng.choice(SELECT_V, SELECT_B, replace=False).astype(np.int64)
+    ids_t = torch.as_tensor(ids, device="cuda")
+    k = SELECT_K
+
+    def twin():
+        return mi.batch_mi_step_ref(cache, stats, pairs_all, ids_t, SELECT_B, k, SELECT_C)
+
+    runs = []
+    for _ in range(2):
+        c2 = {key: t.clone() for key, t in cache.items()}
+        s2 = {key: t.clone() for key, t in stats.items()}
+        host = torch.empty(2 * k, dtype=torch.int32, pin_memory=True)
+        mi.batch_mi_step(c2, s2, pairs_all, ids, SELECT_B, k, out_host=host)
+        torch.cuda.synchronize()
+        runs.append((host.numpy().copy(), c2, s2))
+    want_idx, _, want_cache, want_stats = twin()
+    scores = mi.score_candidates_mem(cache, stats, pairs_all[ids_t], SELECT_C).cpu().numpy()
+    out, got_cache, got_stats = runs[0]
+    idx, got_scores = out[:k], out[k:].view(np.float32)
+    err = float(np.abs(got_scores - scores[idx]).max()) / float(np.abs(scores).max())
+    same_bytes = (np.array_equal(runs[0][0], runs[1][0])
+                  and all(torch.equal(runs[0][i][key], runs[1][i][key])
+                          for i in (1, 2) for key in runs[0][i]))
+    stats_err = max(float(((got_stats[key] - want_stats[key]).abs()
+                           / want_stats[key].abs()).max()) for key in want_stats)
+    check(err <= 1e-6, f"batch_mi_step scores against the twin's ({err:.2e})")
+    check(idx.tolist() == want_idx.tolist(), "batch_mi_step picks the twin's")
+    check(all(torch.equal(got_cache[key], want_cache[key]) for key in want_cache),
+          "batch_mi_step folds the twin's cache bit for bit")
+    check(stats_err <= 1e-6, f"batch_mi_step statistics ({stats_err:.2e})")
+    check(same_bytes, "batch_mi_step: two launches give the same bytes")
+
+    # the selector's launch: the tensors checked and the kernel launched a step
+    c2 = {key: t.clone() for key, t in cache.items()}
+    s2 = {key: t.clone() for key, t in stats.items()}
+    out_dev = torch.empty(2 * k, dtype=torch.int32, device="cuda")
+    host = torch.empty(2 * k, dtype=torch.int32, pin_memory=True)
+
+    def step():
+        return mi.batch_mi_step(c2, s2, pairs_all, ids, SELECT_B, k, out=out_dev, out_host=host)
+
+    graph_ms = time_ms(graphed(step))
+    launched_ms = time_ms(step)
+    _, _, rows = profile_calls(step, iters=20)
+    kernel_us = sum(us for us, _, name in rows if "batch_mi_step" in name)
+    eager_ms = time_ms(twin)
+    _, _, rows = profile_calls(twin, iters=20)
+    twin_kernels = [(us, n) for us, n, name in rows if not name.startswith("Memcpy")]
+    twin_us = sum(us for us, _ in twin_kernels)
+    p, cc = len(combos), SELECT_C
+    # N, a and b read once and the winners' k*P cells of each written; n and
+    # the statistics read and written; the batch's pairs; the output
+    nbytes = 4 * (p * cc * cc + 2 * p * cc + 3 * k * p + 2 * 4 * p + SELECT_B * p * 2 + 2 * k)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"batch_mi_step at V={SELECT_V} P={p} C={cc} B={SELECT_B} k={k} (cache of 2000 clips): "
+        f"{graph_ms:.4f} ms a step as graph replays, {kernel_us / 1e3:.4f} ms of kernel "
+        f"(torch.profiler), {launched_ms:.4f} ms a step as the selector launches it; the "
+        f"eager chain (the twin) {eager_ms:.4f} ms a step, its {sum(n for _, n in twin_kernels)} "
+        f"kernels {twin_us / 1e3:.4f} ms of device time; bound {bound_ms:.5f} ms "
+        f"(bytes, {nbytes / 1e6:.3f} MB; latency bounds it); scores within {err:.1e} "
+        f"of the largest, statistics within {stats_err:.1e}, picks {idx.tolist()}, cache "
+        f"bit-equal, two launches the same bytes")
+    return {"ms": graph_ms, "plain_ms": twin_us / 1e3, "eager_ms": eager_ms,
+            "launched_ms": launched_ms, "bound_ms": bound_ms, "bound_by": "latency",
+            "library_ms": None, "max_abs_err": err}
 
 
 def main_path_a_nln() -> dict:
@@ -1239,6 +1353,59 @@ def path_d5_contrastive(root: Path) -> None:
           f"merged contrastive csv: {want} rows of finite scores")
 
 
+def path_d6_greedy() -> None:
+    """A whole ``run_greedy`` at ``select.fp32.batch_mi``'s shapes through the
+    fused step, then through the eager chain (a selector whose
+    ``takes_kernel`` refuses every case) on the same seed: wall time,
+    launches and host reads, and each replayed in float64 along its own
+    picks."""
+    from itertools import combinations
+
+    from benchmark.reference import batch_mi
+
+    seed = 7
+    a = cell_assignments(seed)
+    combos = list(combinations(range(SELECT_D), 2))
+
+    class EagerSelector(mi.BatchGreedySelector):
+        takes_kernel = staticmethod(lambda *_: False)
+
+    lines, picks = [], {}
+    for fused, selector in ((True, mi.BatchGreedySelector), (False, EagerSelector)):
+        rng = np.random.RandomState(seed)
+        order = np.arange(SELECT_V)
+        rng.shuffle(order)
+        sel = selector(a, combos, SELECT_C, batch_size=SELECT_B, selection_size=SELECT_K,
+                       rng=rng, device="cuda")
+        check(sel.fused is fused, f"D6: the {selector.__name__} takes the fused step: {fused}")
+        with tracing.enabled():  # counts from before, where tracing was already on
+            before = tracing.counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, gains, lapse, _ = sel.run_greedy(SELECT_SUBSET, [int(order[0])])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = {key: n - before.get(key, 0) for key, n in tracing.counters().items()}
+        res = batch_mi.replay(a, combos, SELECT_C, SELECT_SUBSET, SELECT_B, SELECT_K, seed,
+                              got, gains)
+        name = "fused step" if fused else "eager chain"
+        picks[name] = got
+        iters = c["select.iterations"]
+        lines.append(f"{name} {wall:.3f} s ({1e3 * np.median(lapse):.4f} ms an iteration, "
+                     f"median), {iters} iterations, batch_mi.launches "
+                     f"{c.get('batch_mi.launches', 0)}, host reads {c['select.host_reads']}, "
+                     f"pick_gap {res['pick_gap']:.2e}, gain_err {res['gain_err']:.2e}")
+        check(res["foreign"] == 0 and res["pick_gap"] <= 1e-4 and res["gain_err"] <= 1e-2,
+              f"D6 {name}: replayed in float64")
+        check(c.get("batch_mi.launches", 0) == (iters if fused else 0),
+              f"D6 {name}: one launch an iteration on the fused step, none on the chain")
+    same = next((i for i, (u, v) in enumerate(zip(*picks.values())) if u != v),
+                SELECT_SUBSET)
+    log(f"path D6, run_greedy at V={SELECT_V} P={len(combos)} C={SELECT_C} B={SELECT_B} "
+        f"k={SELECT_K}, subset {SELECT_SUBSET}: " + "; ".join(lines)
+        + f"; the first {same} picks equal")
+
+
 def main_path_d() -> None:
     """Path D on path B's assignments and features."""
     root = WORK / "d"
@@ -1249,7 +1416,8 @@ def main_path_d() -> None:
     path_d3_scorers(a, combos, ncentroids, start)
     path_d4_compare(a, combos, ncentroids)
     path_d5_contrastive(root)
-    log(f"path D launches {counts()} (stage 6 has no hand-written kernel); {card()}")
+    path_d6_greedy()
+    log(f"path D launches {counts()} (stage 6's float32 batch_mi is the fused step); {card()}")
 
 
 # -- phase 7: path E, data parallelism across processes ------------------------------
@@ -2726,7 +2894,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
     results = {"kmeans_assign_update": check_k1(gen), "bottleneck_stage": check_k2(gen),
-               "bottleneck_stage_bf16": check_k2_bf16(gen), "nonlocal_core_bf16": check_nln(gen)}
+               "bottleneck_stage_bf16": check_k2_bf16(gen), "nonlocal_core_bf16": check_nln(gen),
+               "batch_mi_step": check_batch_mi()}
     # phase 3: the default precision again (cuDNN convs in TF32)
     torch.backends.cudnn.allow_tf32 = True
     t0 = time.time()

@@ -6,14 +6,19 @@ carry the ``cuda`` marker and skip elsewhere. On a machine with the card:
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
 from acav100m_torch import tracing
+from acav100m_torch.ops import mi
 from acav100m_torch.ops.bottleneck_kernel import (fused_stage, fused_stage_bf16, fused_stage_ref,
                                                   pack_block_f32)
 from acav100m_torch.ops.kmeans_kernel import fused_assign_update, fused_assign_update_ref
 from acav100m_torch.ops.nonlocal_kernel import nonlocal_core, nonlocal_core_ref
+from acav100m_torch.ops.pairing import get_cluster_pairing
+
+from . import batch_mi_states as bm
 
 pytestmark = pytest.mark.cuda
 
@@ -334,6 +339,132 @@ def test_nonlocal_core_refuses_what_it_cannot_take(card):
     # float32 runs the twin's float32 products on the card
     f32 = [torch.randn((2, 64, 40), device=card) for _ in range(3)]
     assert torch.equal(nonlocal_core(*f32), nonlocal_core_ref(*f32))
+
+
+def _batch_mi_launch(state):
+    """One launch on a copy of ``state``: (indices, scores, cache, stats)."""
+    cache, stats, pairs_all, ids, valid, k, weights = state
+    cache = {key: t.clone() for key, t in cache.items()}
+    stats = {key: t.clone() for key, t in stats.items()}
+    out_host = torch.empty(2 * k, dtype=torch.int32, pin_memory=True)
+    mi.batch_mi_step(cache, stats, pairs_all, ids, valid, k, weights, out_host=out_host)
+    torch.cuda.synchronize()
+    out = out_host.numpy()
+    return out[:k].tolist(), out[k:].view(np.float32), cache, stats
+
+
+@pytest.mark.parametrize("state", bm.STATES)
+def test_batch_mi_step_matches_its_twin(card, state):
+    st = bm.state(state, card)
+    cache, stats, pairs_all, ids, valid, k, weights = st
+    with tracing.enabled():
+        idx, scores, got_cache, got_stats = _batch_mi_launch(st)
+    assert tracing.counters()["batch_mi.launches"] == 1
+    ids_t = torch.as_tensor(ids, device=card)
+    want_idx, _, want_cache, want_stats = mi.batch_mi_step_ref(cache, stats, pairs_all, ids_t,
+                                                               valid, k, bm.C, weights)
+    all_scores = mi.score_candidates_mem(cache, stats, pairs_all[ids_t], bm.C, weights)
+    all_scores = torch.where(torch.arange(len(ids), device=card) < valid, all_scores,
+                             torch.full_like(all_scores, -float("inf"))).cpu()
+    # the kernel's scores of its picks against the twin's scores of the same
+    # candidates: the mean over pairs is summed in another order
+    finite = torch.isfinite(all_scores)
+    scale = float(all_scores[finite].abs().max())
+    twin = all_scores[idx].numpy()
+    real = np.isfinite(twin)
+    assert np.array_equal(np.isfinite(scores), real)
+    assert np.abs(scores[real] - twin[real]).max() <= 1e-6 * scale
+    # the same picks wherever no two of the twin's first k+1 lie within 1e-5
+    # (exact ties, such as the pads' -inf, go to the lowest index in both)
+    top = torch.sort(all_scores, descending=True, stable=True)[0][:k + 1]
+    gaps = (top[:-1] - top[1:]).abs()
+    assert not bool(((gaps > 0) & (gaps <= 1e-5)).any())
+    assert idx == want_idx.tolist()
+    for key in ("N", "a", "b", "n"):  # exact integer counts: bit for bit
+        assert torch.equal(got_cache[key], want_cache[key]), key
+    for key in ("NlogN", "aloga", "blogb"):
+        torch.testing.assert_close(got_stats[key], want_stats[key], rtol=1e-6, atol=0)
+
+
+def test_batch_mi_step_two_launches_give_the_same_bytes(card):
+    st = bm.state("after_200", card)
+    first, second = _batch_mi_launch(st), _batch_mi_launch(st)
+    assert first[0] == second[0] and first[1].tobytes() == second[1].tobytes()
+    for a, b in zip(first[2:], second[2:]):
+        assert all(torch.equal(a[key], b[key]) for key in a)
+
+
+def test_batch_mi_run_greedy_at_the_cell_shape(card):
+    """A whole ``run_greedy`` at ``select.fp32.batch_mi``'s shapes (V 32000,
+    45 pairs, K=32, B 20, k 4, a subset of 6400), replayed in float64 along
+    its own picks."""
+    from benchmark.reference import batch_mi
+
+    v, subset, seed = 32000, 6400, 5
+    a = bm.assignments(seed, v=v)
+    rng = np.random.RandomState(seed)
+    order = np.arange(v)
+    rng.shuffle(order)
+    sel = mi.BatchGreedySelector(a, bm.COMBOS, bm.C, batch_size=bm.B, selection_size=bm.K,
+                                 rng=rng, device=card)
+    assert sel.fused
+    with tracing.enabled():
+        picks, gains, _, _ = sel.run_greedy(subset, [int(order[0])])
+    counts = tracing.counters()
+    assert counts["batch_mi.launches"] == counts["select.iterations"] == subset // bm.K
+    assert counts["select.host_reads"] == counts["select.iterations"]
+    res = batch_mi.replay(a, bm.COMBOS, bm.C, subset, bm.B, bm.K, seed, picks, gains)
+    assert len(picks) == subset and res["foreign"] == 0
+    assert res["pick_gap"] <= 1e-4 and res["gain_err"] <= 1e-2
+
+
+@pytest.mark.parametrize("keep_unselected", [True, False])
+def test_batch_greedy_matches_jax_on_card(card, keep_unselected):
+    """``test_torch_mi.py::test_batch_greedy_matches_jax`` in float32 on the
+    card, through the fused step: the JAX package's run on the same pool,
+    seed and start (recorded on the CPU in ``tests/data/batch_greedy_jax.npz``,
+    since the card's machine has no JAX) gives the same picks, gains within
+    1e-5 and the same final counts. Duplicated rows tie exactly in any order
+    of summation, so those ties still go to the lowest index."""
+    p = bm.PARITY
+    record = np.load(bm.JAX_RECORD)
+    want = {name: record[bm.record_key(keep_unselected, name)]
+            for name in ("picks", "gains", "N", "a", "b", "n")}
+    combos = get_cluster_pairing([(str(i), "x") for i in range(p["d"])], "combination")
+    sel = mi.BatchGreedySelector(bm.parity_assignments(), combos, ncentroids=p["c"],
+                                 batch_size=p["batch_size"], selection_size=p["selection_size"],
+                                 keep_unselected=keep_unselected,
+                                 rng=np.random.RandomState(p["rng_seed"]), device=card)
+    assert sel.fused
+    with tracing.enabled():
+        picks, gains, _, _ = sel.run_greedy(p["subset"], p["start"])
+    counts = tracing.counters()
+    assert counts["batch_mi.launches"] == counts["select.iterations"] > 0
+    assert picks == want["picks"].tolist()
+    k = sel.k
+    ties = [i for i in range(len(gains) - 1) if i % k != k - 1 and gains[i] == gains[i + 1]]
+    assert ties  # some rounds select exactly tied candidates
+    np.testing.assert_allclose(gains, want["gains"], rtol=1e-5, atol=1e-5)
+    for key in ("N", "a", "b", "n"):  # exact integer counts
+        np.testing.assert_array_equal(sel.cache[key].cpu().numpy(), want[key])
+
+
+def test_batch_mi_step_refuses_what_it_cannot_take(card):
+    cache, stats, pairs_all, ids, valid, k, _ = bm.state("after_200", card)
+    many = np.resize(ids, mi.BATCH_MI_MAX_B + 1)
+    for args in ((many, valid, k), (ids, valid, len(ids) + 1), (ids, 0, k)):
+        with tracing.enabled(), pytest.raises(ValueError):
+            mi.batch_mi_step(cache, stats, pairs_all, *args)
+        assert not tracing.counters().get("batch_mi.launches")
+    with pytest.raises(ValueError):  # float64 takes the eager chain, never the kernel
+        mi.batch_mi_step({key: t.double() for key, t in cache.items()}, stats, pairs_all, ids,
+                         valid, k)
+    with pytest.raises(ValueError):
+        mi.BatchGreedySelector(np.zeros((600, bm.D), np.int64), bm.COMBOS, bm.C,
+                               batch_size=mi.BATCH_MI_MAX_B + 1, device=card)
+    assert not mi.BatchGreedySelector(np.zeros((600, bm.D), np.int64), bm.COMBOS, bm.C,
+                                      batch_size=mi.BATCH_MI_MAX_B + 1, device=card,
+                                      dtype="float64").fused
 
 
 @pytest.mark.parametrize("d", [16, 6, 1024])
