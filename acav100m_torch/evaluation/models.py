@@ -155,13 +155,21 @@ def set_group(module: nn.Module, group: Optional[Group]) -> None:
 
 class _CastConv:
     """A conv that casts its input and weight to ``compute_dtype`` (None:
-    the weight's), flax's ``dtype``."""
+    the weight's), flax's ``dtype``.
+
+    On the CPU a bf16 conv runs in float32 on the rounded input and weight
+    and rounds its output: oneDNN's bf16 backward-by-weights returns NaN on
+    AVX-512 hosts without AMX (oneDNN 3.12, every input of the visual stem's
+    shape), so a train step there left NaN weights."""
 
     compute_dtype = None
 
     def forward(self, x):
         dtype = self.compute_dtype or self.weight.dtype
-        return self._conv_forward(x.to(dtype), self.weight.to(dtype), None)
+        x, weight = x.to(dtype), self.weight.to(dtype)
+        if dtype == torch.bfloat16 and x.device.type == "cpu":
+            return self._conv_forward(x.float(), weight.float(), None).to(dtype)
+        return self._conv_forward(x, weight, None)
 
 
 class _Conv3d(_CastConv, nn.Conv3d):

@@ -22,6 +22,10 @@ Tolerances, with their reasons:
   loss, every parameter moved."""
 
 import functools
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +38,8 @@ from acav100m_tpu.evaluation import train as jt
 from acav100m_torch.evaluation import models as tm
 from acav100m_torch.evaluation import train as tt
 from tests.torch_parity import random_variables
+
+REPO = Path(__file__).resolve().parent.parent
 
 torch.set_num_threads(1)
 
@@ -210,3 +216,27 @@ def test_full_width_bf16_step_keeps_float32_state():
         assert v.dtype == torch.float32 and bool(torch.isfinite(v).all()), k
     moved = [not torch.equal(p, before[k]) for k, p in state.model.named_parameters()]
     assert all(moved)  # lr > 0: every parameter moved
+
+
+STEM_GRAD = """
+import torch
+from acav100m_torch.evaluation import models as tm
+torch.set_num_threads(1)
+gen = torch.Generator().manual_seed(0)
+conv = tm._conv3d(3, 64, (5, 7, 7), stride=2, padding=(2, 3, 3), dtype=torch.bfloat16)
+y = conv(torch.randn(4, 3, 4, 32, 32, generator=gen))
+(y.float() * torch.randn(y.shape, generator=gen)).sum().backward()
+assert y.dtype == torch.bfloat16 and conv.weight.grad.dtype == torch.float32
+assert bool(torch.isfinite(conv.weight.grad).all()), "NaN in the stem's weight gradient"
+"""
+
+
+def test_bf16_conv_weight_grad_is_finite_without_amx():
+    """The visual stem's bf16 conv on the CPU with oneDNN held to AVX-512
+    without AMX, where oneDNN's own bf16 backward-by-weights returns NaN:
+    the conv's weight gradient stays finite (on a host without AVX-512 the
+    cap changes nothing)."""
+    env = dict(os.environ, ONEDNN_MAX_CPU_ISA="AVX512_CORE")
+    proc = subprocess.run([sys.executable, "-c", STEM_GRAD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]

@@ -8,7 +8,6 @@ the test instead of stalling the run."""
 import functools
 import io
 import json
-import signal
 import tarfile
 import warnings
 
@@ -25,21 +24,7 @@ from acav100m_torch.data.meta import load_metadata
 
 from .torch_workers import crash_once_decoder, die_holding_queue_lock
 
-LIMIT_S = 120
-
-
-@pytest.fixture(autouse=True)
-def time_limit():
-    def expire(signum, frame):
-        raise TimeoutError(f"pooled loader test ran past {LIMIT_S} s")
-
-    old = signal.signal(signal.SIGALRM, expire)
-    signal.alarm(LIMIT_S)
-    try:
-        yield
-    finally:
-        signal.alarm(0)
-        signal.signal(signal.SIGALRM, old)
+LIMIT_S = 120  # seconds a test, read by tests/time_limit.py
 
 
 def write_mp4_shards(root, num_shards=2, clips_per_shard=3, size=32):

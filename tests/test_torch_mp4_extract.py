@@ -8,7 +8,6 @@ instead of stalling the run."""
 
 import io
 import json
-import signal
 import tarfile
 from collections import OrderedDict
 
@@ -31,21 +30,7 @@ from .torch_parity import random_variables
 torch.set_num_threads(1)
 
 SPEC = "shard-{000000..000001}"
-LIMIT_S = 300
-
-
-@pytest.fixture(autouse=True)
-def time_limit():
-    def expire(signum, frame):
-        raise TimeoutError(f"mp4 extract test ran past {LIMIT_S} s")
-
-    old = signal.signal(signal.SIGALRM, expire)
-    signal.alarm(LIMIT_S)
-    try:
-        yield
-    finally:
-        signal.alarm(0)
-        signal.signal(signal.SIGALRM, old)
+LIMIT_S = 300  # seconds a test, read by tests/time_limit.py
 
 
 @pytest.fixture(scope="module")
