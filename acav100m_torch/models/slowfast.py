@@ -17,7 +17,21 @@ Port of the canonical graph of ``acav100m_tpu/models/slowfast.py``
 ``LayerSlowFast`` takes uint8 frames (B,T,H,W,C), like the JAX package,
 and returns the five taps: global means over (T,H,W) of s1_fuse, s2_fuse,
 s3_fuse, s4_fuse and s5, pathways concatenated — dims
-[88, 352, 704, 1408, 2304]. Inside, tensors are NCDHW.
+[88, 352, 704, 1408, 2304]. Inside, tensors are NCDHW views of NDHWC memory
+(``channels_last_3d``): the fast pathway is a view of the frames, and every
+convolution runs on that memory with no transposes (``_conv``).
+
+In eval mode each conv -> BN (-> ReLU) (-> + shortcut -> ReLU) unit runs as
+one convolution with BN folded into its weights (``fold_conv``, in float32,
+then cast once to the compute dtype) and one pass of
+``ops.conv_epilogue`` over its output, in place: the bias, the residual and
+the ReLU. That covers the stems, the fuse convs and every canonical
+``ResBlock`` (a projection's bias summed into ``c``'s, its raw output
+``c``'s residual): 93 passes a forward when K2 runs ``s2``. The folded
+weights are made once per dtype and dropped when the weights are loaded,
+moved or cast, or the module changes mode (``FoldCache``). Training mode
+runs the eager graph (BN, ReLU and adds as their own ops), and
+``QuantResBlock`` keeps its own forward.
 
 With ``pallas_stages`` (the JAX package's key) the kt=1, stride-1 slow
 stage — ``s2`` on the slow pathway only, where ``slowfast.py:951-952``
@@ -28,11 +42,13 @@ plain version runs instead. Every other stage is the canonical graph.
 ``dtype`` (float32 or bfloat16) is the compute dtype, as the JAX package's
 ``LayerSlowFast(dtype=...)``: the frames are normalized in float32, then
 every conv, BN and ReLU runs in it and the taps come out in it. Parameters
-stay float32 (flax's ``param_dtype``); each conv casts its weight at the
-call (``models.in_dtype``) and BN computes in float32 on the input and
-rounds to the input's dtype, as flax's ``nn.BatchNorm(dtype=...)`` does. K2
-folds BN in float32 and takes its weight matrices in the compute dtype and
-its biases in float32, as the JAX ``PallasStage`` does.
+stay float32 (flax's ``param_dtype``). In training mode each conv casts its
+weight at the call (``models.in_dtype``) and BN computes in float32 on the
+input and rounds to the input's dtype, as flax's ``nn.BatchNorm(dtype=...)``
+does. In eval mode BN is folded in float32, the folded weights are cast to
+the compute dtype and the epilogue adds the float32 bias (and residual) in
+float32 and rounds once; K2 likewise takes its weight matrices in the
+compute dtype and its biases in float32, as the JAX ``PallasStage`` does.
 
 ``fast_block`` is the JAX package's per-stage blocked-T schedule of the
 fast pathway: the same function in another layout (JAX
@@ -63,12 +79,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from . import compute_dtype, in_dtype, register_model
 from . import quant as q
 from .. import tracing
 from ..ops.bottleneck_kernel import fold_bn, fused_stage, pack_block
+from ..ops.conv_epilogue import conv_epilogue
 from ..ops.nonlocal_kernel import nonlocal_core
 
 LAYER_DIMS = [88, 352, 704, 1408, 2304]
@@ -95,7 +113,129 @@ def _bn(c: int) -> nn.BatchNorm3d:
     return nn.BatchNorm3d(c, eps=BN_EPS)
 
 
-class ResNetBasicStem(nn.Module):
+def fold_conv(conv: nn.Conv3d, bn: nn.BatchNorm3d) -> Tuple[torch.Tensor, torch.Tensor]:
+    """conv -> inference BN as one conv: (weight * mul, add), computed in
+    float32 whatever the parameters' dtype, the weight in conv's
+    (O, I, kt, kh, kw) shape."""
+    mul, add = fold_bn(*(t.float() for t in (bn.weight, bn.bias, bn.running_mean,
+                                             bn.running_var)), bn.eps)
+    return conv.weight.float() * mul.view(-1, 1, 1, 1, 1), add
+
+
+def _plane(conv: nn.Conv3d) -> Optional[str]:
+    """The 2-d convolution over a view of NDHWC memory that computes
+    ``conv``: ``time`` for a kernel that leaves space alone ((kt, 1, 1), no
+    spatial stride or padding), over (T, H*W); ``space`` for one that leaves
+    time alone (kt 1, no temporal stride or padding), over the N*T frames;
+    None for one with both extents (the fast stem's (5, 7, 7)). cuDNN has
+    NHWC kernels for those 2-d forms where its 3-d ones take a generic
+    (``indexed``) kernel, or in bf16 a float32 FMA fallback."""
+    if conv.dilation != (1, 1, 1) or conv.groups != 1:
+        return None
+    (kt, kh, kw), (st, sh, sw), (pt, ph, pw) = conv.kernel_size, conv.stride, conv.padding
+    if (kh, kw, sh, sw, ph, pw) == (1, 1, 1, 1, 0, 0):
+        return "time"
+    if (kt, st, pt) == (1, 1, 0):
+        return "space"
+    return None
+
+
+def _fold_cl(conv: nn.Conv3d, bn: nn.BatchNorm3d, dtype: torch.dtype):
+    """``fold_conv`` with the weight cast once to ``dtype`` and laid out
+    channels-last, as cuDNN's NHWC kernels take it: 4-d for the 2-d
+    convolution ``_plane`` names, else 5-d."""
+    w, add = fold_conv(conv, bn)
+    w = w.to(dtype).contiguous(memory_format=torch.channels_last_3d)
+    o, i, kt, kh, kw = w.shape
+    plane = _plane(conv)
+    if plane:
+        rows, cols = (kt, 1) if plane == "time" else (kh, kw)
+        w = w.permute(0, 2, 3, 4, 1).reshape(o, rows, cols, i).permute(0, 3, 1, 2)
+    return w, add
+
+
+def _conv(conv: nn.Conv3d, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """conv's geometry on its folded weight ``w`` (``_fold_cl``), no bias,
+    on channels-last x; the output channels-last. A 4-d ``w`` runs as the
+    2-d convolution ``_plane`` names, on a view of x's memory, its output
+    viewed back as 5-d."""
+    x = x.contiguous(memory_format=torch.channels_last_3d)  # a no-op between folded units
+    n, c, t, h, wd = x.shape
+    if w.dim() == 4:
+        (st, sh, sw), (pt, ph, pw) = conv.stride, conv.padding
+        if _plane(conv) == "time":
+            y = F.conv2d(x.as_strided((n, c, t, h * wd), (t * h * wd * c, 1, h * wd * c, c)),
+                         w, None, (st, 1), (pt, 0))
+            t5, h5, w5 = y.shape[2], h, wd
+        else:
+            y = F.conv2d(x.as_strided((n * t, c, h, wd), (h * wd * c, 1, wd * c, c)),
+                         w, None, (sh, sw), (ph, pw))
+            t5, h5, w5 = t, y.shape[2], y.shape[3]
+        y = y.contiguous(memory_format=torch.channels_last)
+        o = y.shape[1]
+        return y.as_strided((n, o, t5, h5, w5), (t5 * h5 * w5 * o, 1, h5 * w5 * o, w5 * o, o))
+    if x.is_cuda and x.dtype == torch.bfloat16 and c < 8:
+        # cuDNN's bf16 kernels for a 3-d kernel on fewer than 8 channels are
+        # generic ones (the fast stem: 37 ms a batch of 32 on an H100, 15 ms
+        # in TF32). TF32 holds bf16 values exactly, so its products and
+        # float32 sums are those of the bf16 convolution, rounded once:
+        # TF32 is on here whatever the caller set.
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            y = conv._conv_forward(x.float(), w.float(), None).to(torch.bfloat16)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+    else:
+        y = conv._conv_forward(x, w, None)
+    return y.contiguous(memory_format=torch.channels_last_3d)
+
+
+class FoldCache(nn.Module):
+    """A module whose derived weights (BN folded, packed, quantized) are made
+    once per key in eval mode and kept until the weights are loaded, moved
+    or cast, or the module changes mode; in training mode they are made at
+    each call. The eval-mode weights are made without autograd."""
+
+    _folded_cache: Optional[dict] = None
+
+    def _cached(self, key, make):
+        if self.training:
+            return make()
+        if self._folded_cache is None:
+            self._folded_cache = {}
+        if key not in self._folded_cache:
+            with torch.inference_mode(False), torch.no_grad():
+                self._folded_cache[key] = make()
+        return self._folded_cache[key]
+
+    def _eval_folds(self, key, make):
+        """``_cached`` for the folded weights that stand in for conv and BN
+        in the eval graph. With autograd on and parameters that require
+        grad it raises rather than leave them without gradients: run an
+        eval-mode forward under ``torch.no_grad()`` or
+        ``torch.inference_mode()``, or train in training mode."""
+        if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+            raise RuntimeError(
+                f"{type(self).__name__} in eval mode folds BN into its weights without "
+                "autograd, so its parameters would get no gradients: run it under "
+                "torch.no_grad() or torch.inference_mode(), or in training mode")
+        return self._cached(key, make)
+
+    def train(self, mode: bool = True):
+        self._folded_cache = None
+        return super().train(mode)
+
+    def _apply(self, fn, *args, **kwargs):
+        self._folded_cache = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._folded_cache = None
+        super()._load_from_state_dict(*args, **kwargs)
+
+
+class ResNetBasicStem(FoldCache):
     """Stem conv (kt,7,7) stride (1,2,2) + BN/ReLU + max pool 1x3x3 stride
     1x2x2 (padding 1; torch pads a max pool with -inf, as flax does)."""
 
@@ -108,7 +248,10 @@ class ResNetBasicStem(nn.Module):
         self.pool_layer = nn.MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1))
 
     def forward(self, x):
-        return self.pool_layer(self.relu(self.bn(in_dtype(self.conv, x))))
+        if self.training:
+            return self.pool_layer(self.relu(self.bn(in_dtype(self.conv, x))))
+        w, b = self._eval_folds(x.dtype, lambda: _fold_cl(self.conv, self.bn, x.dtype))
+        return self.pool_layer(conv_epilogue(_conv(self.conv, w, x), b))
 
 
 class VideoModelStem(nn.Module):
@@ -121,7 +264,7 @@ class VideoModelStem(nn.Module):
         return self.pathway0_stem(slow), self.pathway1_stem(fast)
 
 
-class FuseFastToSlow(nn.Module):
+class FuseFastToSlow(FoldCache):
     def __init__(self, fast_channels: int):
         super().__init__()
         k = FUSION_KERNEL
@@ -132,7 +275,12 @@ class FuseFastToSlow(nn.Module):
         self.relu = nn.ReLU(inplace=True)
 
     def forward(self, slow, fast):
-        f2s = self.relu(self.bn(in_dtype(self.conv_f2s, fast)))
+        if self.training:
+            f2s = self.relu(self.bn(in_dtype(self.conv_f2s, fast)))
+        else:
+            w, b = self._eval_folds(fast.dtype,
+                                    lambda: _fold_cl(self.conv_f2s, self.bn, fast.dtype))
+            f2s = conv_epilogue(_conv(self.conv_f2s, w, fast), b)
         return torch.cat([slow, f2s], dim=1), fast
 
 
@@ -156,7 +304,13 @@ class BottleneckTransform(nn.Module):
         return self.c_bn(in_dtype(self.c, x))
 
 
-class ResBlock(nn.Module):
+class ResBlock(FoldCache):
+    """A bottleneck block with its shortcut. In eval mode: ``a`` and ``b``
+    folded, each with a bias + ReLU epilogue; the projection ``branch1``
+    folded with no epilogue, its bias summed into ``c``'s; ``c`` folded with
+    one epilogue of bias, residual (``branch1``'s raw output or the input)
+    and ReLU."""
+
     def __init__(self, dim_in, dim_out, dim_inner, kt, stride):
         super().__init__()
         self.stride = stride
@@ -167,9 +321,42 @@ class ResBlock(nn.Module):
         self.branch2 = BottleneckTransform(dim_in, dim_out, dim_inner, kt, stride)
 
     def forward(self, x):
+        return self._eager(x) if self.training else self._folded_forward(x)
+
+    def _folded_forward(self, x, observe=None):
+        """The eval-mode block; ``observe(site, t)``, where given, sees each
+        conv input (``QUANT_SITES``: x, then ``a``'s and ``b``'s outputs)."""
+        w, t = self._folds(x.dtype), self.branch2
+        if observe:
+            observe("q_in", x)
+        shortcut = _conv(self.branch1, w["branch1"][0], x) if hasattr(self, "branch1") else x
+        h = conv_epilogue(_conv(t.a, w["a"][0], x), w["a"][1])
+        if observe:
+            observe("q_a", h)
+        h = conv_epilogue(_conv(t.b, w["b"][0], h), w["b"][1])
+        if observe:
+            observe("q_b", h)
+        return conv_epilogue(_conv(t.c, w["c"][0], h), w["c"][1], shortcut)
+
+    def _eager(self, x):
         shortcut = (self.branch1_bn(in_dtype(self.branch1, x)) if hasattr(self, "branch1")
                     else x)
         return torch.relu(shortcut + self.branch2(x))
+
+    def _folds(self, dtype: torch.dtype) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        """{conv: (folded channels-last weight in ``dtype``, float32 bias)}
+        for ``a``, ``b``, ``c`` and ``branch1``, ``c``'s bias with
+        ``branch1``'s added."""
+        def make():
+            t = self.branch2
+            out = {"a": _fold_cl(t.a, t.a_bn, dtype), "b": _fold_cl(t.b, t.b_bn, dtype),
+                   "c": _fold_cl(t.c, t.c_bn, dtype)}
+            if hasattr(self, "branch1"):
+                out["branch1"] = _fold_cl(self.branch1, self.branch1_bn, dtype)
+                out["c"] = (out["c"][0], out["c"][1] + out["branch1"][1])
+            return out
+
+        return self._eval_folds(dtype, make)
 
     def folded(self) -> Dict[str, torch.Tensor]:
         """BN-folded weights in kernel K2's layout (the counterpart of the
@@ -177,12 +364,11 @@ class ResBlock(nn.Module):
         t = self.branch2
 
         def fold(conv, bn):
-            mul, add = fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var,
-                               bn.eps)
-            w = conv.weight[:, :, 0]  # (O, I, kh, kw)
+            w, add = fold_conv(conv, bn)
+            w = w[:, :, 0]  # (O, I, kh, kw)
             if w.shape[-1] == 1:
-                return (w[:, :, 0, 0].t() * mul).contiguous(), add.contiguous()
-            return (w.permute(2, 3, 1, 0) * mul).contiguous(), add.contiguous()
+                return w[:, :, 0, 0].t().contiguous(), add.contiguous()
+            return w.permute(2, 3, 1, 0).contiguous(), add.contiguous()
 
         out = {}
         out["aw"], out["ab"] = fold(t.a, t.a_bn)
@@ -207,7 +393,10 @@ class Nonlocal(nn.Module):
     core runs as ``ops.nonlocal_kernel.nonlocal_core`` (the cheaper order
     ``(g phi^T / Nk) theta``, the same function; the kernel on bf16 CUDA
     tensors), ``softmax`` in the published order. Convs, BN and the residual
-    run in x's dtype as every block does. Each block counts in the tracing
+    run in x's dtype as every block does, in x's layout (channels-last
+    between the folded blocks); theta, phi and g are reshaped to
+    (N, Ci, THW) for the core, and y back to x's layout, a copy each.
+    Each block counts in the tracing
     counter ``nonlocal.blocks`` and its enqueue is the span
     ``span.extract.nonlocal``."""
 
@@ -240,7 +429,12 @@ class Nonlocal(nn.Module):
             else:
                 s = torch.einsum("nct,ncp->ntp", theta, phi) * ci ** -0.5
                 y = torch.einsum("ntg,ncg->nct", torch.softmax(s, dim=2), g)
-            out = x + self.bn(in_dtype(self.conv_out, y.reshape(n, ci, t, h, w)))
+            # y in x's layout, so that conv_out, BN and the residual add run on
+            # like layouts (a mixed-layout add is a strided, unvectorized pass)
+            cl = x.permute(0, 2, 3, 4, 1).is_contiguous()
+            y = y.reshape(n, ci, t, h, w).contiguous(
+                memory_format=torch.channels_last_3d if cl else torch.contiguous_format)
+            out = x + self.bn(in_dtype(self.conv_out, y))
             tracing.count("nonlocal.blocks")
         return out
 
@@ -253,20 +447,20 @@ class QuantResBlock(ResBlock):
     ``slowfast.py:462-553``): the same parameters plus one abs-max observer
     per conv input (``q_in``, ``q_a``, ``q_b``; non-persistent buffers).
 
-    mode ``calib``: ``ResBlock``'s fp math while the observers keep running
-    maxima. mode ``int8``: the input and the two inner activations quantize
+    mode ``calib``: ``ResBlock``'s fp math (in eval mode its folded graph,
+    the one the fp model runs) while the observers keep running maxima.
+    mode ``int8``: the input and the two inner activations quantize
     against the frozen scales, the convs run int8 with int32 sums
     (``quant.qconv``), BN and ReLU stay in the compute dtype. The identity
     shortcut is the dequantized input ``xq * s_in``, a projection shortcut
     ``BN(qconv(xq))``. The int8 weight matrices and scales are made once in
     eval mode and kept until the weights are loaded or moved or the module
-    changes mode."""
+    changes mode (``FoldCache``). Mode ``none`` is ``ResBlock``'s forward."""
 
     def __init__(self, *args):
         super().__init__(*args)
         for site in QUANT_SITES:
             self.register_buffer(site, torch.zeros(()), persistent=False)
-        self._qweights = None
 
     def _convs(self) -> Dict[str, nn.Conv3d]:
         t = self.branch2
@@ -277,28 +471,15 @@ class QuantResBlock(ResBlock):
 
     def quantized_weights(self) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
         """{conv: (int8 (Cout, K) matrix, float32 scale (Cout,))}."""
-        if self._qweights is None or self.training:
+        def make():
             with torch.inference_mode(False), torch.no_grad():
                 made = {}
                 for name, conv in self._convs().items():
                     wq, sw = q.weight_qparams(conv.weight)
                     made[name] = (q.weight_matrix(wq), sw)
-            if self.training:
-                return made
-            self._qweights = made
-        return self._qweights
+            return made
 
-    def train(self, mode: bool = True):
-        self._qweights = None
-        return super().train(mode)
-
-    def _apply(self, fn, *args, **kwargs):
-        self._qweights = None
-        return super()._apply(fn, *args, **kwargs)
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        self._qweights = None
-        super()._load_from_state_dict(*args, **kwargs)
+        return self._cached("int8", make)
 
     def _site(self, site: str, x: torch.Tensor, mode: str):
         """A conv input at observer ``site`` -> (what the convs take, its
@@ -327,6 +508,8 @@ class QuantResBlock(ResBlock):
             return super().forward(x)
         if mode not in ("calib", "int8"):
             raise ValueError(f"quant mode {mode!r} is not one of {q.MODES}")
+        if mode == "calib" and not self.training:
+            return self._folded_forward(x, lambda site, t: self._site(site, t, mode))
         dtype, t = x.dtype, self.branch2
         xs, s_in = self._site("q_in", x, mode)
         if hasattr(self, "branch1"):
@@ -339,7 +522,7 @@ class QuantResBlock(ResBlock):
         return torch.relu(shortcut + h)
 
 
-class ResStage(nn.Module):
+class ResStage(FoldCache):
     """One stage of both pathways: ``pathway{p}_res{i}`` blocks;
     ``QuantResBlock``s where ``quant``, which then take precedence over
     ``fused_slow``. ``nonlocal_idx`` places a ``Nonlocal`` (of
@@ -379,7 +562,6 @@ class ResStage(nn.Module):
                     self.add_module(f"pathway0_nonlocal{i}", Nonlocal(
                         cout, cout // 2, NLN_POOL, instantiation))
         self.num_blocks = STAGE_BLOCKS[si]
-        self._folded_cache = None
 
     def _blocks(self, p: int) -> List[ResBlock]:
         return [getattr(self, f"pathway{p}_res{i}") for i in range(self.num_blocks)]
@@ -391,44 +573,19 @@ class ResStage(nn.Module):
                 for blk in self._blocks(0)]
 
     def _folded(self, dtype: torch.dtype) -> List[Dict[str, torch.Tensor]]:
-        """The slow blocks' BN-folded weights for K2 in ``dtype``. In eval
-        mode they are folded once per dtype and kept until the weights are
-        loaded, moved or cast, or the module changes mode."""
-        if self.training:
-            return self._fold(dtype)
-        if self._folded_cache is None:
-            self._folded_cache = {}
-        if dtype not in self._folded_cache:
-            with torch.inference_mode(False), torch.no_grad():
-                self._folded_cache[dtype] = self._fold(dtype)
-        return self._folded_cache[dtype]
+        """The slow blocks' BN-folded weights for K2 in ``dtype``, folded
+        once per dtype in eval mode (``FoldCache``)."""
+        return self._cached(dtype, lambda: self._fold(dtype))
 
     def _packed(self, dtype: torch.dtype) -> List[Dict[str, torch.Tensor]]:
         """The folded weights in ``dtype`` packed for K2's kernel of that
         dtype (``pack_block``), kept beside them and dropped with them."""
-        if self.training:
-            return [pack_block(blk) for blk in self._fold(dtype)]
         folded = self._folded(dtype)
-        key = ("packed", dtype)
-        if key not in self._folded_cache:
-            with torch.inference_mode(False), torch.no_grad():
-                self._folded_cache[key] = [pack_block(blk) for blk in folded]
-        return self._folded_cache[key]
-
-    def train(self, mode: bool = True):
-        self._folded_cache = None
-        return super().train(mode)
-
-    def _apply(self, fn, *args, **kwargs):
-        self._folded_cache = None
-        return super()._apply(fn, *args, **kwargs)
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        self._folded_cache = None
-        super()._load_from_state_dict(*args, **kwargs)
+        return self._cached(("packed", dtype), lambda: [pack_block(blk) for blk in folded])
 
     def _fused(self, x):
-        """Kernel K2 on folded frames: (B,C,T,H,W) -> NHWC -> back."""
+        """Kernel K2 on folded frames: (B,C,T,H,W) channels-last -> NHWC
+        frames -> back, views on both sides."""
         b, c, t, h, w = x.shape
         frames = x.permute(0, 2, 3, 4, 1).reshape(b * t, h, w, c)
         packed = self._packed(x.dtype) if x.is_cuda else None
@@ -531,9 +688,12 @@ class SlowFastBackbone(nn.Module):
 
     def forward(self, slow, fast, quant_mode: Optional[str] = None) -> List[torch.Tensor]:
         """``quant_mode`` (``quant.MODES``) defaults to ``int8`` for an int8
-        backbone and ``none`` otherwise."""
+        backbone and ``none`` otherwise. The inputs are cast and laid out
+        channels-last in one copy (none where they already are)."""
         mode = quant_mode or ("int8" if self.quant == "int8" else "none")
-        slow, fast = self.s1(slow.to(self.dtype), fast.to(self.dtype))
+        slow, fast = (t.to(self.dtype, memory_format=torch.channels_last_3d)
+                      for t in (slow, fast))
+        slow, fast = self.s1(slow, fast)
         slow, fast = self.s1_fuse(slow, fast)
         taps = [_pool_all(slow, fast)]  # 88
         for si in range(4):
@@ -601,10 +761,9 @@ class LayerSlowFast(SlowFastBackbone):
                 ) -> List[torch.Tensor]:
         """uint8 frames (B,T,H,W,3) -> the 5 taps (B, dim) in ``dtype``."""
         slow, fast = pack_pathways(normalize_frames(frames))
-        to_ncdhw = (0, 4, 1, 2, 3)
+        to_ncdhw = (0, 4, 1, 2, 3)  # views: NDHWC memory is channels_last_3d
         return SlowFastBackbone.forward(
-            self, slow.permute(*to_ncdhw).contiguous(),
-            fast.permute(*to_ncdhw).contiguous(), quant_mode)
+            self, slow.permute(*to_ncdhw), fast.permute(*to_ncdhw), quant_mode)
 
     @torch.no_grad()
     def calibrate(self, frames: torch.Tensor) -> None:

@@ -13,6 +13,8 @@ Phases, each printing its own lines:
    shapes (batch 32), beside two cuBLAS ``bmm`` calls; stage 6's fused
    greedy step at ``select.fp32.batch_mi``'s shapes (V 32000, P 45, C 32,
    B 20, k 4) against its plain twin, and its time beside the eager chain's;
+   the conv epilogue at the 93 shapes of one SlowFast forward (batch 32) in
+   float32 and bf16, bit for bit against its twin;
 3. main path A through the port's CLI: ``fixtures`` (2 shards x 8 clips,
    32 frames of 256x256) -> ``extract`` (SlowFast 8x8 R50 + VGGish at full
    width, float32, seeded random weights) -> ``cluster`` -> ``select``;
@@ -176,6 +178,7 @@ from acav100m_torch.ops.kmeans_kernel import (
     fused_assign_update_ref,
 )
 from acav100m_torch.ops import mi
+from acav100m_torch.ops.conv_epilogue import conv_epilogue, conv_epilogue_ref
 from acav100m_torch.ops.nonlocal_kernel import nonlocal_core, nonlocal_core_ref
 from acav100m_torch.pipeline import contrastive_selection as cs
 from acav100m_torch.pipeline import feature_extraction as fe
@@ -202,6 +205,8 @@ KERNELS = [  # (source, tracing counter of its launches, the TPU kernel it ports
      "none: the JAX package has no non-local block"),
     ("batch_mi_step", "batch_mi.launches",
      "none: the JAX package's jitted greedy step (acav100m_tpu/ops/mi.py), no Pallas kernel"),
+    ("conv_epilogue", "epilogue.launches",
+     "none: XLA fuses conv, BN, ReLU and the residual for the JAX package"),
 ]
 # the non-local blocks' cores at a batch of 32 clips of 32 frames at 256^2:
 # (label, blocks a batch, N, Ci, Nq, Nk)
@@ -525,6 +530,66 @@ def check_nln(gen: torch.Generator) -> dict:
     log(f"non-local cores of a batch of 32 clips (2 at res3, 3 at res4): {result['ms']:.4f} ms, "
         f"bound {result['bound_ms']:.4f} ms, cuBLAS {result['library_ms']:.4f} ms")
     return result
+
+
+def check_epilogue(gen: torch.Generator) -> dict:
+    """The conv epilogue at the main path's shapes: the passes of one
+    SLOWFAST_8x8_R50 forward of a batch of 32 clips (32 frames of 256^2),
+    their shapes recorded from a forward of one clip, in float32 and bf16;
+    each bit-equal to the plain twin on the same inputs, two launches
+    bitwise equal; timed (CUDA events, median of 20, in place) beside the
+    twin. Its bound is bytes: y (and the residual) read once and y written
+    once. Returns the float32 batch's times."""
+    from acav100m_torch.models import slowfast as tsf
+
+    calls = {}
+    plain = tsf.conv_epilogue
+
+    def record(y, bias, residual=None, relu=True):
+        key = (tuple(y.shape[1:]), residual is not None, relu)
+        calls[key] = calls.get(key, 0) + 1
+        return plain(y, bias, residual, relu)
+
+    tsf.conv_epilogue = record
+    try:
+        with torch.inference_mode():
+            LayerSlowFast().cuda()(torch.zeros((1, 32, 256, 256, 3), dtype=torch.uint8,
+                                               device="cuda"))
+    finally:
+        tsf.conv_epilogue = plain
+    check(sum(calls.values()) == 93, f"93 epilogue passes a forward, got {calls}")
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        res = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0}
+        for (shape, has_res, relu), n in calls.items():
+            def cl(scale):
+                t = torch.randn((32,) + shape, generator=gen) * scale
+                return t.cuda().to(dtype).contiguous(memory_format=torch.channels_last_3d)
+
+            y0, bias = cl(2.0), torch.randn(shape[0], generator=gen).cuda()
+            r = cl(1.0) if has_res else None
+            y, again = y0.clone(), y0.clone()
+            conv_epilogue(y, bias, r, relu)
+            conv_epilogue(again, bias, r, relu)
+            torch.cuda.synchronize()
+            ref = conv_epilogue_ref(y0.clone(), bias, r, relu)
+            bits = torch.int32 if dtype == torch.float32 else torch.int16
+            check(torch.equal(y.view(bits), ref.view(bits)) and torch.equal(y, again),
+                  f"epilogue {dtype} {shape} residual {has_res}: bit-equal to the twin")
+            ms = time_ms(lambda: conv_epilogue(y, bias, r, relu))
+            plain_ms = time_ms(lambda: conv_epilogue_ref(y, bias, r, relu))
+            nbytes = y.numel() * y.element_size() * (3 if has_res else 2)
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes", nbytes),
+                           ("bound_ms", bound(nbytes, 0.0, 1.0)[0])):
+                res[key] += n * v
+            del y0, y, again, ref, r
+        res["bound_by"] = "bytes"
+        log(f"conv epilogue, the 93 passes of a batch of 32 clips in {dtype}: {res['ms']:.4f} ms, "
+            f"plain twin {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms (bytes, "
+            f"{res['bytes'] / 1e9:.2f} GB; {100 * res['bound_ms'] / res['ms']:.1f}% of it); "
+            f"bit-equal to the twin, two launches bitwise equal")
+        results[dtype] = res
+    return results[torch.float32]
 
 
 # select.fp32.batch_mi's shapes: a pool of 32000 clips, 10 clusterings at K=32
@@ -2895,7 +2960,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     results = {"kmeans_assign_update": check_k1(gen), "bottleneck_stage": check_k2(gen),
                "bottleneck_stage_bf16": check_k2_bf16(gen), "nonlocal_core_bf16": check_nln(gen),
-               "batch_mi_step": check_batch_mi()}
+               "batch_mi_step": check_batch_mi(), "conv_epilogue": check_epilogue(gen)}
     # phase 3: the default precision again (cuDNN convs in TF32)
     torch.backends.cudnn.allow_tf32 = True
     t0 = time.time()

@@ -120,6 +120,11 @@ def test_layer_slowfast_bf16_as_accurate_as_jax(sf_variables, frames, sf_float32
     if pallas_stages:  # K2's weights: matrices in bf16, biases float32
         folded = model.s2._folded_cache[torch.bfloat16]
         assert folded[0]["aw"].dtype == torch.bfloat16 and folded[0]["ab"].dtype == torch.float32
+    # every other conv folded once, its weight cast to bf16, its bias float32
+    for mod in (model.s1.pathway1_stem, model.s1_fuse, model.s3.pathway0_res0):
+        folds = mod._folded_cache[torch.bfloat16]
+        for w, b in folds.values() if isinstance(folds, dict) else [folds]:
+            assert w.dtype == torch.bfloat16 and b.dtype == torch.float32
     _assert_as_accurate(_accuracy([g.float() for g in got], want, sf_float32_taps))
 
 
@@ -191,6 +196,30 @@ def test_bf16_build_keeps_float32_weights_and_writes_float32_pkls(tmp_path):
                 assert arr.dtype == np.float32 and np.isfinite(arr).all()
 
 
+def test_bf16_parameters_fold_in_float32():
+    """A block whose parameters were cast to bf16 (``.to(torch.bfloat16)``)
+    folds BN in float32 in eval mode: bf16 weights and float32 biases for
+    the epilogue, and its output within bf16 rounding of its eager graph."""
+    torch.manual_seed(4)
+    blk = tsf.ResBlock(16, 32, 8, 3, 2)
+    for mod in blk.modules():
+        if isinstance(mod, torch.nn.BatchNorm3d):
+            mod.weight.data = torch.rand(mod.num_features) + 0.5
+            mod.bias.data = torch.randn(mod.num_features) * 0.1
+            mod.running_mean.copy_(torch.randn(mod.num_features) * 0.1)
+            mod.running_var.copy_(torch.rand(mod.num_features) + 0.5)
+    blk = blk.to(torch.bfloat16).eval()
+    x = torch.randn((2, 16, 4, 8, 8)).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last_3d)
+    with torch.no_grad():
+        got, want = blk(x), blk._eager(x)
+    folds = blk._folded_cache[torch.bfloat16]
+    assert all(w.dtype == torch.bfloat16 and b.dtype == torch.float32
+               for w, b in folds.values())
+    err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    assert err <= 2 ** -6, err
+
+
 @pytest.mark.parametrize("override", [{"computation.dtype": "float16"}])
 def test_what_is_not_ported_still_raises(override):
     cfg = tfe.get_config({"computation.device": "cpu", **override})
@@ -221,6 +250,18 @@ def test_int8_builds_in_the_headline_configuration():
         launches = {k: v for k, v in tracing.counters().items() if k.endswith(".launches")}
     assert launches == {}
     assert all(float(v) > 0 for v in model.quant_state_dict().values())
+    # the int8 blocks keep their own forward (BN unfolded, no epilogue);
+    # the fp stems and fuse convs run folded, one epilogue pass each
+    passes = []
+    epilogue = tsf.conv_epilogue
+    tsf.conv_epilogue = lambda y, *args: passes.append(y.shape) or epilogue(y, *args)
+    try:
+        with torch.inference_mode():
+            again = model(frames)
+    finally:
+        tsf.conv_epilogue = epilogue
+    assert len(passes) == 2 + 4
+    assert all(torch.equal(a, t) for a, t in zip(again, taps))
     assert [t.dtype for t in taps] == [torch.bfloat16] * 5
     assert all(torch.isfinite(t).all() for t in taps)
     with pytest.raises(ValueError):

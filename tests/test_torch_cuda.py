@@ -14,6 +14,7 @@ from acav100m_torch import tracing
 from acav100m_torch.ops import mi
 from acav100m_torch.ops.bottleneck_kernel import (fused_stage, fused_stage_bf16, fused_stage_ref,
                                                   pack_block_f32)
+from acav100m_torch.ops.conv_epilogue import conv_epilogue, conv_epilogue_ref
 from acav100m_torch.ops.kmeans_kernel import fused_assign_update, fused_assign_update_ref
 from acav100m_torch.ops.nonlocal_kernel import nonlocal_core, nonlocal_core_ref
 from acav100m_torch.ops.pairing import get_cluster_pairing
@@ -339,6 +340,128 @@ def test_nonlocal_core_refuses_what_it_cannot_take(card):
     # float32 runs the twin's float32 products on the card
     f32 = [torch.randn((2, 64, 40), device=card) for _ in range(3)]
     assert torch.equal(nonlocal_core(*f32), nonlocal_core_ref(*f32))
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("c,shape", [
+    (8, (3, 5, 7, 9)),      # one bf16 vector a row; 945 rows
+    (16, (2, 3, 5, 13)),    # 390 rows
+    (64, (3, 4, 9, 11)),    # 1188 rows: ends in a partial block of vectors
+    (2048, (2, 1, 3, 7)),   # 42 rows of 256 or 512 vectors
+])
+def test_conv_epilogue_matches_its_twin(card, dtype, residual, relu, c, shape):
+    n, d, h, w = shape
+    gen = torch.Generator().manual_seed(c + n * d)
+
+    def cl(t):
+        return t.to(card, dtype).contiguous(memory_format=torch.channels_last_3d)
+
+    y0 = cl(torch.randn((n, c, d, h, w), generator=gen) * 3)
+    bias = (torch.randn(c, generator=gen)).to(card)
+    r = cl(torch.randn((n, c, d, h, w), generator=gen) * 2) if residual else None
+    y, again = y0.clone(), y0.clone()
+    with tracing.enabled():
+        out = conv_epilogue(y, bias, r, relu)
+        conv_epilogue(again, bias, r, relu)
+    assert tracing.counters()["epilogue.launches"] == 2
+    torch.cuda.synchronize()
+    ref = conv_epilogue_ref(y0.clone(), bias, r, relu)
+    assert out is y and y.dtype == dtype
+    assert torch.equal(_bits(y), _bits(ref))
+    assert torch.equal(_bits(y), _bits(again))
+    if relu:
+        assert float(y.float().min()) >= 0.0
+
+
+def test_conv_epilogue_refuses_what_it_cannot_take(card):
+    def cl(*shape, dtype=torch.float32):
+        return torch.zeros(shape, device=card, dtype=dtype).contiguous(
+            memory_format=torch.channels_last_3d)
+
+    y, bias = cl(2, 16, 3, 4, 5), torch.zeros(16, device=card)
+    with pytest.raises(ValueError):  # C not a multiple of 8
+        conv_epilogue(cl(2, 12, 3, 4, 5), torch.zeros(12, device=card))
+    with pytest.raises(ValueError):  # a dtype the kernel does not take
+        conv_epilogue(cl(2, 16, 3, 4, 5, dtype=torch.float16), bias)
+    with pytest.raises(ValueError):  # NCDHW memory: not channels-last
+        conv_epilogue(torch.zeros((2, 16, 3, 4, 5), device=card), bias)
+    with pytest.raises(ValueError):  # a strided slice of channels-last memory
+        conv_epilogue(cl(2, 32, 3, 4, 5)[:, ::2], bias)
+    with pytest.raises(ValueError):  # the residual of another shape
+        conv_epilogue(y, bias, cl(2, 16, 3, 4, 6))
+    with pytest.raises(ValueError):  # the residual in NCDHW memory
+        conv_epilogue(y, bias, torch.zeros((2, 16, 3, 4, 5), device=card))
+    with pytest.raises(ValueError):  # the residual of another dtype
+        conv_epilogue(y, bias, cl(2, 16, 3, 4, 5, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # a bias of another dtype
+        conv_epilogue(y, bias.to(torch.bfloat16))
+
+
+def test_bf16_fast_stem_runs_tf32_products_of_the_bf16_values(card):
+    """The fast stem's (5, 7, 7) conv on 3 bf16 channels runs as a TF32
+    conv on the bf16 values (exact products, float32 sums, rounded once),
+    with the caller's TF32 setting off: within one bf16 step of the float64
+    conv of the same values, as the bf16 conv is, and the setting is left
+    as it was."""
+    from acav100m_torch.models import slowfast as tsf
+
+    gen = torch.Generator().manual_seed(9)
+    conv = tsf.ResNetBasicStem(3, 8, 5).conv
+    x = torch.randn((2, 3, 8, 32, 32), generator=gen).to(card, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last_3d)
+    w = (torch.randn((8, 3, 5, 7, 7), generator=gen) * 0.1).to(card, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last_3d)
+    want = torch.nn.functional.conv3d(x.double(), w.double(), None, conv.stride, conv.padding)
+    assert not torch.backends.cudnn.allow_tf32  # the module's fixture
+    got = tsf._conv(conv.to(card), w, x)
+    assert not torch.backends.cudnn.allow_tf32
+    assert got.dtype == torch.bfloat16 and got.permute(0, 2, 3, 4, 1).is_contiguous()
+    scale = float(want.abs().max())
+    assert float((got.double() - want).abs().max()) <= 2 ** -7 * scale
+
+
+@pytest.mark.parametrize("name,dtype", [("layer_slowfast", torch.float32),
+                                        ("layer_slowfast", torch.bfloat16),
+                                        ("layer_slowfast_nln", torch.bfloat16)])
+def test_folded_forward_on_card_matches_cpu(card, name, dtype):
+    """The eval-mode forward (BN folded, channels-last, the epilogue) on the
+    card against the same model on the CPU (the twin): 93 epilogue launches
+    a forward, 2 stems, 4 fuses and 3 in each of the 29 canonical blocks
+    (K2 runs the slow ``s2``)."""
+    from acav100m_torch.models import get_model
+
+    torch.manual_seed(5)
+    model = get_model(name)(dtype=dtype)
+    gen = torch.Generator().manual_seed(6)
+    with torch.no_grad():  # BN statistics and non-zero scales, so every fold matters
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.BatchNorm3d):
+                c = mod.num_features
+                mod.weight.copy_(torch.rand(c, generator=gen) * 0.2 + 0.1)
+                mod.bias.copy_(torch.randn(c, generator=gen) * 0.1)
+                mod.running_mean.copy_(torch.randn(c, generator=gen) * 0.1)
+                mod.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
+    frames = torch.randint(0, 255, (2, 32, 64, 64, 3), generator=gen, dtype=torch.uint8)
+    with torch.inference_mode():
+        want = model(frames)
+    model.to(card)
+    with torch.inference_mode(), tracing.enabled():
+        got = model(frames.to(card))
+        counts = tracing.counters()
+    assert counts["epilogue.launches"] == 93
+    k2 = "k2_fp32.launches" if dtype == torch.float32 else "k2_bf16.launches"
+    assert counts[k2] == 3
+    for g, w in zip(got, want):
+        scale = float(w.float().abs().max())
+        err = float((g.float().cpu() - w.float()).abs().max())
+        # float32 without TF32 sums in other orders; bf16 rounds a step apart
+        assert err <= (1e-4 if dtype == torch.float32 else 5e-2) * scale, (err, scale)
 
 
 def _batch_mi_launch(state):
